@@ -6,18 +6,27 @@
 Needs one CUDA device, nvcc, and nothing from the network.  It
 
 1. prints the card (name and power limit as nvidia-smi gives them), the
-   torch / CUDA versions, and builds the three kernels of
+   torch / CUDA versions, and builds the kernel libraries of
    photon_tpu_torch/csrc from source;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (and at the whole-image shapes), with the
-   tolerance printed, and times both with CUDA events;
-3. drives the main path once through the command line entry point
+   shapes the main paths give it (and at the whole-image shapes), with the
+   tolerance printed, and times both with CUDA events: the three forward
+   kernels (march, fan statistics, splat), the march's stage-residual head,
+   and the four backward kernels (march over the residual, march by
+   re-marching, fan, splat transpose) against torch.autograd through the
+   plain forward versions;
+3. drives the rendering path once through the command line entry point
    (photon_tpu_torch.cli.main -> run_simulation -> run_bos -> save_result):
    the BOS image pair at 1024 x 1024, 1000 dots x ~100 source points,
    500 rays each, RK4 through a 64^3 density volume; checks the artifacts,
    the launch counters, the images against a render through the plain
    versions, and the run-to-run difference of the atomics-based splat;
-4. prints one JSON line describing the kernels and, last, one JSON line
+4. drives the inversion path: photon_tpu_torch.inverse.invert_bos takes five
+   Adam steps on the density grid of the same scene against the rendered
+   im2; checks the losses, the launch counters of every forward and
+   backward kernel, and the first gradient against the same step through
+   the plain versions at every tenth particle;
+5. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
@@ -46,6 +55,15 @@ FAN_OPS_PER_PAIR = {"general": 200, "thin-lens": 90, "apparent": 70}
 FAN_OPS_MARCH = 25
 SPLAT_OPS_PER_PATCH_PIXEL = 10    # index arithmetic and the circle test
 SPLAT_OPS_PER_DEPOSIT = 90        # four erff (~20 each) and the products
+# backward kernels: one stage's sample recompute and VJP (coordinates 15,
+# weights 10, blend 68, rhs 7, cotangents 20, scatter products 40, tap dots
+# 56, coordinate cotangents 45) and the per-slab combine
+MARCH_VJP_OPS_PER_STAGE = 260
+MARCH_VJP_OPS_PER_COMBINE = 120
+# fan backward sweep per pair, on top of the forward recompute
+FAN_BWD_OPS_PER_PAIR = {"general": 420, "thin-lens": 150, "apparent": 110}
+FAN_BWD_OPS_MARCH = 35
+SPLAT_BWD_OPS_PER_DEPOSIT = 165   # four erff, four expf (~15 each), products
 
 
 def bound_ms(nbytes, ops):
@@ -62,6 +80,58 @@ def require(cond, message) -> None:
         raise RuntimeError(f"chip_smoke: {message}")
 
 
+BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS = 1024, 1000, 500
+
+
+def bench_scene():
+    """The scene both paths are driven at (the JAX package's bench scene):
+    1024^2 sensor, 1000 dots x ~100 source points, 500 rays each, a 64^3
+    volume with a density ramp along x.  Returns the config, the camera
+    setup, rho (W, H, D) and the volume's spacings and origin."""
+    import numpy as np
+
+    from photon_tpu_torch.config import default_config
+    from photon_tpu_torch.models.optics import camera_setup
+
+    cfg = default_config("bos")
+    cfg.camera_design.x_pixel_number = BENCH_SENSOR
+    cfg.camera_design.y_pixel_number = BENCH_SENSOR
+    cfg.bos_pattern.grid_point_number = BENCH_DOTS
+    cfg.bos_pattern.particle_number_per_grid_point = 100
+    cfg.bos_pattern.lightray_number_per_particle = BENCH_RAYS
+    cfg.density_gradients.simulate_density_gradients = True
+    m = cfg.lens_design.focal_length / (
+        cfg.lens_design.object_distance - cfg.lens_design.focal_length)
+    half = 0.8 * BENCH_SENSOR * cfg.camera_design.pixel_pitch / 2.0 / m
+    cfg.bos_pattern.X_Min, cfg.bos_pattern.X_Max = -half, half
+    cfg.bos_pattern.Y_Min, cfg.bos_pattern.Y_Max = -half, half
+    setup = camera_setup(cfg)
+    n = 64
+    gx = np.linspace(-1.5e5, 1.5e5, n)
+    gz = np.linspace(setup.object_distance - 5e5,
+                     setup.object_distance - 1e2, n)
+    rho = 1.225 + 5.0 * (gx[:, None, None] - gx.min()) \
+        / (gx.max() - gx.min()) * np.ones((1, n, n))
+    spacings = [gx[1] - gx[0], gx[1] - gx[0], gz[1] - gz[0]]
+    origin = [gx[0], gx[0], gz[0]]
+    return cfg, setup, rho, spacings, origin
+
+
+def write_bench_case(directory, cfg, rho, spacings, origin):
+    """Write the scene as a case for the command line (case.json beside
+    rho.nrrd, which the config is pointed at); returns the two paths."""
+    import numpy as np
+
+    from photon_tpu_torch.utils.nrrd_io import write_nrrd
+
+    nrrd = os.path.join(directory, "rho.nrrd")
+    write_nrrd(nrrd, rho.astype(np.float32), spacings, origin)
+    cfg.density_gradients.density_gradient_filename = nrrd
+    case = os.path.join(directory, "case.json")
+    cfg.to_json(case)
+    return case, nrrd
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -73,21 +143,26 @@ def main() -> int:
 
     from photon_tpu_torch import kernels
     from photon_tpu_torch.cli import main as cli_main
-    from photon_tpu_torch.config import default_config
-    from photon_tpu_torch.models.optics import camera_setup
     from photon_tpu_torch.models.render import RenderParams
     from photon_tpu_torch.models.render_fast import (_chief_geometry,
                                                      auto_patch, fan_scalars)
+    import dataclasses
+
+    from photon_tpu_torch.inverse import invert_bos, volume_from_rho
+    from photon_tpu_torch.models.render_fast import render_image_fast
     from photon_tpu_torch.models.scenes import bos_source
-    from photon_tpu_torch.ops.fan import fan_stats, fan_stats_plain
+    from photon_tpu_torch.ops import march_dense_fused as mdf
+    from photon_tpu_torch.ops.fan import (fan_constants, fan_stats,
+                                          fan_stats_backward, fan_stats_plain)
     from photon_tpu_torch.ops.march_dense import (chief_deltas_dense,
                                                   march_chief_dense,
                                                   march_geometry)
-    from photon_tpu_torch.ops.march_dense_fused import march_chief_fused
-    from photon_tpu_torch.ops.splat import (splat_particles,
+    from photon_tpu_torch.ops.march_dense_fused import (
+        march_backward_remarch, march_backward_stage, march_chief_fused,
+        march_forward_residual)
+    from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
                                             splat_particles_plain)
     from photon_tpu_torch.pipeline import _lens_sample_pair, _ray_budget, run_bos
-    from photon_tpu_torch.utils.nrrd_io import write_nrrd
     from photon_tpu_torch.utils.tiff_io import read_tiff16
     from photon_tpu_torch.volume import (build_density_volume,
                                          load_density_volume)
@@ -140,28 +215,11 @@ def main() -> int:
     # the main path's scene (the JAX package's bench scene): 1024^2
     # sensor, 1000 dots x ~100 source points, 500 rays, 64^3 volume
     # ------------------------------------------------------------------
-    sensor, n_dots, rays_per = 1024, 1000, 500
-    cfg = default_config("bos")
-    cfg.camera_design.x_pixel_number = sensor
-    cfg.camera_design.y_pixel_number = sensor
-    cfg.bos_pattern.grid_point_number = n_dots
-    cfg.bos_pattern.particle_number_per_grid_point = 100
-    cfg.bos_pattern.lightray_number_per_particle = rays_per
-    cfg.density_gradients.simulate_density_gradients = True
+    sensor, n_dots, rays_per = BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS
+    cfg, setup, rho, spacings, origin = bench_scene()
+    n = rho.shape[0]
     m = cfg.lens_design.focal_length / (
         cfg.lens_design.object_distance - cfg.lens_design.focal_length)
-    half = 0.8 * sensor * cfg.camera_design.pixel_pitch / 2.0 / m
-    cfg.bos_pattern.X_Min, cfg.bos_pattern.X_Max = -half, half
-    cfg.bos_pattern.Y_Min, cfg.bos_pattern.Y_Max = -half, half
-    setup = camera_setup(cfg)
-    n = 64
-    gx = np.linspace(-1.5e5, 1.5e5, n)
-    gz = np.linspace(setup.object_distance - 5e5,
-                     setup.object_distance - 1e2, n)
-    rho = 1.225 + 5.0 * (gx[:, None, None] - gx.min()) \
-        / (gx.max() - gx.min()) * np.ones((1, n, n))
-    spacings = [gx[1] - gx[0], gx[1] - gx[0], gz[1] - gz[0]]
-    origin = [gx[0], gx[0], gz[0]]
 
     source, dot_x, dot_y = bos_source(cfg, setup,
                                       np.random.default_rng(cfg.seed))
@@ -450,19 +508,412 @@ def main() -> int:
         whole_image=dict(shape=f"{P} spots", max_abs_err=k3_err_whole,
                          ms=k3_ms_whole, plain_ms=k3_plain_ms_whole,
                          bound_ms=k3_bound_whole)))
+    # ------------------------------------------------------------------
+    # phase 2d: K1's stage-residual head (the forward of the gradient route)
+    # ------------------------------------------------------------------
+    print("K1 stage-residual head (csrc/march_dense.cu) against the plain head")
+    gnp = np.asarray(geom, dtype=np.float32)
+    field_bytes = vol.field.numel() * 4
+    rays6 = torch.stack(chief).contiguous()
+    out_t, texit, traj = march_forward_residual(vol.field, rays6, gnp, 2, True)
+    out_n, texit_n, _ = march_forward_residual(vol.field, rays6, gnp, 2, False)
+    plain_head = torch.stack(march_chief_fused(vol, *chief, algorithm=2))
+    sync()
+    k1t_err = float((out_t - plain_head).abs().max())
+    # bit-equal: the two heads are instantiations of one kernel that differ
+    # only in what they store
+    hold(f"K1 residual head, {P} rays: values that differ from the plain "
+         f"head", float((out_t != plain_head).sum()), 0.0)
+    hold("K1 gradient-route head without the residual: values that differ",
+         float((out_t != out_n).sum()
+               + (texit[:, inside] != texit_n[:, inside]).sum()), 0.0)
+    k1t_ms = time_ms(lambda: march_forward_residual(vol.field, rays6, gnp, 2,
+                                                    True))
+    traj_bytes = steps * 20 * 4
+    k1t_bound, k1t_by = bound_ms(15 * P * 4 + field_bytes + traj_bytes, k1_ops)
+    print(f"    time {k1t_ms:.4f} ms  (plain head {k1_ms:.4f} ms)  bound "
+          f"{k1t_bound:.4f} ms ({k1t_by}; residual {traj_bytes / 1e6:.1f} MB "
+          f"written, {traj.numel() * 4 / 1e6:.1f} MB allocated)  [{card}]")
+    kernel_rows.append(dict(
+        name="march_dense_residual", route="cuda",
+        source="photon_tpu_torch/csrc/march_dense.cu",
+        replaces="photon_tpu/ops/march_dense_fused.py:164",
+        shape=f"{P} rays, 64^3 field, RK4, (63, 20, {P}) residual",
+        max_abs_err=k1t_err, tolerance=0.0, ms=k1t_ms, plain_ms=k1_plain_ms,
+        bound_ms=k1t_bound, bound_by=k1t_by, library_ms=None))
+
+    # ------------------------------------------------------------------
+    # phase 2e: K4 and K5, the march's backward kernels
+    # ------------------------------------------------------------------
+    print("K4 / K5 march backward (csrc/march_bwd.cu) against autograd "
+          "through the plain march")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    # limits of the JAX package's own fused-vs-autodiff tests
+    # (tests/test_dense_fused.py): 5e-4 of the largest field gradient, 1e-3
+    # of the largest entry-state gradient.  Kernel and plain version differ
+    # by FMA contraction, by the order of the sum over rays (atomics against
+    # index_add) and, for K5, by the reconstruction of the stage states.
+    MARCH_FIELD_TOL, MARCH_STATE_TOL = 5e-4, 1e-3
+
+    def nerr(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def march_grads(fn, v, rays, cts, alg):
+        fld = v.field.detach().clone().requires_grad_(True)
+        rr = [r.detach().clone().requires_grad_(True) for r in rays]
+        outs = fn(v._replace(field=fld), *rr, algorithm=alg)
+        return torch.autograd.grad(outs, [fld] + rr, grad_outputs=cts)
+
+    def with_budget(nbytes, fn):
+        saved = mdf.TRAJ_MAX_BYTES
+        mdf.TRAJ_MAX_BYTES = nbytes
+        try:
+            return fn()
+        finally:
+            mdf.TRAJ_MAX_BYTES = saved
+
+    def march_bwd_case(v, rays, alg, label):
+        n_r = rays[0].shape[0]
+        cts = [torch.randn(n_r, generator=gen, device=dev) * sc_
+               for sc_ in (1.0, 1.0, 1.0, 1e5, 1e5, 1e5)]
+        g4 = march_grads(march_chief_fused, v, rays, cts, alg)
+        g5 = with_budget(0, lambda: march_grads(march_chief_fused, v, rays,
+                                                cts, alg))
+        sync()
+        gp = march_grads(march_chief_dense, v, rays, cts, alg)
+        errs = {}
+        for nm, gk in (("K4", g4), ("K5", g5)):
+            errs[nm] = (nerr(gk[0], gp[0]),
+                        max(nerr(a, b) for a, b in zip(gk[1:], gp[1:])))
+            hold(f"{nm} {label}: d_field (of its maximum)", errs[nm][0],
+                 MARCH_FIELD_TOL)
+            hold(f"{nm} {label}: cotangents of the rays (of their maxima)",
+                 errs[nm][1], MARCH_STATE_TOL)
+        hold(f"K4 against K5 {label}: d_field (of its maximum)",
+             nerr(g4[0], g5[0]), MARCH_FIELD_TOL)
+        if not bool(torch.isfinite(torch.stack([g.abs().max() for g in g4 + g5]
+                                               )).all()):
+            failures.append(f"march backward {label}: not finite")
+        return errs
+
+    # the random-density volume of the JAX package's fused-march tests
+    rgen = np.random.default_rng(3)
+    rx = np.linspace(-6e4, 6e4, 12)
+    rz = np.linspace(4.0e5, 9.0e5, 12)
+    vol_rand = build_density_volume(
+        1.2 + 0.8 * rgen.random((12, 12, 12)),
+        [rx[1] - rx[0], rx[1] - rx[0], rz[1] - rz[0]], [rx[0], rx[0], rz[0]],
+        device=dev)
+    rtx, rty = rgen.uniform(-0.08, 0.08, P), rgen.uniform(-0.08, 0.08, P)
+    rinv = 1.0 / np.sqrt(rtx * rtx + rty * rty + 1.0)
+    rand_rays = [f32(a) for a in (rgen.uniform(-4e4, 4e4, P),
+                                  rgen.uniform(-4e4, 4e4, P),
+                                  np.full(P, 1.0e6), rtx * rinv, rty * rinv,
+                                  -rinv)]
+    # some rays start inside the volume, below it, or travel upward
+    rand_rays[2][:3000] = f32(rgen.uniform(4.5e5, 8.5e5, 3000))
+    rand_rays[2][3000:4000] = 3.0e5
+    rand_rays[5][4000:5000] = -rand_rays[5][4000:5000]
+    print(f"    defect corrections of K5: {mdf.defect_iterations(geom)} on the "
+          f"bench volume, "
+          f"{mdf.defect_iterations(march_geometry(vol_rand))} on the random one")
+    march_errs = {}
+    for alg, alg_name in ((2, "RK4"), (1, "Euler")):
+        march_errs[alg_name] = march_bwd_case(
+            vol, chief, alg, f"{alg_name}, {P} rays, bench 64^3")
+        march_bwd_case(vol_rand, rand_rays, alg,
+                       f"{alg_name}, {P} rays, random 12^3")
+
+    ct6 = torch.randn(6, P, generator=gen, device=dev)
+    iters_bench = mdf.defect_iterations(geom)
+
+    def run_k4():
+        return march_backward_stage(vol.field, rays6, texit, traj, ct6, gnp,
+                                    2)
+
+    def run_k5():
+        return march_backward_remarch(vol.field, rays6, texit, out_t, ct6,
+                                      gnp, 2, iters_bench)
+
+    d_a, d_b = run_k4()[0], run_k4()[0]
+    sync()
+    k4_rr = nerr(d_a, d_b)
+    print(f"    two K4 launches differ in d_field by {k4_rr:.3e} of its "
+          f"maximum (float atomics)")
+    require(k4_rr <= 1e-4, f"two K4 launches differ by {k4_rr}")
+    k4_ms = time_ms(run_k4, reps=5, warm=1)
+    k5_ms = time_ms(run_k5, reps=5, warm=1)
+    fld_p = vol.field.detach().clone().requires_grad_(True)
+    outs_p = march_chief_dense(vol._replace(field=fld_p), *chief, algorithm=2)
+    # (the exit z is a landing plane and carries no gradient)
+    diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
+    march_plain_bwd_ms = time_ms(
+        lambda: torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
+                                    grad_outputs=[ct6[i] for i in diff_p],
+                                    retain_graph=True), reps=3, warm=1)
+    del outs_p, fld_p
+    k4_ops = steps * (4 * MARCH_VJP_OPS_PER_STAGE + MARCH_VJP_OPS_PER_COMBINE)
+    k4_bound, k4_by = bound_ms(traj_bytes + 21 * P * 4 + 2 * field_bytes,
+                               k4_ops)
+    k5_ops = k4_ops + steps * (
+        (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS
+        + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
+    k5_bound, k5_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5_ops)
+    print(f"    K4 time {k4_ms:.4f} ms  bound {k4_bound:.4f} ms ({k4_by})  "
+          f"K5 time {k5_ms:.4f} ms  bound {k5_bound:.4f} ms ({k5_by})  "
+          f"autograd through the plain march {march_plain_bwd_ms:.2f} ms  "
+          f"[{card}]")
+    for nm, line, ms_, bnd, by in (
+            ("march_bwd_stage", 656, k4_ms, k4_bound, k4_by),
+            ("march_bwd_remarch", 348, k5_ms, k5_bound, k5_by)):
+        e = march_errs["RK4"]["K4" if nm == "march_bwd_stage" else "K5"]
+        kernel_rows.append(dict(
+            name=nm, route="cuda",
+            source="photon_tpu_torch/csrc/march_bwd.cu",
+            replaces=f"photon_tpu/ops/march_dense_fused.py:{line}",
+            shape=f"{P} rays, 64^3 field, RK4",
+            max_abs_err=e[0], state_err=e[1], tolerance=MARCH_FIELD_TOL,
+            ms=ms_, plain_ms=march_plain_bwd_ms, bound_ms=bnd, bound_by=by,
+            library_ms=None))
+    del traj, texit, d_a, d_b
+
+    # ------------------------------------------------------------------
+    # phase 2f: K6, the fan's backward
+    # ------------------------------------------------------------------
+    print("K6 fan backward (csrc/fan_stats.cu) against autograd through the "
+          "plain fan")
+    # limit: four times the largest error seen on the card (2.5e-4), of each
+    # column's largest cotangent.  Kernel and autograd run the same chain
+    # without FMA contraction and differ by the order of the sum over the
+    # 500 rays and of a few accumulations.  The error is the same for the
+    # three lens models, so it is not the discriminant's cotangent
+    # 2 beta d_beta - 4 d_gamma (formed the same way on both sides) that sets
+    # it but the centroid loss: ct_A + ct_AX X + ct_AY Y nearly cancels for
+    # every ray, since scaling a particle's amplitude moves no centroid.
+    K6_TOL = 1e-3
+    a_mean = float(A[A > 0].mean())
+
+    def fan_grads(fn, cols, dd, lens_model, coef, **extra):
+        cc = [c.detach().clone().requires_grad_(True) for c in cols]
+        d6 = None if dd is None else tuple(
+            d.detach().clone().requires_grad_(True) for d in dd)
+        fa, fax, fay = fn(*cc, d6, x_lens, y_lens, sc=sc,
+                          lens_model=lens_model, mirror_x=True, **extra)
+        den = fa.clamp_min(1e-30)
+        loss = (coef[0] * fa / a_mean + coef[1] * fax / den
+                + coef[2] * fay / den).sum()
+        return torch.autograd.grad(loss, cc + list(d6 or ()))
+
+    def fan_bwd_case(lens_model, d6, sel, label, plain_slice=None):
+        """One launch of the kernel route against autograd through the plain
+        fan.  The loss is a sum over particles of terms of one particle each,
+        so the plain side may be taken `plain_slice` particles at a time (its
+        graph holds dozens of (particles, rays) arrays) and concatenated."""
+        cols = [a[sel].contiguous() for a in (xs, ys, zs, amp0)]
+        dd = None if d6 is None else tuple(d[sel].contiguous() for d in d6)
+        n_p = cols[0].shape[0]
+        coef = torch.randn(3, n_p, generator=gen, device=dev)
+        before = int(fan_stats_backward.launches)
+        gk = fan_grads(fan_stats, cols, dd, lens_model, coef)
+        sync()
+        require(int(fan_stats_backward.launches) == before + 1,
+                f"K6 {label}: the kernel route took "
+                f"{int(fan_stats_backward.launches) - before} launches, not 1")
+        parts = []
+        for s0 in range(0, n_p, plain_slice or n_p):
+            sl = slice(s0, min(s0 + (plain_slice or n_p), n_p))
+            parts.append(fan_grads(
+                fan_stats_plain, [c[sl] for c in cols],
+                None if dd is None else tuple(d[sl] for d in dd),
+                lens_model, coef[:, sl]))
+        gp = [torch.cat(g) for g in zip(*parts)]
+        err = max(nerr(a, b) for a, b in zip(gk, gp))
+        live = int(sum(int((b != 0).any()) for b in gp))
+        hold(f"K6 {label}: {len(gp)} column cotangents, {live} not zero "
+             f"(each of its maximum)", err, K6_TOL)
+        if not all(bool(torch.isfinite(g).all()) for g in gk):
+            failures.append(f"K6 {label}: not finite")
+        return err
+
+    k6_err = fan_bwd_case("general", deltas6, first,
+                          f"general + deltas, {chunk} x {R}")
+    fan_bwd_case("general", None, first, f"general, no deltas, {chunk} x {R}")
+    for lm in ("apparent", "thin-lens"):
+        fan_bwd_case(lm, deltas6, first, f"{lm} + deltas, {chunk} x {R}")
+        fan_bwd_case(lm, None, first, f"{lm}, no deltas, {chunk} x {R}")
+    # the shape the inversion path gives it: one launch over every particle
+    k6_err_whole = fan_bwd_case(
+        "general", deltas6, whole,
+        f"general + deltas, {P} x {R} (the plain side 4000 particles at a "
+        f"time)", plain_slice=4000)
+    # off-sensor particles get exactly zero
+    gfar_b = fan_grads(fan_stats, far, None, "general",
+                       torch.ones(3, chunk, device=dev))
+    if not all(float(g[:7].abs().max()) == 0.0 for g in gfar_b):
+        failures.append("K6 off-sensor particles")
+
+    consts = np.asarray(fan_constants(sc), dtype=np.float32)
+
+    def fan_bwd_time(sel, **kw):
+        cols = [a[sel].contiguous() for a in (xs, ys, zs, amp0)] \
+            + [d[sel].contiguous() for d in deltas6]
+        ct3 = torch.randn(3, cols[0].shape[0], generator=gen, device=dev)
+        return time_ms(lambda: fan_stats_backward(
+            cols, x_lens, y_lens, ct3, consts, "general", True), **kw)
+
+    k6_ms = fan_bwd_time(first, inner=20)
+    k6_ms_whole = fan_bwd_time(whole)
+    cc_p = [a[first].detach().clone().requires_grad_(True)
+            for a in (xs, ys, zs, amp0)]
+    dd_p = tuple(d[first].detach().clone().requires_grad_(True)
+                 for d in deltas6)
+    outs_p = fan_stats_plain(*cc_p, dd_p, x_lens, y_lens, sc=sc,
+                             lens_model="general", mirror_x=True)
+    ct3_p = list(torch.randn(3, chunk, generator=gen, device=dev).unbind(0))
+    k6_plain_ms = time_ms(
+        lambda: torch.autograd.grad(outs_p, cc_p + list(dd_p),
+                                    grad_outputs=ct3_p, retain_graph=True),
+        reps=5, warm=1)
+    del outs_p, cc_p, dd_p
+    bwd_pair_ops = pair_ops + FAN_BWD_OPS_PER_PAIR["general"] \
+        + FAN_BWD_OPS_MARCH
+
+    def fan_bwd_bound(n_p):
+        return bound_ms(23 * n_p * 4 + 2 * R * 4, n_p * R * bwd_pair_ops)
+
+    k6_bound, k6_by = fan_bwd_bound(chunk)
+    k6_bound_whole, _ = fan_bwd_bound(P)
+    print(f"    {chunk} x {R}: time {k6_ms:.4f} ms  autograd through the "
+          f"plain fan {k6_plain_ms:.2f} ms  bound {k6_bound:.4f} ms "
+          f"({k6_by})  [{card}]")
+    print(f"    {P} x {R}: time {k6_ms_whole:.4f} ms  bound "
+          f"{k6_bound_whole:.4f} ms ({k6_by})  [{card}]")
+    kernel_rows.append(dict(
+        name="fan_stats_bwd", route="cuda",
+        source="photon_tpu_torch/csrc/fan_stats.cu",
+        replaces="photon_tpu/ops/fan_pallas.py:230",
+        shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
+        max_abs_err=k6_err, tolerance=K6_TOL, ms=k6_ms, plain_ms=k6_plain_ms,
+        bound_ms=k6_bound, bound_by=k6_by, library_ms=None,
+        whole_image=dict(shape=f"{P} x {R}", max_abs_err=k6_err_whole,
+                         ms=k6_ms_whole, bound_ms=k6_bound_whole)))
+
+    # ------------------------------------------------------------------
+    # phase 2g: K7, the splat's transpose
+    # ------------------------------------------------------------------
+    print("K7 splat transpose (csrc/splat.cu) against autograd through the "
+          "plain splat")
+    # limit: 30 times the largest error seen on the card (3.5e-7), of each
+    # output's largest value; both sides use erff / expf of the same
+    # arguments and differ by the order of the sum over the patch
+    K7_TOL = 1e-5
+    ct_img = torch.randn(sensor, sensor, generator=gen, device=dev)
+
+    def splat_args(sel, K_):
+        c0 = (torch.round(Xbar).to(torch.int32) - K_ // 2).clamp(0, sensor - K_)
+        r0 = (torch.round(Ybar).to(torch.int32) - K_ // 2).clamp(0, sensor - K_)
+        return [a[sel].contiguous() for a in (Xbar, Ybar, Asc, c0, r0)]
+
+    def splat_grads(fn, args, K_):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args[:3]]
+        img = fn(*leaves, args[3], args[4], **{**skw, "K": K_})
+        return torch.autograd.grad(img, leaves, grad_outputs=ct_img)
+
+    def splat_bwd_case(sel, K_, label):
+        args = splat_args(sel, K_)
+        gk = splat_grads(splat_particles, args, K_)
+        sync()
+        gp = splat_grads(splat_particles_plain, args, K_)
+        err = max(nerr(a, b) for a, b in zip(gk, gp))
+        hold(f"K7 {label}: d(Xs, Ys, A) (each of its maximum)", err, K7_TOL)
+        return err
+
+    k7_err = splat_bwd_case(first, K, f"{chunk} spots, K={K}")
+    splat_bwd_case(first, 12, f"{chunk} spots, K=12")
+    k7_err_whole = splat_bwd_case(whole, K, f"{P} spots, K={K}")
+
+    def splat_bwd_time(sel, **kw):
+        args = splat_args(sel, K)
+        return time_ms(lambda: splat_backward(
+            *args, ct_img, K=K, diameter=D, render_fraction=0.75), **kw)
+
+    k7_ms = splat_bwd_time(first, inner=20)
+    k7_ms_whole = splat_bwd_time(whole)
+    args_p = splat_args(first, K)
+    leaves_p = [a.detach().clone().requires_grad_(True) for a in args_p[:3]]
+    img_p = splat_particles_plain(*leaves_p, args_p[3], args_p[4], **skw)
+    k7_plain_ms = time_ms(
+        lambda: torch.autograd.grad(img_p, leaves_p, grad_outputs=ct_img,
+                                    retain_graph=True), reps=5, warm=1)
+    del img_p, leaves_p
+
+    def splat_bwd_bound(sl, deposits):
+        n_p = Asc[sl].numel()
+        ops = n_p * K * K * SPLAT_OPS_PER_PATCH_PIXEL \
+            + deposits * SPLAT_BWD_OPS_PER_DEPOSIT
+        return bound_ms(32 * n_p + min(sensor * sensor, n_p * K * K) * 4, ops)
+
+    k7_bound, k7_by = splat_bwd_bound(first, k3_dep)
+    k7_bound_whole, k7_by_whole = splat_bwd_bound(whole, k3_dep_whole)
+    print(f"    {chunk} spots: time {k7_ms:.4f} ms  autograd through the "
+          f"plain splat {k7_plain_ms:.2f} ms  bound {k7_bound:.4f} ms "
+          f"({k7_by})  [{card}]")
+    print(f"    {P} spots: time {k7_ms_whole:.4f} ms  bound "
+          f"{k7_bound_whole:.4f} ms ({k7_by_whole})  [{card}]")
+    kernel_rows.append(dict(
+        name="splat_bwd", route="cuda",
+        source="photon_tpu_torch/csrc/splat.cu",
+        replaces="photon_tpu/ops/sensor_fast.py:181",
+        shape=f"{chunk} spots, K={K}, {sensor}x{sensor} cotangent",
+        max_abs_err=k7_err, tolerance=K7_TOL, ms=k7_ms, plain_ms=k7_plain_ms,
+        bound_ms=k7_bound, bound_by=k7_by, library_ms=None,
+        whole_image=dict(shape=f"{P} spots", max_abs_err=k7_err_whole,
+                         ms=k7_ms_whole, bound_ms=k7_bound_whole)))
+
     if failures:
         raise SystemExit(f"chip_smoke: kernel comparisons failed: {failures}")
+
+    amp2 = f32(source.radiance) * float(np.float32(
+        (8.0 / math.pi) / params.aperture_f_number ** 2
+        * lens_params[6]))                               # with transmission
+
+    def plain_render(v, sel):
+        """The image of the particles `sel` through the plain versions
+        only (differentiable with respect to v.field)."""
+        ch = tuple(c[sel] for c in chief)
+        x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(v, *ch, algorithm=2)
+        t_exit = (z1 - ch[2]) / ch[5]
+        d6p = (z1, x1 - (ch[0] + ch[3] * t_exit),
+               y1 - (ch[1] + ch[4] * t_exit),
+               dx1 - ch[3], dy1 - ch[4], dz1 - ch[5])
+        cols = [a[sel] for a in (xs, ys, zs, amp2)]
+        img = torch.zeros((sensor, sensor), dtype=torch.float32, device=dev)
+        n_sel = cols[0].shape[0]
+        for s0 in range(0, n_sel, chunk):
+            sl = slice(s0, min(s0 + chunk, n_sel))
+            pA, pAX, pAY = fan_stats_plain(
+                *(c[sl] for c in cols), tuple(d[sl] for d in d6p), x_lens,
+                y_lens, sc=sc, lens_model="general", mirror_x=True)
+            on = pA > 0
+            pX = torch.where(on, pAX / pA.clamp_min(1e-30),
+                             torch.full_like(pA, -1e6))
+            pY = torch.where(on, pAY / pA.clamp_min(1e-30),
+                             torch.full_like(pA, -1e6))
+            img = img + splat_particles_plain(
+                pX, pY, torch.where(on, pA, torch.zeros_like(pA))
+                * (math.pi / 32.0),
+                (torch.round(pX).to(torch.int32) - K // 2).clamp(0, sensor - K),
+                (torch.round(pY).to(torch.int32) - K // 2).clamp(0, sensor - K),
+                **skw)
+        return img
 
     # ------------------------------------------------------------------
     # phase 3: the main path, through the command line entry point
     # ------------------------------------------------------------------
-    print("main path: photon_tpu_torch.cli.main at full size")
+    print("rendering path: photon_tpu_torch.cli.main at full size")
     with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
-        nrrd = os.path.join(tmp, "rho.nrrd")
-        write_nrrd(nrrd, rho.astype(np.float32), spacings, origin)
-        cfg.density_gradients.density_gradient_filename = nrrd
-        case = os.path.join(tmp, "case.json")
-        cfg.to_json(case)
+        case, nrrd = write_bench_case(tmp, cfg, rho, spacings, origin)
         out = os.path.join(tmp, "out")
 
         wrappers = dict(march_dense=march_chief_fused, fan_stats=fan_stats,
@@ -478,8 +929,10 @@ def main() -> int:
         if rc != 0:
             raise SystemExit(f"chip_smoke: the CLI returned {rc}")
         for row in kernel_rows:
-            row["launches"] = counts[row["name"]]
-        print(f"    launches on the main path: {counts}")
+            if row["name"] in counts:
+                row["launches"] = counts[row["name"]]
+                row["launches_on"] = "cli.main, the BOS pair"
+        print(f"    launches on the rendering path: {counts}")
         expect = dict(march_dense=1, fan_stats=2 * n_chunks,
                       splat=2 * n_chunks)
         if counts != expect:
@@ -536,35 +989,8 @@ def main() -> int:
         vol_file = load_density_volume(
             nrrd, gladstone_dale=cfg.density_gradients.gladstone_dale,
             device=dev)
-        x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(vol_file, *chief,
-                                                      algorithm=2)
-        t_exit = (z1 - chief[2]) / chief[5]
-        d6_plain = (z1, x1 - (chief[0] + chief[3] * t_exit),
-                    y1 - (chief[1] + chief[4] * t_exit),
-                    dx1 - chief[3], dy1 - chief[4], dz1 - chief[5])
-        amp2 = f32(source.radiance) * float(np.float32(
-            (8.0 / math.pi) / params.aperture_f_number ** 2
-            * lens_params[6]))                           # with transmission
-        plain2 = torch.zeros((sensor, sensor), dtype=torch.float32,
-                             device=dev)
-        for s0 in range(0, P, chunk):
-            sl = slice(s0, min(s0 + chunk, P))
-            pA, pAX, pAY = fan_stats_plain(
-                xs[sl], ys[sl], zs[sl], amp2[sl],
-                tuple(d[sl] for d in d6_plain), x_lens, y_lens, sc=sc,
-                lens_model="general", mirror_x=True)
-            on = pA > 0
-            pX = torch.where(on, pAX / pA.clamp_min(1e-30),
-                             torch.full_like(pA, -1e6))
-            pY = torch.where(on, pAY / pA.clamp_min(1e-30),
-                             torch.full_like(pA, -1e6))
-            plain2 += splat_particles_plain(
-                pX, pY, torch.where(on, pA, torch.zeros_like(pA))
-                * (math.pi / 32.0),
-                (torch.round(pX).to(torch.int32) - K // 2).clamp(0, sensor - K),
-                (torch.round(pY).to(torch.int32) - K // 2).clamp(0, sensor - K),
-                **skw)
-        plain2 = plain2.cpu().numpy()
+        with torch.no_grad():
+            plain2 = plain_render(vol_file, whole).cpu().numpy()
         l1 = float(np.abs(im2 - plain2).sum() / plain2.sum())
         print(f"    im2 against the plain render: L1 {l1:.3e} of the sum "
               f"(tolerance 1.0e-03)")
@@ -611,6 +1037,8 @@ def main() -> int:
             tags = dict(march_dense="march_dense_kernel",
                         fan_stats="fan_stats_kernel", splat="splat_kernel")
             for row in kernel_rows:
+                if row["name"] not in tags:
+                    continue
                 evs = [ev for ev in dev_events if tags[row["name"]] in ev.key]
                 n_ev = sum(ev.count for ev in evs)
                 us = sum(ev.self_device_time_total for ev in evs)
@@ -641,6 +1069,178 @@ def main() -> int:
             rays = again.timer.rays.get(nm)
             extra = f", {rays / dt / 1e6:.1f}M rays/s" if rays else ""
             print(f"    second run {nm}: {dt:.4f} s{extra}  [{card}]")
+
+    # ------------------------------------------------------------------
+    # phase 4: the inversion path, invert_bos at full size
+    # ------------------------------------------------------------------
+    print("inversion path: photon_tpu_torch.inverse.invert_bos at full size")
+    gd = cfg.density_gradients.gladstone_dale
+    rho_true = rho.astype(np.float32)
+    rho_uniform = np.full_like(rho_true, cfg.density_gradients.rho_0)
+    # a start whose spots overlap those of the observation
+    rho0 = rho_uniform + 0.8 * (rho_true - rho_uniform)
+    lr = 0.01 * float(rho_true.max() - rho_true.min())
+    n_steps = 5
+    inv_wrappers = dict(
+        march_dense_residual=march_chief_fused,
+        march_bwd_stage=march_backward_stage,
+        march_bwd_remarch=march_backward_remarch,
+        fan_stats=fan_stats, fan_stats_bwd=fan_stats_backward,
+        splat=splat_particles, splat_bwd=splat_backward)
+
+    def counted(fn):
+        for w in inv_wrappers.values():
+            w.launches = 0
+        out_ = fn()
+        sync()
+        return out_, {k: int(w.launches) for k, w in inv_wrappers.items()}
+
+    t0 = time.perf_counter()
+    res, counts_inv = counted(lambda: invert_bos(
+        cfg, setup, source, r1, r2, im2, vol, rho0=rho0, steps=n_steps,
+        learning_rate=lr, algorithm=2, device=dev))
+    inv_s = time.perf_counter() - t0
+    print(f"    {n_steps} steps in {inv_s:.3f} s (the first builds nothing: "
+          f"the kernels are loaded); losses "
+          f"{', '.join(f'{v:.6g}' for v in res.losses)}  [{card}]")
+    print(f"    launches in {n_steps} steps: {counts_inv}")
+    require(all(math.isfinite(v) for v in res.losses), "a loss is not finite")
+    require(res.losses[-1] < res.losses[0],
+            f"the loss did not fall: {res.losses}")
+    require(res.rho.shape == rho_true.shape and np.isfinite(res.rho).all()
+            and tuple(res.volume.field.shape) == tuple(vol.field.shape),
+            "the recovered rho or its volume is malformed")
+    # per step: one march with the residual and one stage backward; the fan
+    # and the splat forward and backward once a chunk (one chunk: nothing on
+    # this path holds a (P, R) array)
+    expect_inv = dict(march_dense_residual=n_steps, march_bwd_stage=n_steps,
+                      march_bwd_remarch=0, fan_stats=n_steps,
+                      fan_stats_bwd=n_steps, splat=n_steps, splat_bwd=n_steps)
+    if counts_inv != expect_inv:
+        raise SystemExit(f"chip_smoke: launch counts {counts_inv}, expected "
+                         f"{expect_inv}")
+    # the same first step with the residual over its budget: the re-march
+    # backward
+    res5, counts_k5 = counted(lambda: with_budget(0, lambda: invert_bos(
+        cfg, setup, source, r1, r2, im2, vol, rho0=rho0, steps=1,
+        learning_rate=lr, algorithm=2, device=dev)))
+    print(f"    one step with the residual budget at 0: launches {counts_k5}, "
+          f"loss {res5.losses[0]:.6g}")
+    require(counts_k5["march_bwd_remarch"] == 1
+            and counts_k5["march_bwd_stage"] == 0,
+            f"the re-march backward was not taken: {counts_k5}")
+    require(abs(res5.losses[0] - res.losses[0]) <= 1e-5 * res.losses[0],
+            "the first loss depends on the residual budget")
+    # which run a row's count comes from stands beside it: the five steps
+    # above, or (the re-march backward, which they never take) the one step
+    # with the residual over its budget
+    five = f"invert_bos, {n_steps} steps"
+    over = "invert_bos, 1 step with the stage residual over its budget"
+    for row in kernel_rows:
+        nm = row["name"]
+        if nm not in counts_inv:
+            continue
+        if "launches" in row:                   # a kernel of both paths
+            row["launches_inversion"] = counts_inv[nm]
+        elif nm == "march_bwd_remarch":
+            row["launches"], row["launches_on"] = counts_k5[nm], over
+            row["launches_default_budget"] = counts_inv[nm]
+        else:
+            row["launches"], row["launches_on"] = counts_inv[nm], five
+        require(row["launches"] > 0 and row.get("launches_inversion", 1) > 0,
+                f"{nm} was never launched on the inversion path")
+
+    # the first step's gradient against the same step through the plain
+    # versions, at every tenth particle
+    target = f32(im2)
+    rho0_t = f32(rho0)
+    tenth = slice(0, P, 10)
+    sub = dataclasses.replace(
+        source, x=source.x[tenth], y=source.y[tenth], z=source.z[tenth],
+        radiance=source.radiance[tenth],
+        diameter_index=source.diameter_index[tenth])
+
+    def first_step(render):
+        rho_t = rho0_t.detach().clone().requires_grad_(True)
+        img = render(volume_from_rho(rho_t, vol, gd))
+        loss = torch.mean((img - target) ** 2)
+        (g,) = torch.autograd.grad(loss, rho_t)
+        return float(loss.detach()), g
+
+    def kernel_render(src):
+        return lambda v: render_image_fast(cfg, setup, src, r1, r2, vol=v,
+                                           algorithm=2, device=dev)
+
+    loss_k, g_k = first_step(kernel_render(sub))
+    _, g_k5 = with_budget(0, lambda: first_step(kernel_render(sub)))
+    loss_p, g_p = first_step(lambda v: plain_render(v, tenth))
+
+    def cosine(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    cos_kp, cos_k5 = cosine(g_k, g_p), cosine(g_k5, g_p)
+    rel_l2 = float((g_k - g_p).norm() / g_p.norm())
+    print(f"    d_rho of the first step at every tenth particle "
+          f"({sub.num_particles}): kernels against plain versions cosine "
+          f"{cos_kp:.7f}, relative L2 {rel_l2:.3e}; re-march backward "
+          f"against plain cosine {cos_k5:.7f}; loss {loss_k:.6g} against "
+          f"{loss_p:.6g}")
+    require(cos_kp >= 0.9999 and cos_k5 >= 0.9999,
+            f"d_rho: cosine {cos_kp} / {cos_k5} against the plain versions")
+    require(float(g_p.abs().max()) > 0 and bool(torch.isfinite(g_k).all()),
+            "d_rho is zero or not finite")
+
+    # seconds per step, forward and backward apart (host clock, device
+    # synchronised)
+    def timed_step():
+        rho_t = rho0_t.detach().clone().requires_grad_(True)
+        sync()
+        ta = time.perf_counter()
+        img = kernel_render(source)(volume_from_rho(rho_t, vol, gd))
+        loss = torch.mean((img - target) ** 2)
+        sync()
+        tb = time.perf_counter()
+        torch.autograd.grad(loss, rho_t)
+        sync()
+        return tb - ta, time.perf_counter() - tb
+
+    timed_step()
+    fb = [timed_step() for _ in range(5)]
+    fwd_s = statistics.median(t[0] for t in fb)
+    bwd_s = statistics.median(t[1] for t in fb)
+    print(f"    one step: forward {fwd_s * 1e3:.3f} ms, backward "
+          f"{bwd_s * 1e3:.3f} ms (median of 5)  [{card}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed_step()
+    dev_events = [ev for ev in prof.key_averages()
+                  if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
+    dev_us = sum(ev.self_device_time_total for ev in dev_events)
+    if dev_us > 0:
+        tags = dict(march_dense_residual="march_dense_kernel",
+                    march_bwd_stage="march_bwd_stage_kernel",
+                    fan_stats="fan_stats_kernel",
+                    fan_stats_bwd="fan_stats_bwd_kernel",
+                    splat="splat_kernel", splat_bwd="splat_bwd_kernel")
+        ours = 0.0
+        for nm, tag in tags.items():
+            evs = [ev for ev in dev_events if tag in ev.key]
+            us = sum(ev.self_device_time_total for ev in evs)
+            ours += us
+            for row in kernel_rows:
+                if row["name"] == nm:
+                    row["device_ms_on_inversion_step"] = us / 1e3
+            print(f"    traced step, {nm}: {sum(ev.count for ev in evs)} "
+                  f"launches, {us / 1e3:.3f} ms on the device  [{card}]")
+        print(f"    traced step: device busy {dev_us / 1e3:.2f} ms in all "
+              f"kernels and copies, {ours / 1e3:.2f} ms of it in the six "
+              f"kernels; an untraced step takes "
+              f"{(fwd_s + bwd_s) * 1e3:.2f} ms, so the device was busy for "
+              f"about {dev_us / 1e6 / (fwd_s + bwd_s):.1%} of it (the two "
+              f"times come from different runs)  [{card}]")
+    else:
+        print("    traced step: the profiler reported no device time; device "
+              "busy share not measured")
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -17,15 +17,19 @@ launch, see ``kernels.py``).  Module and function names follow
   models/render.py      RenderParams
   models/render_fast.py render_image_fast: the (P, R) fast renderer
   ops/march_dense.py    plain dense chief-ray march
-  ops/march_dense_fused.py  the march kernel's wrapper (csrc/march_dense.cu)
-  ops/fan.py            fan statistics: kernel wrapper + plain version
+  ops/march_dense_fused.py  the march kernels' wrappers, forward and
+                        backward (csrc/march_dense.cu, csrc/march_bwd.cu)
+  ops/fan.py            fan statistics: kernel wrappers (csrc/fan_stats.cu)
+                        + plain version
   ops/sensor_fast.py    particle_splat (anchors, sentinels, scale)
-  ops/splat.py          the splat kernel's wrapper (csrc/splat.cu)
+  ops/splat.py          the splat kernels' wrappers (csrc/splat.cu)
+  inverse.py            volume_from_rho, invert_bos: Adam on a density grid
   postprocess.py        noise, gain, quantisation, crop
   pipeline.py           run_bos / run_simulation / save_result
   cli.py                batch command line
 
-This slice is the forward BOS image pair through the fast renderer.
+The slices so far: the BOS image pair through the fast renderer, its
+gradient with respect to the density field, and the inversion built on it.
 Nothing here imports ``jax`` or ``photon_tpu``.
 """
 
@@ -42,3 +46,4 @@ from photon_tpu_torch.config import (  # noqa: F401
     OutputData,
     default_config,
 )
+from photon_tpu_torch import inverse  # noqa: E402,F401

@@ -1,9 +1,11 @@
 // Dense chief-ray march through a (D, H, W, 4) refractive-index field, forward.
 //
 // Replaces the TPU kernel photon_tpu/ops/march_dense_fused.py::_fused_kernel_impl
-// (the no-trajectory head, trilinear scheme).  That kernel turns interpolation
-// into a (W*4, 2H) x (2H, B) matrix product per integrator stage because a TPU
-// cannot gather, which costs O(W*H) per ray and stage and needs a bf16 split.
+// (both heads, trilinear scheme): the plain head, and the `_traj` head that
+// also writes every step's stage input states for the stage backward kernel.
+// That kernel turns interpolation into a (W*4, 2H) x (2H, B) matrix product
+// per integrator stage because a TPU cannot gather, which costs O(W*H) per ray
+// and stage and needs a bf16 split.
 // Here one thread owns one chief ray, the slab loop runs inside the thread (it
 // takes the place of the TPU kernel's sequential grid axis), the state
 // (x, y, z, Tx, Ty, Tz) stays in registers, and every integrator stage does
@@ -25,97 +27,26 @@
 //   z_plane = max(z_min + (ks - 0.5) dz_slab, z_min),  ks = S-1-s,  S = D-1,
 // blending field[ks] (weight 1-uz) and field[ks+1] (weight uz).
 //
+// The kernel has two instantiations of one integrator.  GRAD = false is the
+// plain head: chief rays in, (x, y, z, dirx, diry, dirz) out.  GRAD = true is
+// the head of the gradient route: the same arithmetic, and beside it the
+// raw exit T of every ray that entered (the backward kernels start from it)
+// and, when `traj` is not null, the stage residual: 5 floats a ray and
+// in-band slab for Euler, 20 for RK4, laid out (S, rows, P) so that
+// neighbouring threads write neighbouring floats.  With the residual the
+// kernel is bound by bytes: S x 20 x 4 bytes a ray against 48.  The two heads
+// return bit-equal outputs.
+//
 // Plain C interface, no PyTorch headers: built by nvcc into a shared library
 // and called through ctypes (photon_tpu_torch/kernels.py).
-#include <cuda_runtime.h>
+#include "march_common.cuh"
 
 namespace {
 
-struct MarchGeom {
-  float min_x, min_y, sx, sy, z_min, z_max, dz_slab, n0;
-  int W, H, D;
-};
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  // NaN-safe in the sense that fminf/fmaxf return the non-NaN operand
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// (grad n, n-1) at voxel coordinates between slab `lo` (weight 1-uz) and
-// `hi` (weight uz): clamp-then-hat addressing, i.e. the two-tap clamped
-// fetch per axis that the dense hat weights max(0, 1-|clip(u,0,n-1)-i|)
-// evaluate to.
-__device__ __forceinline__ float4 sample(const float4* __restrict__ lo,
-                                         const float4* __restrict__ hi,
-                                         const MarchGeom& g, float ux,
-                                         float uy, float uz) {
-  ux = clampf(ux, 0.0f, (float)(g.W - 1));
-  uy = clampf(uy, 0.0f, (float)(g.H - 1));
-  int ix = min((int)ux, g.W - 2);
-  int iy = min((int)uy, g.H - 2);
-  float fx = ux - (float)ix;
-  float fy = uy - (float)iy;
-  int o00 = iy * g.W + ix;
-  int o10 = o00 + g.W;
-  float4 a00 = __ldg(lo + o00), a01 = __ldg(lo + o00 + 1);
-  float4 a10 = __ldg(lo + o10), a11 = __ldg(lo + o10 + 1);
-  float4 b00 = __ldg(hi + o00), b01 = __ldg(hi + o00 + 1);
-  float4 b10 = __ldg(hi + o10), b11 = __ldg(hi + o10 + 1);
-  float wx0 = 1.0f - fx, wx1 = fx;
-  float wy0 = 1.0f - fy, wy1 = fy;
-  float wz0 = 1.0f - uz, wz1 = uz;
-  float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
-  float4 r;
-#define PHOTON_BLEND(c)                                                     \
-  r.c = wz0 * (w00 * a00.c + w01 * a01.c + w10 * a10.c + w11 * a11.c) +     \
-        wz1 * (w00 * b00.c + w01 * b01.c + w10 * b10.c + w11 * b11.c);
-  PHOTON_BLEND(x) PHOTON_BLEND(y) PHOTON_BLEND(z) PHOTON_BLEND(w)
-#undef PHOTON_BLEND
-  return r;
-}
-
-struct State5 {
-  float x, y, tx, ty, tz;
-};
-
-__device__ __forceinline__ State5 axpy(const State5& s, float h,
-                                       const State5& k) {
-  return {s.x + h * k.x, s.y + h * k.y, s.tx + h * k.tx, s.ty + h * k.ty,
-          s.tz + h * k.tz};
-}
-
-__device__ __forceinline__ State5 rhs(const float4* __restrict__ lo,
-                                      const float4* __restrict__ hi,
-                                      const MarchGeom& g, float z_plane,
-                                      const State5& s, float z_at) {
-  float uz = clampf((z_at - z_plane) / g.dz_slab, 0.0f, 1.0f);
-  float ux = 0.5f + (s.x - g.min_x) / g.sx;
-  float uy = 0.5f + (s.y - g.min_y) / g.sy;
-  float4 f = sample(lo, hi, g, ux, uy, uz);
-  float inv_tz = 1.0f / s.tz;
-  float gn = (1.0f + f.w) * inv_tz;
-  return {s.tx * inv_tz, s.ty * inv_tz, gn * f.x, gn * f.y, gn * f.z};
-}
-
-__device__ __forceinline__ State5 rk4(const float4* __restrict__ lo,
-                                      const float4* __restrict__ hi,
-                                      const MarchGeom& g, float z_plane,
-                                      const State5& s, float h, float z0) {
-  State5 k1 = rhs(lo, hi, g, z_plane, s, z0);
-  float h2 = h / 2.0f;
-  State5 k2 = rhs(lo, hi, g, z_plane, axpy(s, h2, k1), z0 + h2);
-  State5 k3 = rhs(lo, hi, g, z_plane, axpy(s, h2, k2), z0 + h2);
-  State5 k4 = rhs(lo, hi, g, z_plane, axpy(s, h, k3), z0 + h);
-  float s6 = h / 6.0f;
-  State5 sum = {k1.x + 2.0f * k2.x + 2.0f * k3.x + k4.x,
-                k1.y + 2.0f * k2.y + 2.0f * k3.y + k4.y,
-                k1.tx + 2.0f * k2.tx + 2.0f * k3.tx + k4.tx,
-                k1.ty + 2.0f * k2.ty + 2.0f * k3.ty + k4.ty,
-                k1.tz + 2.0f * k2.tz + 2.0f * k3.tz + k4.tz};
-  return axpy(s, s6, sum);
-}
-
-// out: (6, P) rows x, y, z, dirx, diry, dirz after traversal
+// out: (6, P) rows x, y, z, dirx, diry, dirz after traversal; texit: (3, P)
+// rows Tx, Ty, Tz before the normalisation (GRAD only; rays that never
+// entered leave theirs unwritten)
+template <bool GRAD>
 __global__ void march_dense_kernel(const float* __restrict__ xs,
                                    const float* __restrict__ ys,
                                    const float* __restrict__ zs,
@@ -123,42 +54,45 @@ __global__ void march_dense_kernel(const float* __restrict__ xs,
                                    const float* __restrict__ dcy,
                                    const float* __restrict__ dcz,
                                    const float4* __restrict__ field,
-                                   float* __restrict__ out, long long P,
+                                   float* __restrict__ out,
+                                   float* __restrict__ texit,
+                                   float* __restrict__ traj, long long P,
                                    MarchGeom g, int algorithm, int substeps) {
   long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  float x0 = xs[p], y0 = ys[p], z0 = zs[p];
   float cx = dcx[p], cy = dcy[p], cz = dcz[p];
-
-  // entry advance to the volume top; rays that start above it are moved
-  // onto it, the rest start where they are
-  bool above = z0 >= g.z_max;
-  float adv = above ? fmaxf((g.z_max - z0) / cz, 0.0f) : 0.0f;
-  float x = x0 + cx * adv;
-  float y = y0 + cy * adv;
-  float z = above ? g.z_max : z0 + cz * adv;
-  bool inside = (z <= g.z_max) && (z >= g.z_min) && (cz < 0.0f);
+  Entry e = entry_advance(g, xs[p], ys[p], zs[p], cx, cy, cz);
+  float x = e.x, y = e.y, z = e.z;
 
   float dirx = cx, diry = cy, dirz = cz;
-  if (inside) {
+  if (e.inside) {
     State5 st = {x, y, g.n0 * cx, g.n0 * cy, g.n0 * cz};
     const int S = g.D - 1;
     const long long slab = (long long)g.H * g.W;
+    const int rows = algorithm == 1 ? 5 : 20;
     for (int s = 0; s < S; ++s) {
       int ks = S - 1 - s;
-      // product and sum rounded separately (no FMA), as the plain version
-      // forms the planes on the host
-      float z_plane = fmaxf(
-          __fadd_rn(g.z_min, __fmul_rn((float)ks - 0.5f, g.dz_slab)),
-          g.z_min);
+      float z_plane = landing_plane(g, ks);
       if (!(z > z_plane)) continue;   // not yet in this slab's band
       const float4* lo = field + (long long)ks * slab;
       const float4* hi = lo + slab;
       float hstep = -(z - z_plane);
+      float* tr = (GRAD && traj != nullptr)
+                      ? traj + (long long)s * rows * P + p : nullptr;
       if (algorithm == 1) {
+        if (tr != nullptr) store_state5(tr, P, st);
         st = axpy(st, hstep, rhs(lo, hi, g, z_plane, st, z));
       } else if (substeps == 1) {
-        st = rk4(lo, hi, g, z_plane, st, hstep, z);
+        if (tr != nullptr) {
+          Stages sg;
+          st = rk4(lo, hi, g, z_plane, st, hstep, z, &sg);
+          store_state5(tr, P, sg.s1);
+          store_state5(tr + 5 * P, P, sg.s2);
+          store_state5(tr + 10 * P, P, sg.s3);
+          store_state5(tr + 15 * P, P, sg.s4);
+        } else {
+          st = rk4(lo, hi, g, z_plane, st, hstep, z);
+        }
       } else {
         float hs = hstep / (float)substeps;
         for (int si = 0; si < substeps; ++si)
@@ -172,6 +106,11 @@ __global__ void march_dense_kernel(const float* __restrict__ xs,
     dirx = st.tx / tn;
     diry = st.ty / tn;
     dirz = st.tz / tn;
+    if (GRAD) {
+      texit[p] = st.tx;
+      texit[P + p] = st.ty;
+      texit[2 * P + p] = st.tz;
+    }
   }
   out[p] = x;
   out[P + p] = y;
@@ -181,10 +120,27 @@ __global__ void march_dense_kernel(const float* __restrict__ xs,
   out[5 * P + p] = dirz;
 }
 
+template <bool GRAD>
+int launch_march(const float* rays[6], const float* field, float* out,
+                 float* texit, float* traj, long long P, int W, int H, int D,
+                 const float* geom, int algorithm, int substeps,
+                 void* stream) {
+  if (P <= 0) return 0;
+  MarchGeom g = make_geom(geom, W, H, D);
+  const int threads = 128;
+  long long blocks = (P + threads - 1) / threads;
+  march_dense_kernel<GRAD>
+      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          rays[0], rays[1], rays[2], rays[3], rays[4], rays[5],
+          reinterpret_cast<const float4*>(field), out, texit, traj, P, g,
+          algorithm, substeps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // geom: host array [min_x, min_y, sx, sy, z_min, z_max, dz_slab, n0].
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Both functions return cudaGetLastError() after the launch (0 = launched).
 extern "C" int photon_march_dense(const float* xs, const float* ys,
                                   const float* zs, const float* dcx,
                                   const float* dcy, const float* dcz,
@@ -192,13 +148,21 @@ extern "C" int photon_march_dense(const float* xs, const float* ys,
                                   long long P, int W, int H, int D,
                                   const float* geom, int algorithm,
                                   int substeps, void* stream) {
-  if (P <= 0) return 0;
-  MarchGeom g = {geom[0], geom[1], geom[2], geom[3], geom[4], geom[5],
-                 geom[6], geom[7], W, H, D};
-  const int threads = 128;
-  long long blocks = (P + threads - 1) / threads;
-  march_dense_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      xs, ys, zs, dcx, dcy, dcz, reinterpret_cast<const float4*>(field), out,
-      P, g, algorithm, substeps);
-  return (int)cudaGetLastError();
+  const float* rays[6] = {xs, ys, zs, dcx, dcy, dcz};
+  return launch_march<false>(rays, field, out, nullptr, nullptr, P, W, H, D,
+                             geom, algorithm, substeps, stream);
+}
+
+// rays: (6, P) rows xs, ys, zs, dcx, dcy, dcz; texit: (3, P); traj:
+// (S, rows, P) stage residual or null.  One step per slab only (Euler, or
+// RK4 without substeps).
+extern "C" int photon_march_dense_grad(const float* rays6, const float* field,
+                                       float* out, float* texit, float* traj,
+                                       long long P, int W, int H, int D,
+                                       const float* geom, int algorithm,
+                                       void* stream) {
+  const float* rays[6] = {rays6,         rays6 + P,     rays6 + 2 * P,
+                          rays6 + 3 * P, rays6 + 4 * P, rays6 + 5 * P};
+  return launch_march<true>(rays, field, out, texit, traj, P, W, H, D, geom,
+                            algorithm, 1, stream);
 }

@@ -1,11 +1,13 @@
 """Building and loading the CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
-header, so ``nvcc`` builds it in seconds.  A source is compiled into its
+header (only the ``csrc/*.cuh`` headers beside it), so ``nvcc`` builds it in
+seconds.  A source is compiled into its
 own shared library under ``photon_tpu_torch/build/`` the first time one of
 its kernels is launched (never at import: machines without ``nvcc`` import
 and run the package on the CPU), and loaded with ``ctypes``.  The library's
-name carries a hash of its source and flags, so an edited source rebuilds.
+name carries a hash of its source, the headers and the flags, so an edited
+source rebuilds.
 A failed build raises.
 """
 from __future__ import annotations
@@ -21,8 +23,6 @@ from typing import Dict, Iterable, List
 
 import torch
 
-from photon_tpu_torch.roadmap import GRADIENTS
-
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # beta^2 - 4 gamma from coordinates of 1e5..1e8 um in f32: contracted to FMA
 # it rounds differently from the plain version (which cannot contract) and
 # the ray centroids move by ~0.03 px, so this file is built without
-# contraction and then agrees with the plain version to summation order.
+# contraction and then agrees with the plain version to summation order.  The
+# backward kernel in the same file forms the discriminant's cotangent, which
+# cancels the same way.
 EXTRA_NVCC_FLAGS: Dict[str, List[str]] = {"fan_stats": ["-fmad=false"]}
 
 _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -45,13 +47,21 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "march_dense": {
         "photon_march_dense": [_vp] * 8 + [_ll, _i, _i, _i, _vp, _i, _i, _vp],
+        "photon_march_dense_grad": [_vp] * 5 + [_ll, _i, _i, _i, _vp, _i, _vp],
+    },
+    "march_bwd": {
+        "photon_march_bwd_stage": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _vp],
+        "photon_march_bwd_remarch": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _i,
+                                                 _vp],
     },
     "fan_stats": {
         "photon_fan_const_floats": [],
         "photon_fan_stats": [_vp] * 13 + [_ll, _i, _vp, _i, _i, _i, _vp],
+        "photon_fan_stats_bwd": [_vp] * 14 + [_ll, _i, _vp, _i, _i, _i, _vp],
     },
     "splat": {
         "photon_splat": [_vp] * 6 + [_ll, _i, _i, _i, _f, _f, _vp],
+        "photon_splat_bwd": [_vp] * 7 + [_ll, _i, _i, _i, _f, _f, _vp],
     },
 }
 
@@ -85,8 +95,10 @@ def nvcc_flags(name: str) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = _source(name)
-    h = hashlib.sha1(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
+    h = hashlib.sha1(_source(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -152,11 +164,6 @@ def check_kernel_input(name: str, t, device=None, dtype=None) -> None:
     """What every wrapper demands of a tensor it hands to a kernel."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.requires_grad:
-        raise RuntimeError(
-            f"{name} requires grad: this slice of the port is forward only "
-            "and its kernel wrappers do not return detached results "
-            f"silently (ROADMAP.md, modules still to port, '{GRADIENTS}')")
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if device is not None and t.device != device:

@@ -1,8 +1,8 @@
-"""Per-particle ray-fan statistics: kernel wrapper and plain version.
+"""Per-particle ray-fan statistics: kernel wrappers and plain version.
 
-Kernel: ``csrc/fan_stats.cu`` (``photon_fan_stats``).  It replaces the TPU
+Kernels: ``csrc/fan_stats.cu``.  ``photon_fan_stats`` replaces the TPU
 kernel ``photon_tpu/ops/fan_pallas.py::_fan_fwd_kernel`` (tile math
-``_fan_tile``).  For each (particle, ray) it generates the ray toward its
+``_fan_tile``) and ``photon_fan_stats_bwd`` replaces ``_fan_bwd_kernel``.  For each (particle, ray) it generates the ray toward its
 lens-aperture sample, applies the chief-ray march deltas, runs the
 apparent / thin / thick lens, intersects the sensor (x mirrored on the
 diffraction path), masks rays that leave the aperture or the sensor and
@@ -23,7 +23,16 @@ package's ``models/render_fast.py::render_chunk`` with its lens stages
 square roots as ``1 / sqrt`` and form the scalar constants once, in
 float64, before rounding to float32 (:func:`fan_constants`).
 
-``fan_stats.launches`` counts kernel launches.
+The backward kernel returns the cotangents of the ten per-particle columns
+``[xs, ys, zs, amp0, dz_exit, dpx, dpy, ddx, ddy, ddz]``: a hand-derived
+reverse sweep of the same chain, one block a particle, reduced with
+shuffles.  No kernel computes cotangents of the lens rows ``x_lens`` /
+``y_lens``: on the card they must not require grad (detach them); the TPU
+kernel returns zeros for them instead.  The plain version of the backward is
+``torch.autograd`` through :func:`fan_stats_plain`.
+
+``fan_stats.launches`` and ``fan_stats_backward.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -251,6 +260,77 @@ def fan_stats_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens, *,
     return tuple(torch.cat(col) for col in zip(*parts))
 
 
+def _launch_args(cols, x_lens, y_lens):
+    """Pointers of the four columns, the six deltas (null without a march)
+    and the two lens rows, in the kernels' order."""
+    ptrs = [c.data_ptr() for c in cols[:4]]
+    ptrs += [None] * 6 if len(cols) == 4 else [c.data_ptr() for c in cols[4:]]
+    return ptrs + [x_lens.data_ptr(), y_lens.data_ptr()]
+
+
+def fan_stats_backward(cols, x_lens, y_lens, ct, consts, lens_model: str,
+                       mirror_x: bool):
+    """Launch the backward kernel: (10, P) cotangents of the columns (the
+    six delta rows are zero without a march) from ``ct`` (3, P)."""
+    dev = ct.device
+    P, R = cols[0].shape[0], x_lens.shape[0]
+    if len(cols) not in (4, 10):
+        raise ValueError("cols must hold 4 columns, or 10 with the deltas")
+    for name, t, shape in [("ct", ct, (3, P)), ("x_lens", x_lens, (R,)),
+                           ("y_lens", y_lens, (R,))] \
+            + [(f"cols[{i}]", c, (P,)) for i, c in enumerate(cols)]:
+        kernels.check_kernel_input(name, t, dev, torch.float32)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    d_cols = torch.empty((10, P), dtype=torch.float32, device=dev)
+    lib = kernels.load("fan_stats")
+    with torch.cuda.device(dev):
+        code = lib.photon_fan_stats_bwd(
+            *_launch_args(cols, x_lens, y_lens), ct.data_ptr(),
+            d_cols.data_ptr(), P, R, consts.ctypes.data,
+            LENS_MODELS.index(lens_model), int(len(cols) == 10),
+            int(bool(mirror_x)), kernels.current_stream(dev))
+    kernels.check_launch(code, "photon_fan_stats_bwd")
+    fan_stats_backward.launches += 1
+    return d_cols
+
+
+fan_stats_backward.launches = 0
+
+
+class _FanStats(torch.autograd.Function):
+    """(3, P) fan statistics on the card from 4 or 10 per-particle columns."""
+
+    @staticmethod
+    def forward(ctx, x_lens, y_lens, consts, lens_model, mirror_x, *cols):
+        dev = x_lens.device
+        P, R = cols[0].shape[0], x_lens.shape[0]
+        out = torch.empty((3, P), dtype=torch.float32, device=dev)
+        lib = kernels.load("fan_stats")
+        if lib.photon_fan_const_floats() != consts.size:
+            raise RuntimeError("FanConstants and the kernel's FanConst differ")
+        with torch.cuda.device(dev):
+            code = lib.photon_fan_stats(
+                *_launch_args(cols, x_lens, y_lens), out.data_ptr(), P, R,
+                consts.ctypes.data, LENS_MODELS.index(lens_model),
+                int(len(cols) == 10), int(bool(mirror_x)),
+                kernels.current_stream(dev))
+        kernels.check_launch(code, "photon_fan_stats")
+        fan_stats.launches += 1
+        ctx.consts, ctx.lens_model, ctx.mirror_x = consts, lens_model, mirror_x
+        ctx.save_for_backward(x_lens, y_lens, *cols)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        x_lens, y_lens, *cols = ctx.saved_tensors
+        d_cols = fan_stats_backward(cols, x_lens, y_lens, ct.contiguous(),
+                                    ctx.consts, ctx.lens_model, ctx.mirror_x)
+        return (None,) * 5 + tuple(d_cols[:len(cols)].unbind(0))
+
+
 def fan_stats(xs, ys, zs, amp0, deltas6, x_lens, y_lens, *,
               sc: FanScalars, lens_model: str, mirror_x: bool = True):
     """Per-particle fan statistics (A, AX, AY), each (P,).
@@ -260,8 +340,10 @@ def fan_stats(xs, ys, zs, amp0, deltas6, x_lens, y_lens, *,
     chief-march deltas or None.  ``x_lens``/``y_lens``: (R,) lens-aperture
     sample offsets (R == 1 must pass zeros — the caller's quirk).
 
-    Tensors on a CUDA device go to the kernel, tensors on the CPU to the
-    plain version.  Forward only: an input that requires grad raises.
+    Tensors on a CUDA device go to the kernels, forward and backward;
+    tensors on the CPU go to the plain version and ``torch.autograd`` through
+    it.  On the card gradients flow to the particle columns and the deltas;
+    lens rows that require grad raise.
     """
     if lens_model not in LENS_MODELS:
         raise ValueError(f"unknown lens_model {lens_model!r}")
@@ -284,25 +366,18 @@ def fan_stats(xs, ys, zs, amp0, deltas6, x_lens, y_lens, *,
         return fan_stats_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens,
                                sc=sc, lens_model=lens_model,
                                mirror_x=mirror_x)
-
-    P, R = xs.shape[0], x_lens.shape[0]
-    out = torch.empty((3, P), dtype=torch.float32, device=dev)
-    if P == 0:
-        return tuple(out.unbind(0))
-    lib = kernels.load("fan_stats")
+    if torch.is_grad_enabled() and (x_lens.requires_grad
+                                    or y_lens.requires_grad):
+        raise ValueError(
+            "x_lens / y_lens require grad: the fan backward kernel returns "
+            "cotangents of the per-particle columns only; detach the lens "
+            "rows")
+    if xs.shape[0] == 0:
+        return tuple(torch.empty((3, 0), dtype=torch.float32,
+                                 device=dev).unbind(0))
     consts = np.asarray(fan_constants(sc), dtype=np.float32)
-    if lib.photon_fan_const_floats() != consts.size:
-        raise RuntimeError("FanConstants and the kernel's FanConst differ")
-    dptrs = [None] * 6 if deltas6 is None else [d.data_ptr() for d in deltas6]
-    with torch.cuda.device(dev):
-        code = lib.photon_fan_stats(
-            xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), amp0.data_ptr(),
-            *dptrs, x_lens.data_ptr(), y_lens.data_ptr(), out.data_ptr(),
-            P, R, consts.ctypes.data, LENS_MODELS.index(lens_model),
-            int(deltas6 is not None), int(bool(mirror_x)),
-            kernels.current_stream(dev))
-    kernels.check_launch(code, "photon_fan_stats")
-    fan_stats.launches += 1
+    out = _FanStats.apply(x_lens, y_lens, consts, lens_model, bool(mirror_x),
+                          *cols.values())
     return tuple(out.unbind(0))
 
 

@@ -128,7 +128,11 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
 
     Rays that do not intersect the volume's z range (or travel upward)
     pass through unchanged; returns (x, y, z, dirx, diry, dirz) after
-    traversal.  Runs on whatever device the tensors lie on.
+    traversal.  Runs on whatever device the tensors lie on, and is safe
+    under ``torch.autograd`` with respect to ``vol.field`` and the rays: a
+    ray outside a slab's band takes no part in that slab's arithmetic, so a
+    grazing ray (Tz near 0) cannot put ``0 * inf`` into the field's
+    gradient, which sums over rays.
     """
     check_march_options(algorithm, interpolation_scheme)
     w, h, d = (int(s) for s in vol.sizes)
@@ -152,25 +156,26 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     Ty = n0 * dcy
     Tz = n0 * dcz
 
-    def rhs(lo, hi, z_plane, st, z_at):
+    def rhs(lo, hi, z_plane, st, z_at, in_band):
         px, py, tx, ty, tz = st
         uz = ((z_at - z_plane) / dz_slab).clamp(0.0, 1.0)
         ux = 0.5 + (px - min_x) / sx
         uy = 0.5 + (py - min_y) / sy
         gx, gy, gz, nm1 = _slab_sample(lo, hi, ux, uy, uz, w, h)
-        inv_tz = 1.0 / tz
+        # 1/tz only where the step is taken (the value is unchanged there)
+        inv_tz = 1.0 / torch.where(in_band, tz, torch.ones_like(tz))
         gn = (1.0 + nm1) * inv_tz
         return (tx * inv_tz, ty * inv_tz, gn * gx, gn * gy, gn * gz)
 
     def axpy(st, hh, k):
         return tuple(v + hh * kk for v, kk in zip(st, k))
 
-    def rk4(lo, hi, z_plane, st, hh, z0):
-        k1 = rhs(lo, hi, z_plane, st, z0)
+    def rk4(lo, hi, z_plane, st, hh, z0, in_band):
+        k1 = rhs(lo, hi, z_plane, st, z0, in_band)
         h2 = hh / 2.0
-        k2 = rhs(lo, hi, z_plane, axpy(st, h2, k1), z0 + h2)
-        k3 = rhs(lo, hi, z_plane, axpy(st, h2, k2), z0 + h2)
-        k4 = rhs(lo, hi, z_plane, axpy(st, hh, k3), z0 + hh)
+        k2 = rhs(lo, hi, z_plane, axpy(st, h2, k1), z0 + h2, in_band)
+        k3 = rhs(lo, hi, z_plane, axpy(st, h2, k2), z0 + h2, in_band)
+        k4 = rhs(lo, hi, z_plane, axpy(st, hh, k3), z0 + hh, in_band)
         s6 = hh / 6.0
         return tuple(v + s6 * (a + 2.0 * b + 2.0 * c + dd)
                      for v, a, b, c, dd in zip(st, k1, k2, k3, k4))
@@ -182,14 +187,14 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
         hstep = -(z - z_plane)
         st = (x, y, Tx, Ty, Tz)
         if algorithm == 1:
-            new = axpy(st, hstep, rhs(lo, hi, z_plane, st, z))
+            new = axpy(st, hstep, rhs(lo, hi, z_plane, st, z, in_band))
         elif substeps == 1:
-            new = rk4(lo, hi, z_plane, st, hstep, z)
+            new = rk4(lo, hi, z_plane, st, hstep, z, in_band)
         else:
             hs = hstep / substeps
             new = st
             for si in range(substeps):
-                new = rk4(lo, hi, z_plane, new, hs, z + si * hs)
+                new = rk4(lo, hi, z_plane, new, hs, z + si * hs, in_band)
         x = torch.where(in_band, new[0], x)
         y = torch.where(in_band, new[1], y)
         z = torch.where(in_band, torch.full_like(z, z_plane), z)

@@ -8,7 +8,9 @@ bilinear slice (ROADMAP.md).
 
 :func:`_particle_splat_plain` is the plain version of the splat kernel of
 ``ops/splat.py``: (P, K, K) patches with the circular render mask, scattered
-with ``index_add_``.
+with ``index_add_``; ``torch.autograd`` through it is the plain version of
+the splat's transpose kernel.  The ``where(safe, ...)``, the pi/32 scale and
+the centroid division stay plain PyTorch around the kernels on either device.
 """
 from __future__ import annotations
 

@@ -6,7 +6,6 @@ through to a different path.
 """
 from __future__ import annotations
 
-GRADIENTS = "Main-path gradients and inverse.py"
 TRICUBIC = "Tricubic, prefilter, choose_substeps"
 AB4 = "AB4 and the per-stage sampler"
 LARGE_VOLUMES = "Large volumes"
