@@ -14,7 +14,8 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    kernels (march, fan statistics, splat), the march's stage-residual head,
    and the four backward kernels (march over the residual, march by
    re-marching, fan, splat transpose) against torch.autograd through the
-   plain forward versions;
+   plain forward versions; the march kernels at both interpolation schemes,
+   and the per-stage slab sampler with its backward;
 3. drives the rendering path once through the command line entry point
    (photon_tpu_torch.cli.main -> run_simulation -> run_bos -> save_result):
    the BOS image pair at 1024 x 1024, 1000 dots x ~100 source points,
@@ -26,7 +27,17 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    im2; checks the losses, the launch counters of every forward and
    backward kernel, and the first gradient against the same step through
    the plain versions at every tenth particle;
-5. prints one JSON line describing the kernels and, last, one JSON line
+5. drives the rest of the dense march's menu through the same entry points
+   at the same size: the pair with tricubic interpolation and algorithm 3
+   (the prefilter, choose_substeps, the cubic march kernel) and the pair with
+   Adams-Bashforth (the per-stage route over the sampler kernel); launch
+   counts, im2 against a render through the plain versions;
+6. takes one forward and backward of invert_bos's render loss through each
+   new gradient route at full size (RK4 with substeps and Adams-Bashforth
+   over the sampler kernels; tricubic RK4 over the cubic march kernels, by
+   stage residual and by re-march) and holds each d_rho against the plain
+   versions at every tenth particle;
+7. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
@@ -60,6 +71,15 @@ SPLAT_OPS_PER_DEPOSIT = 90        # four erff (~20 each) and the products
 # 56, coordinate cotangents 45) and the per-slab combine
 MARCH_VJP_OPS_PER_STAGE = 260
 MARCH_VJP_OPS_PER_COMBINE = 120
+# the cubic scheme (4 x 4 x 2 taps): a sample is 2 x 4 B-spline weights (96),
+# 32 weighted 4-channel taps (288) and the z blend (12), with the clamps 410;
+# its VJP adds the weights' derivatives (80) and per tap-pair two dot
+# products, two scatter products and the coordinate sums (33 x 16)
+SAMPLE_OPS = {1: 78, 2: 410}
+SAMPLE_VJP_OPS = {1: 150, 2: 700}      # beside the taps it gathers again
+MARCH_OPS_PER_RHS_CUBIC = 15 + SAMPLE_OPS[2] + 7
+MARCH_VJP_OPS_PER_STAGE_CUBIC = (MARCH_OPS_PER_RHS_CUBIC + 20
+                                 + SAMPLE_VJP_OPS[2])
 # fan backward sweep per pair, on top of the forward recompute
 FAN_BWD_OPS_PER_PAIR = {"general": 420, "thin-lens": 150, "apparent": 110}
 FAN_BWD_OPS_MARCH = 35
@@ -149,17 +169,21 @@ def main() -> int:
     import dataclasses
 
     from photon_tpu_torch.inverse import invert_bos, volume_from_rho
+    from photon_tpu_torch.models import render_fast
     from photon_tpu_torch.models.render_fast import render_image_fast
     from photon_tpu_torch.models.scenes import bos_source
     from photon_tpu_torch.ops import march_dense_fused as mdf
     from photon_tpu_torch.ops.fan import (fan_constants, fan_stats,
                                           fan_stats_backward, fan_stats_plain)
-    from photon_tpu_torch.ops.march_dense import (chief_deltas_dense,
+    from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
+                                                  chief_deltas_dense,
                                                   march_chief_dense,
                                                   march_geometry)
     from photon_tpu_torch.ops.march_dense_fused import (
         march_backward_remarch, march_backward_stage, march_chief_fused,
         march_forward_residual)
+    from photon_tpu_torch.ops.march_dense_sampler import (
+        slab_sample_backward, slab_sample_forward, slab_sample_plain)
     from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
                                             splat_particles_plain)
     from photon_tpu_torch.pipeline import _lens_sample_pair, _ray_budget, run_bos
@@ -559,11 +583,24 @@ def main() -> int:
     def nerr(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
-    def march_grads(fn, v, rays, cts, alg):
-        fld = v.field.detach().clone().requires_grad_(True)
-        rr = [r.detach().clone().requires_grad_(True) for r in rays]
-        outs = fn(v._replace(field=fld), *rr, algorithm=alg)
-        return torch.autograd.grad(outs, [fld] + rr, grad_outputs=cts)
+    def march_grads(fn, v, rays, cts, alg, scheme=1, ray_slice=None):
+        """Gradients of the march with respect to the field and the rays;
+        `ray_slice` rays at a time (the field's sums over the slices, the
+        rays' concatenate), which bounds the graph of the plain cubic
+        march."""
+        n_r = rays[0].shape[0]
+        d_fld, d_rr = None, []
+        for s0 in range(0, n_r, ray_slice or n_r):
+            sl = slice(s0, min(s0 + (ray_slice or n_r), n_r))
+            fld = v.field.detach().clone().requires_grad_(True)
+            rr = [r[sl].detach().clone().requires_grad_(True) for r in rays]
+            outs = fn(v._replace(field=fld), *rr, algorithm=alg,
+                      interpolation_scheme=scheme)
+            g = torch.autograd.grad(outs, [fld] + rr,
+                                    grad_outputs=[c[sl] for c in cts])
+            d_fld = g[0] if d_fld is None else d_fld + g[0]
+            d_rr.append(g[1:])
+        return (d_fld,) + tuple(torch.cat(c) for c in zip(*d_rr))
 
     def with_budget(nbytes, fn):
         saved = mdf.TRAJ_MAX_BYTES
@@ -573,15 +610,16 @@ def main() -> int:
         finally:
             mdf.TRAJ_MAX_BYTES = saved
 
-    def march_bwd_case(v, rays, alg, label):
+    def march_bwd_case(v, rays, alg, label, scheme=1, ray_slice=None):
         n_r = rays[0].shape[0]
         cts = [torch.randn(n_r, generator=gen, device=dev) * sc_
                for sc_ in (1.0, 1.0, 1.0, 1e5, 1e5, 1e5)]
-        g4 = march_grads(march_chief_fused, v, rays, cts, alg)
+        g4 = march_grads(march_chief_fused, v, rays, cts, alg, scheme)
         g5 = with_budget(0, lambda: march_grads(march_chief_fused, v, rays,
-                                                cts, alg))
+                                                cts, alg, scheme))
         sync()
-        gp = march_grads(march_chief_dense, v, rays, cts, alg)
+        gp = march_grads(march_chief_dense, v, rays, cts, alg, scheme,
+                         ray_slice)
         errs = {}
         for nm, gk in (("K4", g4), ("K5", g5)):
             errs[nm] = (nerr(gk[0], gp[0]),
@@ -871,6 +909,341 @@ def main() -> int:
         whole_image=dict(shape=f"{P} spots", max_abs_err=k7_err_whole,
                          ms=k7_ms_whole, bound_ms=k7_bound_whole)))
 
+    # ------------------------------------------------------------------
+    # phase 2h: K1, K4 and K5 under the cubic scheme
+    # ------------------------------------------------------------------
+    print("K1 / K4 / K5 with tricubic interpolation (scheme 2) against the "
+          "plain march and autograd through it")
+
+    def with_side_rays(rays, v):
+        """The rays with 8000 of them moved sideways: beyond both cubic
+        clamps (ux = -3, ux = W + 2) and across them, where taps fold onto
+        the border voxels and the weights' derivatives are masked."""
+        gg, wv = march_geometry(v), int(v.sizes[0])
+        x_at = lambda ux: float(gg.min_x) + (ux - 0.5) * float(gg.sx)  # noqa: E731
+        out_ = [r.clone() for r in rays]
+        out_[0][:2000] = x_at(-3.0)
+        out_[0][2000:4000] = x_at(wv + 2.0)
+        out_[0][4000:6000] = torch.linspace(x_at(-2.5), x_at(1.0), 2000,
+                                            device=dev)
+        out_[0][6000:8000] = torch.linspace(x_at(wv - 2.0), x_at(wv + 1.5),
+                                            2000, device=dev)
+        return out_
+
+    chief_c = with_side_rays(chief, vol)
+    rand_c = with_side_rays(rand_rays, vol_rand)
+    geom_r = march_geometry(vol_rand)
+    scale_r = float(max(abs(float(v)) for v in
+                        (geom_r.min_x, geom_r.min_y, geom_r.z_min,
+                         geom_r.z_max)))
+    k1c_err = {}
+    for v, rays_, sc_v, vname in ((vol, chief_c, scale, "bench 64^3"),
+                                  (vol_rand, rand_c, scale_r, "random 12^3")):
+        for alg, ss, label in ((2, None, "RK4"), (1, None, "Euler"),
+                               (3, 2, "RK4 x 2 substeps")):
+            g = march_chief_fused(v, *rays_, algorithm=alg, substeps=ss,
+                                  interpolation_scheme=2)
+            sync()
+            r = march_chief_dense(v, *rays_, algorithm=alg, substeps=ss,
+                                  interpolation_scheme=2)
+            pe, de = march_err(g, r)
+            err = max(pe / sc_v, de)
+            if v is vol:
+                k1c_err[alg] = err
+            hold(f"K1 tricubic {label}, {P} rays, {vname} (normalised)", err,
+                 K1_TOL)
+    coeff = bspline_prefilter(vol.field)
+    rays6c = torch.stack(chief_c).contiguous()
+    out_c, texit_c, traj_c = march_forward_residual(coeff, rays6c, gnp, 2,
+                                                    True, 2)
+    plain_c = mdf.march_forward_noresidual(coeff, chief_c, gnp, 2, 1, 2)
+    whole_c = torch.stack(march_chief_fused(vol, *chief_c, algorithm=2,
+                                            interpolation_scheme=2))
+    sync()
+    hold(f"K1 tricubic residual head, {P} rays: values that differ from the "
+         f"plain head", float((out_c != plain_c).sum()), 0.0)
+    hold("K1 tricubic through march_chief_fused (its own prefilter): values "
+         "that differ", float((whole_c != plain_c).sum()), 0.0)
+    del out_c, texit_c, traj_c, plain_c, whole_c, rays6c
+
+    # the plain cubic march keeps some 150 bytes of graph a ray, stage and
+    # tap pair, so autograd through it goes 30,000 rays at a time
+    cubic_errs = {}
+    for alg, alg_name in ((2, "RK4"), (1, "Euler")):
+        cubic_errs[alg_name] = march_bwd_case(
+            vol, chief_c, alg, f"tricubic {alg_name}, {P} rays, bench 64^3",
+            scheme=2, ray_slice=30000)
+        march_bwd_case(vol_rand, rand_c, alg,
+                       f"tricubic {alg_name}, {P} rays, random 12^3", scheme=2)
+
+    # times at the shape the main path gives: the chief rays as they are
+    out_c, texit_c, traj_c = march_forward_residual(coeff, rays6, gnp, 2, True,
+                                                    2)
+    prefilter_ms = time_ms(lambda: bspline_prefilter(vol.field), reps=5,
+                           warm=1)
+    k1c_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
+                                                          2, 1, 2))
+    # the shapes of the pair with algorithm 3 and no substeps given: the
+    # march at 2 substeps (what choose_substeps picks on this scene) and its
+    # two probes on 1024 rays at 2 and 4 substeps
+    k1c2_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
+                                                           3, 2, 2))
+    k1c2_plain_ms = time_ms(lambda: march_chief_dense(
+        vol, *chief, algorithm=3, substeps=2, interpolation_scheme=2), reps=3,
+        warm=1)
+    probe_idx = torch.as_tensor(
+        np.linspace(0, P - 1, 1024).astype(np.int64), device=dev)
+    probe = [c[probe_idx].contiguous() for c in chief]
+    probe_ms, probe_err = {}, 0.0
+    for ss in (2, 4):
+        g = mdf.march_forward_noresidual(coeff, probe, gnp, 3, ss, 2)
+        sync()
+        r = march_chief_dense(vol, *probe, algorithm=3, substeps=ss,
+                              interpolation_scheme=2)
+        pe, de = march_err(tuple(g), r)
+        probe_err = max(probe_err, pe / scale, de)
+        probe_ms[ss] = time_ms(lambda: mdf.march_forward_noresidual(
+            coeff, probe, gnp, 3, ss, 2))
+    hold("K1 tricubic, the 1024 probe rays of choose_substeps at 2 and 4 "
+         "substeps (normalised)", probe_err, K1_TOL)
+    k1c_call_ms = time_ms(lambda: march_chief_fused(
+        vol, *chief, algorithm=2, interpolation_scheme=2), reps=5, warm=1)
+    k1c_plain_ms = time_ms(lambda: march_chief_dense(
+        vol, *chief, algorithm=2, interpolation_scheme=2), reps=3, warm=1)
+    k1tc_ms = time_ms(lambda: march_forward_residual(coeff, rays6, gnp, 2,
+                                                     True, 2))
+    k4c_ms = time_ms(lambda: march_backward_stage(
+        coeff, rays6, texit_c, traj_c, ct6, gnp, 2, 2), reps=5, warm=1)
+    k5c_ms = time_ms(lambda: march_backward_remarch(
+        coeff, rays6, texit_c, out_c, ct6, gnp, 2, iters_bench, 2), reps=5,
+        warm=1)
+    # autograd through the plain cubic march, the backward half only, summed
+    # over slices of 30,000 rays
+    cubic_plain_bwd_ms = 0.0
+    for s0 in range(0, P, 30000):
+        sl = slice(s0, min(s0 + 30000, P))
+        fld_p = vol.field.detach().clone().requires_grad_(True)
+        outs_p = march_chief_dense(vol._replace(field=fld_p),
+                                   *(c[sl] for c in chief), algorithm=2,
+                                   interpolation_scheme=2)
+        diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
+        sync()
+        t0 = time.perf_counter()
+        torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
+                            grad_outputs=[ct6[i, sl] for i in diff_p])
+        sync()
+        cubic_plain_bwd_ms += (time.perf_counter() - t0) * 1e3
+        del outs_p, fld_p
+    k1c_ops = steps * (4 * MARCH_OPS_PER_RHS_CUBIC + MARCH_OPS_PER_RK4_COMBINE)
+    k1c_bound, k1c_by = bound_ms(k1_bytes, k1c_ops)
+    k1c2_bound, k1c2_by = bound_ms(k1_bytes, 2 * k1c_ops)
+    k1tc_bound, k1tc_by = bound_ms(15 * P * 4 + field_bytes + traj_bytes,
+                                   k1c_ops)
+    k4c_ops = steps * (4 * MARCH_VJP_OPS_PER_STAGE_CUBIC
+                       + MARCH_VJP_OPS_PER_COMBINE)
+    k4c_bound, k4c_by = bound_ms(traj_bytes + 21 * P * 4 + 2 * field_bytes,
+                                 k4c_ops)
+    k5c_ops = k4c_ops + steps * (
+        (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS_CUBIC
+        + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
+    k5c_bound, k5c_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5c_ops)
+    print(f"    prefilter of the 64^3 field (PyTorch, no kernel of this "
+          f"package) {prefilter_ms:.3f} ms; march_chief_fused with it "
+          f"{k1c_call_ms:.3f} ms  [{card}]")
+    print(f"    K1 tricubic time {k1c_ms:.4f} ms  plain {k1c_plain_ms:.2f} ms "
+          f"(with its prefilter)  bound {k1c_bound:.4f} ms ({k1c_by})  "
+          f"residual head {k1tc_ms:.4f} ms  bound {k1tc_bound:.4f} ms "
+          f"({k1tc_by})  [{card}]")
+    print(f"    K1 tricubic with 2 substeps: time {k1c2_ms:.4f} ms  plain "
+          f"{k1c2_plain_ms:.2f} ms  bound {k1c2_bound:.4f} ms ({k1c2_by}); on "
+          f"the 1024 probe rays {probe_ms[2]:.4f} ms at 2 substeps, "
+          f"{probe_ms[4]:.4f} ms at 4  [{card}]")
+    print(f"    K4 tricubic time {k4c_ms:.4f} ms  bound {k4c_bound:.4f} ms "
+          f"({k4c_by})  K5 tricubic time {k5c_ms:.4f} ms  bound "
+          f"{k5c_bound:.4f} ms ({k5c_by})  autograd through the plain cubic "
+          f"march {cubic_plain_bwd_ms:.2f} ms  (trilinear: K4 {k4_ms:.4f} ms, "
+          f"K5 {k5_ms:.4f} ms)  [{card}]")
+    cubic_shape = f"{P} rays, 64^3 coefficients, RK4, tricubic"
+    kernel_rows.append(dict(
+        name="march_dense_cubic", route="cuda",
+        source="photon_tpu_torch/csrc/march_dense.cu",
+        replaces="photon_tpu/ops/march_dense_fused.py:174",
+        shape=cubic_shape + " with 2 substeps (the march of the pair that "
+        "launches it)",
+        max_abs_err=k1c_err[3], tolerance=K1_TOL, ms=k1c2_ms,
+        plain_ms=k1c2_plain_ms, bound_ms=k1c2_bound, bound_by=k1c2_by,
+        library_ms=None, prefilter_ms=prefilter_ms,
+        one_substep=dict(shape=cubic_shape, max_abs_err=k1c_err[2],
+                         ms=k1c_ms, plain_ms=k1c_plain_ms,
+                         bound_ms=k1c_bound, ms_with_prefilter=k1c_call_ms),
+        probes=dict(shape="1024 rays, 2 and 4 substeps",
+                    max_abs_err=probe_err, ms=[probe_ms[2], probe_ms[4]])))
+    kernel_rows.append(dict(
+        name="march_dense_residual_cubic", route="cuda",
+        source="photon_tpu_torch/csrc/march_dense.cu",
+        replaces="photon_tpu/ops/march_dense_fused.py:164", shape=cubic_shape,
+        max_abs_err=0.0, tolerance=0.0, ms=k1tc_ms, plain_ms=k1c_plain_ms,
+        bound_ms=k1tc_bound, bound_by=k1tc_by, library_ms=None))
+    for nm, line, ms_, bnd, by in (
+            ("march_bwd_stage_cubic", 656, k4c_ms, k4c_bound, k4c_by),
+            ("march_bwd_remarch_cubic", 348, k5c_ms, k5c_bound, k5c_by)):
+        e = cubic_errs["RK4"]["K4" if "stage" in nm else "K5"]
+        kernel_rows.append(dict(
+            name=nm, route="cuda",
+            source="photon_tpu_torch/csrc/march_bwd.cu",
+            replaces=f"photon_tpu/ops/march_dense_fused.py:{line}",
+            shape=cubic_shape, max_abs_err=e[0], state_err=e[1],
+            tolerance=MARCH_FIELD_TOL, ms=ms_, plain_ms=cubic_plain_bwd_ms,
+            bound_ms=bnd, bound_by=by, library_ms=None))
+    del out_c, texit_c, traj_c
+
+    # ------------------------------------------------------------------
+    # phase 2i: K8 and K9, the per-stage slab sampler and its backward
+    # ------------------------------------------------------------------
+    print("K8 / K9 slab sampler (csrc/slab_sample.cu) against its plain "
+          "version and autograd through it")
+    # limits: the kernel and the plain version run the same f32 formulas and
+    # differ by FMA contraction (values: 5e-6 of each channel's maximum) and,
+    # for the slabs' cotangent, by the order in which some hundreds of rays
+    # add into a voxel (atomics against index_add: 5e-5 of the maximum).  The
+    # coordinate cotangents are sums of differences of neighbouring taps,
+    # which cancel, so contraction shows at 1e-5 (seen: 9e-6): 5e-5 of the
+    # largest of the three rows.  One scale for the three on the bench
+    # field only: it varies along x alone, so d_uy and d_uz are zero in exact
+    # arithmetic and hold nothing but rounding (held each at its own maximum
+    # they read 1.08 and 0.82).  On the noise slabs all three rows are live
+    # and each is held at its own maximum, to 5e-6 (seen: 2.4e-7).
+    K8_TOL, K9_SLAB_TOL, K9_COORD_TOL, K9_COORD_ROW_TOL = 5e-6, 5e-5, 5e-5, 5e-6
+    w_v, h_v = int(vol.sizes[0]), int(vol.sizes[1])
+    ks_mid = n // 2
+    on_slab = (0.5 + (chief[0] - float(geom.min_x)) / float(geom.sx),
+               0.5 + (chief[1] - float(geom.min_y)) / float(geom.sy))
+
+    def uniform(lo_, hi_):
+        return lo_ + (hi_ - lo_) * torch.rand(P, generator=gen, device=dev)
+
+    def rows_err(a, b):
+        return max(nerr(x_, y_) for x_, y_ in zip(a, b))
+
+    sampler = {}
+    noise = [torch.randn(h_v, w_v, 4, generator=gen, device=dev)
+             for _ in range(2)]
+    for scheme in (1, 2):
+        fld = coeff if scheme == 2 else vol.field
+        cases = (("the chief rays on a slab pair of the bench volume",
+                  fld[ks_mid], fld[ks_mid + 1],
+                  on_slab + (uniform(0.0, 1.0),)),
+                 ("random slabs, coordinates beyond both clamps", *noise,
+                  (uniform(-4.0, w_v + 3.0), uniform(-4.0, h_v + 3.0),
+                   uniform(0.0, 1.0))))
+        for label, lo_s, hi_s, uu in cases:
+            uu = tuple(u.contiguous() for u in uu)
+            got = slab_sample_forward(lo_s, hi_s, *uu, scheme)
+            sync()
+            ref = torch.stack(slab_sample_plain(lo_s, hi_s, *uu, scheme))
+            e8 = rows_err(got, ref)
+            hold(f"K8 scheme {scheme}, {P} rays, {label} (each channel of its "
+                 f"maximum)", e8, K8_TOL)
+            ct4 = torch.randn(4, P, generator=gen, device=dev)
+            d_lo, d_hi, d_u = slab_sample_backward(lo_s, hi_s, *uu, ct4,
+                                                   scheme)
+            sync()
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (lo_s, hi_s) + uu]
+            gp = torch.autograd.grad(
+                torch.stack(slab_sample_plain(*leaves, scheme)), leaves,
+                grad_outputs=ct4)
+            e9s = max(nerr(d_lo, gp[0]), nerr(d_hi, gp[1]))
+            on_bench = label.startswith("the chief")
+            if on_bench:
+                e9u = float(max((a_ - b_).abs().max()
+                                for a_, b_ in zip(d_u, gp[2:]))
+                            / max(b_.abs().max() for b_ in gp[2:]))
+            else:
+                e9u = rows_err(d_u, gp[2:])
+            hold(f"K9 scheme {scheme}, {label}: d_lo, d_hi (of their maxima)",
+                 e9s, K9_SLAB_TOL)
+            hold(f"K9 scheme {scheme}, {label}: d_ux, d_uy, d_uz "
+                 f"({'of the largest' if on_bench else 'each of its maximum'})",
+                 e9u, K9_COORD_TOL if on_bench else K9_COORD_ROW_TOL)
+            if on_bench:
+                sampler[scheme] = dict(uu=uu, ct=ct4, lo=lo_s, hi=hi_s,
+                                       e8=e8, e9=max(e9s, e9u))
+    slab_bytes = w_v * h_v * 16
+    for scheme in (1, 2):
+        c = sampler[scheme]
+        c["k8_ms"] = time_ms(lambda: slab_sample_forward(
+            c["lo"], c["hi"], *c["uu"], scheme), inner=20)
+        c["k9_ms"] = time_ms(lambda: slab_sample_backward(
+            c["lo"], c["hi"], *c["uu"], c["ct"], scheme), inner=20)
+        c["k8_plain_ms"] = time_ms(lambda: slab_sample_plain(
+            c["lo"], c["hi"], *c["uu"], scheme), reps=5, warm=1)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (c["lo"], c["hi"]) + c["uu"]]
+        out_p = torch.stack(slab_sample_plain(*leaves, scheme))
+        c["k9_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            out_p, leaves, grad_outputs=c["ct"], retain_graph=True), reps=5,
+            warm=1)
+        del out_p, leaves
+        c["k8_bound"], c["k8_by"] = bound_ms(
+            7 * P * 4 + 2 * slab_bytes, P * SAMPLE_OPS[scheme])
+        c["k9_bound"], c["k9_by"] = bound_ms(
+            10 * P * 4 + 4 * slab_bytes,
+            P * (SAMPLE_OPS[scheme] + SAMPLE_VJP_OPS[scheme]))
+    # the one PyTorch call that computes the trilinear sample: grid_sample
+    # over the two slabs as a depth-2 volume, border padding (the cubic one
+    # has none: grid_sample's bicubic is another kernel, and 2-D only)
+    c1 = sampler[1]
+    gs_in = torch.stack([c1["lo"], c1["hi"]]).permute(3, 0, 1, 2)[None]
+    gs_in = gs_in.contiguous().requires_grad_(True)
+    gs_grid = torch.stack([2.0 * c1["uu"][0] / (w_v - 1.0) - 1.0,
+                           2.0 * c1["uu"][1] / (h_v - 1.0) - 1.0,
+                           2.0 * c1["uu"][2] - 1.0], -1)
+    gs_grid = gs_grid.reshape(1, 1, 1, P, 3).requires_grad_(True)
+    gs_kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    with torch.no_grad():
+        gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
+        k8_lib_err = rows_err(gs_out.reshape(4, P), slab_sample_forward(
+            c1["lo"], c1["hi"], *c1["uu"], 1))
+        k8_lib_ms = time_ms(lambda: torch.nn.functional.grid_sample(
+            gs_in, gs_grid, **gs_kw), inner=20)
+    gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
+    k9_lib_ms = time_ms(lambda: torch.autograd.grad(
+        gs_out, [gs_in, gs_grid], grad_outputs=c1["ct"].reshape(gs_out.shape),
+        retain_graph=True), inner=20)
+    del gs_out
+    print(f"    grid_sample on the same inputs differs from K8 by "
+          f"{k8_lib_err:.3e} of each channel's maximum")
+    require(k8_lib_err <= 1e-4, "grid_sample does not compute K8's function")
+    for scheme in (1, 2):
+        c = sampler[scheme]
+        print(f"    scheme {scheme}: K8 time {c['k8_ms']:.4f} ms  plain "
+              f"{c['k8_plain_ms']:.3f} ms  bound {c['k8_bound']:.5f} ms "
+              f"({c['k8_by']})  K9 time {c['k9_ms']:.4f} ms  autograd through "
+              f"the plain sampler {c['k9_plain_ms']:.3f} ms  bound "
+              f"{c['k9_bound']:.5f} ms ({c['k9_by']})  [{card}]")
+    print(f"    grid_sample {k8_lib_ms:.4f} ms, its backward {k9_lib_ms:.4f} "
+          f"ms (trilinear only)  [{card}]")
+    c2 = sampler[2]
+    for nm, line, key, lib_ms in (("slab_sample", 166, "k8", k8_lib_ms),
+                                  ("slab_sample_bwd", 181, "k9", k9_lib_ms)):
+        err_key = "e8" if key == "k8" else "e9"
+        kernel_rows.append(dict(
+            name=nm, route="cuda",
+            source="photon_tpu_torch/csrc/slab_sample.cu",
+            replaces=f"photon_tpu/ops/march_dense_pallas.py:{line}",
+            shape=f"{P} rays, one 64 x 64 slab pair, trilinear",
+            max_abs_err=c1[err_key],
+            tolerance=K8_TOL if key == "k8" else K9_SLAB_TOL,
+            ms=c1[key + "_ms"], plain_ms=c1[key + "_plain_ms"],
+            bound_ms=c1[key + "_bound"], bound_by=c1[key + "_by"],
+            library_ms=lib_ms,
+            cubic=dict(shape=f"{P} rays, one 64 x 64 slab pair, tricubic",
+                       max_abs_err=c2[err_key], ms=c2[key + "_ms"],
+                       plain_ms=c2[key + "_plain_ms"],
+                       bound_ms=c2[key + "_bound"], library_ms=None)))
+    del sampler, c1, c2, coeff
+
     if failures:
         raise SystemExit(f"chip_smoke: kernel comparisons failed: {failures}")
 
@@ -878,11 +1251,13 @@ def main() -> int:
         (8.0 / math.pi) / params.aperture_f_number ** 2
         * lens_params[6]))                               # with transmission
 
-    def plain_render(v, sel):
+    def plain_render(v, sel, algorithm=2, scheme=1, substeps=None):
         """The image of the particles `sel` through the plain versions
         only (differentiable with respect to v.field)."""
         ch = tuple(c[sel] for c in chief)
-        x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(v, *ch, algorithm=2)
+        x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(
+            v, *ch, algorithm=algorithm, interpolation_scheme=scheme,
+            substeps=substeps)
         t_exit = (z1 - ch[2]) / ch[5]
         d6p = (z1, x1 - (ch[0] + ch[3] * t_exit),
                y1 - (ch[1] + ch[4] * t_exit),
@@ -1167,9 +1542,10 @@ def main() -> int:
         (g,) = torch.autograd.grad(loss, rho_t)
         return float(loss.detach()), g
 
-    def kernel_render(src):
+    def kernel_render(src, **kw):
+        kw = {"algorithm": 2, **kw}
         return lambda v: render_image_fast(cfg, setup, src, r1, r2, vol=v,
-                                           algorithm=2, device=dev)
+                                           device=dev, **kw)
 
     loss_k, g_k = first_step(kernel_render(sub))
     _, g_k5 = with_budget(0, lambda: first_step(kernel_render(sub)))
@@ -1192,11 +1568,11 @@ def main() -> int:
 
     # seconds per step, forward and backward apart (host clock, device
     # synchronised)
-    def timed_step():
+    def timed_step(**kw):
         rho_t = rho0_t.detach().clone().requires_grad_(True)
         sync()
         ta = time.perf_counter()
-        img = kernel_render(source)(volume_from_rho(rho_t, vol, gd))
+        img = kernel_render(source, **kw)(volume_from_rho(rho_t, vol, gd))
         loss = torch.mean((img - target) ** 2)
         sync()
         tb = time.perf_counter()
@@ -1241,6 +1617,225 @@ def main() -> int:
     else:
         print("    traced step: the profiler reported no device time; device "
               "busy share not measured")
+
+    # ------------------------------------------------------------------
+    # phase 5: the rest of the march menu through the command line
+    # ------------------------------------------------------------------
+    print("the march menu: photon_tpu_torch.cli.main at full size with "
+          "tricubic + algorithm 3, and with Adams-Bashforth")
+    menu_wrappers = dict(
+        march_dense=march_chief_fused, march_bwd_stage=march_backward_stage,
+        march_bwd_remarch=march_backward_remarch,
+        slab_sample=slab_sample_forward, slab_sample_bwd=slab_sample_backward,
+        fan_stats=fan_stats, splat=splat_particles)
+
+    def counted_menu(fn):
+        for w in menu_wrappers.values():
+            w.launches = 0
+        out_ = fn()
+        sync()
+        return out_, {k: int(w.launches) for k, w in menu_wrappers.items()}
+
+    n_slabs = n - 1
+    pair_rest = dict(march_bwd_stage=0, march_bwd_remarch=0,
+                     slab_sample_bwd=0, fan_stats=2 * n_chunks,
+                     splat=2 * n_chunks)
+    menu_counts = {}
+    for label, alg, scheme in (("tricubic, algorithm 3, substeps from the "
+                                "data", 3, 2), ("Adams-Bashforth", 4, 1)):
+        cfg_m = dataclasses.replace(cfg, density_gradients=dataclasses.replace(
+            cfg.density_gradients, ray_tracing_algorithm=alg,
+            interpolation_scheme=scheme))
+        render_fast._substep_cache.clear()
+        with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
+            case, nrrd = write_bench_case(tmp, cfg_m, rho, spacings, origin)
+            out = os.path.join(tmp, "out")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc, counts_m = counted_menu(
+                    lambda: cli_main([case, "--out", out, "--verbose"]))
+            if rc != 0:
+                raise SystemExit(f"chip_smoke: the CLI returned {rc} ({label})")
+            im2_m = np.fromfile(
+                os.path.join(out, "raw", "bos_pattern_image_2.bin"),
+                np.float32).reshape(sensor, sensor)
+            vol_file = load_density_volume(
+                nrrd, gladstone_dale=cfg.density_gradients.gladstone_dale,
+                device=dev)
+        chosen = list(render_fast._substep_cache.values())
+        print(f"    {label}: launches {counts_m}; substeps chosen "
+              f"{chosen if alg == 3 else 'none (one step a slab)'}")
+        if alg == 3:
+            require(len(chosen) == 1 and 2 <= chosen[0] <= 16,
+                    f"choose_substeps gave {chosen}")
+            # two probe marches of choose_substeps and the march itself, all
+            # through the cubic march kernel; no per-stage sampling
+            expect_m = dict(march_dense=3, slab_sample=0, **pair_rest)
+            substeps_m = chosen[0]
+        else:
+            # a slab step samples four RK4 stages; the first is also the
+            # Adams-Bashforth right-hand side at the step's entry
+            expect_m = dict(march_dense=0, slab_sample=4 * n_slabs,
+                            **pair_rest)
+            substeps_m = None
+        if counts_m != expect_m:
+            raise SystemExit(f"chip_smoke: {label}: launch counts {counts_m}, "
+                             f"expected {expect_m}")
+        menu_counts[alg] = counts_m
+        with torch.no_grad():
+            plain_m = plain_render(vol_file, whole, alg, scheme,
+                                   substeps_m).cpu().numpy()
+        require(counts_m == {k: int(w.launches)
+                             for k, w in menu_wrappers.items()},
+                "the plain render launched a kernel")
+        l1_m = float(np.abs(im2_m - plain_m).sum() / plain_m.sum())
+        moved_m = float(np.abs(im2_m - im2).sum() / im2.sum())
+        print(f"    {label}: im2 against the plain render L1 {l1_m:.3e} of "
+              f"the sum (tolerance 1.0e-03); against the trilinear RK4 im2 "
+              f"{moved_m:.3e}")
+        require(np.isfinite(im2_m).all() and l1_m < 1e-3,
+                f"{label}: im2 is {l1_m} (L1) from the plain render")
+        for line in buf.getvalue().splitlines():
+            mt = re.match(r"\s*(render:\S+|volume): ([0-9.]+)s(?:\s+([0-9.]+)M "
+                          r"rays/s)?", line)
+            if mt:
+                rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
+                print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}  "
+                      f"[{card}]")
+    for row in kernel_rows:
+        if row["name"] == "march_dense_cubic":
+            row["launches"] = menu_counts[3]["march_dense"]
+            row["launches_on"] = ("cli.main, the BOS pair with tricubic "
+                                  "interpolation and algorithm 3: the march "
+                                  "and the two probes of choose_substeps")
+        elif row["name"] == "slab_sample":
+            row["launches"] = menu_counts[4]["slab_sample"]
+            row["launches_on"] = "cli.main, the BOS pair with Adams-Bashforth"
+
+    # ------------------------------------------------------------------
+    # phase 6: gradients through the new routes, one chunk at full size
+    # ------------------------------------------------------------------
+    print("gradients of the new routes: invert_bos's render loss at full "
+          "size, one forward and backward each")
+
+    def traced_busy(**kw):
+        """Device time of one traced step, by kernel name."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_:
+            timed_step(**kw)
+        evs = [ev for ev in prof_.key_averages()
+               if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
+        return sum(ev.self_device_time_total for ev in evs), evs
+
+    def grad_route(label, expect, plain_kw, **kw):
+        """One step of invert_bos for the launch counts, the same step's
+        d_rho at every tenth particle against the plain versions, seconds
+        per half-step and the device's busy share."""
+        render_fast._substep_cache.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_fn = kw.pop("step_fn")
+        res_r, counts_r = counted_menu(step_fn)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"    {label}: launches {counts_r}; loss {res_r:.6g}; peak "
+              f"device memory {peak_gb:.2f} GB  [{card}]")
+        for k, v in expect.items():
+            require(counts_r[k] == v, f"{label}: {k} launched "
+                    f"{counts_r[k]} times, expected {v}")
+        _, g_kern = first_step(kernel_render(sub, **kw))
+        _, g_plain = first_step(lambda v: plain_render(v, tenth, **plain_kw))
+        cos = cosine(g_kern, g_plain)
+        rel = float((g_kern - g_plain).norm() / g_plain.norm())
+        timed_step(**kw)
+        fb_ = [timed_step(**kw) for _ in range(3)]
+        f_s = statistics.median(t[0] for t in fb_)
+        b_s = statistics.median(t[1] for t in fb_)
+        dev_us_, evs_ = traced_busy(**kw)
+        busy = (f"{dev_us_ / 1e6 / (f_s + b_s):.1%}" if dev_us_ > 0
+                else "not measured")
+        print(f"    {label}: d_rho at every tenth particle against the plain "
+              f"versions cosine {cos:.7f}, relative L2 {rel:.3e}; forward "
+              f"{f_s * 1e3:.2f} ms, backward {b_s * 1e3:.2f} ms (median of "
+              f"3); device busy {busy} of the step ({dev_us_ / 1e3:.2f} ms of "
+              f"device time, traced run over untraced ones)  [{card}]")
+        require(cos >= 0.9999 and bool(torch.isfinite(g_kern).all())
+                and float(g_plain.abs().max()) > 0,
+                f"{label}: d_rho cosine {cos} against the plain versions")
+        return counts_r, evs_
+
+    def one_invert_step(algorithm):
+        return lambda: invert_bos(
+            cfg, setup, source, r1, r2, im2, vol, rho0=rho0, steps=1,
+            learning_rate=lr, algorithm=algorithm, device=dev).losses[0]
+
+    def one_render_step(**kw):
+        return lambda: first_step(kernel_render(source, **kw))[0]
+
+    # RK4 with substeps under autograd: choose_substeps probes twice through
+    # the fused kernel, then every stage of the march samples through K8 and
+    # its backward through K9 (substeps x 4 stages a slab)
+    sub2 = 2 * 4 * n_slabs
+    counts_s, evs_s = grad_route(
+        "algorithm 3 (substeps from the data)",
+        dict(march_dense=2, slab_sample=sub2, slab_sample_bwd=sub2,
+             march_bwd_stage=0, march_bwd_remarch=0),
+        dict(algorithm=3, substeps=2), step_fn=one_invert_step(3),
+        algorithm=3)
+    require(list(render_fast._substep_cache.values()) == [2] * len(
+        render_fast._substep_cache), "choose_substeps did not pick 2 here")
+    counts_a, _ = grad_route(
+        "algorithm 4 (Adams-Bashforth)",
+        dict(march_dense=0, slab_sample=4 * n_slabs,
+             slab_sample_bwd=4 * n_slabs, march_bwd_stage=0,
+             march_bwd_remarch=0),
+        dict(algorithm=4), step_fn=one_invert_step(4), algorithm=4)
+    counts_c, evs_c = grad_route(
+        "tricubic RK4, stage residual",
+        dict(march_dense=1, march_bwd_stage=1, march_bwd_remarch=0,
+             slab_sample=0, slab_sample_bwd=0),
+        dict(algorithm=2, scheme=2),
+        step_fn=one_render_step(interpolation_scheme=2),
+        interpolation_scheme=2)
+    counts_c5, _ = with_budget(0, lambda: grad_route(
+        "tricubic RK4, re-march backward",
+        dict(march_dense=1, march_bwd_stage=0, march_bwd_remarch=1,
+             slab_sample=0, slab_sample_bwd=0),
+        dict(algorithm=2, scheme=2),
+        step_fn=one_render_step(interpolation_scheme=2),
+        interpolation_scheme=2))
+    for tag, evs_ in (("slab_sample_kernel", evs_s),
+                      ("slab_sample_bwd_kernel", evs_s),
+                      ("march_dense_kernel", evs_c),
+                      ("march_bwd_stage_kernel", evs_c)):
+        hit = [ev for ev in evs_ if tag in ev.key]
+        if hit:
+            n_ev = sum(ev.count for ev in hit)
+            us = sum(ev.self_device_time_total for ev in hit)
+            print(f"    traced step, {tag}: {n_ev} launches, {us / 1e3:.3f} "
+                  f"ms on the device, {us / max(n_ev, 1):.1f} us a launch  "
+                  f"[{card}]")
+    step3 = "one step of invert_bos with algorithm 3 (substeps 2)"
+    cubic_step = ("one forward and backward of the render loss with tricubic "
+                  "interpolation")
+    for row in kernel_rows:
+        nm = row["name"]
+        if nm == "slab_sample":
+            row["launches_gradient_step"] = counts_s["slab_sample"]
+        elif nm == "slab_sample_bwd":
+            row["launches"], row["launches_on"] = (counts_s[nm], step3)
+            row["launches_adams_bashforth_step"] = counts_a[nm]
+        elif nm == "march_dense_residual_cubic":
+            row["launches"], row["launches_on"] = (counts_c["march_dense"],
+                                                   cubic_step)
+        elif nm == "march_bwd_stage_cubic":
+            row["launches"], row["launches_on"] = (counts_c["march_bwd_stage"],
+                                                   cubic_step)
+        elif nm == "march_bwd_remarch_cubic":
+            row["launches"] = counts_c5["march_bwd_remarch"]
+            row["launches_on"] = (cubic_step + ", the stage residual over its "
+                                  "budget")
+    for row in kernel_rows:
+        require(row.get("launches", 0) > 0,
+                f"{row['name']} was never launched on a main path")
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -15,8 +15,12 @@
 // cotangent in fast memory.  Here one thread owns one ray, as in the forward:
 // the reversed slab loop runs inside the thread, the cotangent state
 // (ct_x, ct_y, ct_z, ct_Tx, ct_Ty, ct_Tz) stays in registers, each stage
-// re-gathers its eight voxels, and the field's cotangent is scattered with
-// one 16-byte atomicAdd a voxel into a zeroed (D, H, W, 4) tensor.  No ray
+// re-gathers its eight voxels (thirty-two under the cubic scheme 2, whose
+// weights' derivatives the kernels form as the TPU kernels do), and the
+// field's cotangent is scattered with one 16-byte atomicAdd a voxel into a
+// zeroed (D, H, W, 4) tensor; under scheme 2 that tensor is the cotangent of
+// the B-spline coefficients, which the caller pulls back through the
+// prefilter.  No ray
 // blocks, no chunking of the rays, no re-blocking, no packed slab pairs.
 // The forward kernel does the entry advance and the final normalisation
 // itself, so these kernels differentiate both by hand around the slab sweep
@@ -25,9 +29,9 @@
 // rays (xs, ys, zs, dcx, dcy, dcz) out.
 //
 // What bounds them on an H100: the atomic units and dependent-load latency.
-// A ray and in-band slab costs 4 stages x 8 vector atomics (neighbouring rays
-// hit the same voxels) beside 80 bytes of residual (stage kernel) or twelve
-// more stage evaluations (re-march kernel).  Float atomics add in an order
+// A ray and in-band slab costs 4 stages x 8 (cubic: 32) vector atomics
+// (neighbouring rays hit the same voxels) beside 80 bytes of residual (stage
+// kernel) or twelve more stage evaluations (re-march kernel).  Float atomics add in an order
 // that changes from run to run, so d_field differs in its last bits between
 // runs; the rays' cotangents have no atomics and are run-to-run equal.
 //
@@ -49,18 +53,10 @@ struct StageVjp {
   State5 k;     // the stage's right-hand side (for d_h)
 };
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void scatter4(float4* addr, float w,
-                                         const float4& d) {
-  if (w == 0.0f) return;
-  atomicAdd(addr, make_float4(w * d.x, w * d.y, w * d.z, w * d.w));
-}
-
 // One stage: recompute the sample at state `s`, rebuild k, and pull the
-// cotangent d5 of k back to the state, to z_at and to the field.
+// cotangent d5 of k back to the state, to z_at and to the field (the
+// sample's own VJP is sample_vjp of march_common.cuh).
+template <int SCHEME>
 __device__ __forceinline__ StageVjp vjp_stage(
     const float4* __restrict__ lo, const float4* __restrict__ hi,
     float4* __restrict__ dlo, float4* __restrict__ dhi, const MarchGeom& g,
@@ -69,21 +65,7 @@ __device__ __forceinline__ StageVjp vjp_stage(
   float uz = clampf(uz_raw, 0.0f, 1.0f);
   float ux = 0.5f + (s.x - g.min_x) / g.sx;
   float uy = 0.5f + (s.y - g.min_y) / g.sy;
-  Taps t = taps(g, ux, uy);
-  float4 a00 = __ldg(lo + t.o00), a01 = __ldg(lo + t.o00 + 1);
-  float4 a10 = __ldg(lo + t.o10), a11 = __ldg(lo + t.o10 + 1);
-  float4 b00 = __ldg(hi + t.o00), b01 = __ldg(hi + t.o00 + 1);
-  float4 b10 = __ldg(hi + t.o10), b11 = __ldg(hi + t.o10 + 1);
-  float wx0 = 1.0f - t.fx, wx1 = t.fx;
-  float wy0 = 1.0f - t.fy, wy1 = t.fy;
-  float wz0 = 1.0f - uz, wz1 = uz;
-  float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
-  float4 f;
-#define PHOTON_BLEND(c)                                                     \
-  f.c = wz0 * (w00 * a00.c + w01 * a01.c + w10 * a10.c + w11 * a11.c) +     \
-        wz1 * (w00 * b00.c + w01 * b01.c + w10 * b10.c + w11 * b11.c);
-  PHOTON_BLEND(x) PHOTON_BLEND(y) PHOTON_BLEND(z) PHOTON_BLEND(w)
-#undef PHOTON_BLEND
+  float4 f = sample<SCHEME>(lo, hi, g, ux, uy, uz);
 
   StageVjp r;
   float inv = 1.0f / s.tz;
@@ -96,35 +78,12 @@ __device__ __forceinline__ StageVjp vjp_stage(
   // cotangent of the sample (gx, gy, gz, n-1)
   float4 ds = make_float4(d5.tx * gfac, d5.ty * gfac, d5.tz * gfac,
                           d_gfac * inv);
+  SampleVjp v = sample_vjp<SCHEME>(lo, hi, dlo, dhi, g, ux, uy, uz, ds);
+  if (!(uz_raw >= 0.0f && uz_raw <= 1.0f)) v.d_uz = 0.0f;
 
-  // to the field: the eight taps' weights times ds
-  scatter4(dlo + t.o00, wz0 * w00, ds);
-  scatter4(dlo + t.o00 + 1, wz0 * w01, ds);
-  scatter4(dlo + t.o10, wz0 * w10, ds);
-  scatter4(dlo + t.o10 + 1, wz0 * w11, ds);
-  scatter4(dhi + t.o00, wz1 * w00, ds);
-  scatter4(dhi + t.o00 + 1, wz1 * w01, ds);
-  scatter4(dhi + t.o10, wz1 * w10, ds);
-  scatter4(dhi + t.o10 + 1, wz1 * w11, ds);
-
-  // to the coordinates: differences of the taps along each axis
-  float qa00 = dot4(a00, ds), qa01 = dot4(a01, ds);
-  float qa10 = dot4(a10, ds), qa11 = dot4(a11, ds);
-  float qb00 = dot4(b00, ds), qb01 = dot4(b01, ds);
-  float qb10 = dot4(b10, ds), qb11 = dot4(b11, ds);
-  float d_ux = wz0 * (wy0 * (qa01 - qa00) + wy1 * (qa11 - qa10)) +
-               wz1 * (wy0 * (qb01 - qb00) + wy1 * (qb11 - qb10));
-  float d_uy = wz0 * (wx0 * (qa10 - qa00) + wx1 * (qa11 - qa01)) +
-               wz1 * (wx0 * (qb10 - qb00) + wx1 * (qb11 - qb01));
-  float d_uz = (w00 * qb00 + w01 * qb01 + w10 * qb10 + w11 * qb11) -
-               (w00 * qa00 + w01 * qa01 + w10 * qa10 + w11 * qa11);
-  if (!t.free_x) d_ux = 0.0f;
-  if (!t.free_y) d_uy = 0.0f;
-  if (!(uz_raw >= 0.0f && uz_raw <= 1.0f)) d_uz = 0.0f;
-
-  r.v = {d_ux / g.sx, d_uy / g.sy, d5.x * inv, d5.y * inv,
+  r.v = {v.d_ux / g.sx, v.d_uy / g.sy, d5.x * inv, d5.y * inv,
          -(inv * inv) * d_inv};
-  r.d_z = d_uz / g.dz_slab;
+  r.d_z = v.d_uz / g.dz_slab;
   return r;
 }
 
@@ -134,6 +93,7 @@ __device__ __forceinline__ State5 scale5(float c, const Cot6& d) {
 
 // Backward of one in-band slab step given its stage input states; updates
 // the cotangent state in place.  h = z_plane - z_entry is the forward step.
+template <int SCHEME>
 __device__ __forceinline__ void slab_backward(
     int algorithm, const float4* __restrict__ lo,
     const float4* __restrict__ hi, float4* __restrict__ dlo,
@@ -143,22 +103,23 @@ __device__ __forceinline__ void slab_backward(
   State5 d_st;
   float d_z;
   if (algorithm == 1) {
-    StageVjp r1 = vjp_stage(lo, hi, dlo, dhi, g, z_plane, sg.s1, z_entry,
-                            scale5(h, ct));
+    StageVjp r1 = vjp_stage<SCHEME>(lo, hi, dlo, dhi, g, z_plane, sg.s1,
+                                    z_entry, scale5(h, ct));
     d_st = axpy(d_new, 1.0f, r1.v);
     d_z = r1.d_z - dot5(d_new, r1.k);
   } else {
     float h2 = h / 2.0f;
-    StageVjp r4 = vjp_stage(lo, hi, dlo, dhi, g, z_plane, sg.s4, z_entry + h,
-                            scale5(h / 6.0f, ct));
-    StageVjp r3 = vjp_stage(lo, hi, dlo, dhi, g, z_plane, sg.s3,
-                            z_entry + h2,
-                            axpy(scale5(h / 3.0f, ct), h, r4.v));
-    StageVjp r2 = vjp_stage(lo, hi, dlo, dhi, g, z_plane, sg.s2,
-                            z_entry + h2,
-                            axpy(scale5(h / 3.0f, ct), h2, r3.v));
-    StageVjp r1 = vjp_stage(lo, hi, dlo, dhi, g, z_plane, sg.s1, z_entry,
-                            axpy(scale5(h / 6.0f, ct), h2, r2.v));
+    StageVjp r4 = vjp_stage<SCHEME>(lo, hi, dlo, dhi, g, z_plane, sg.s4,
+                                    z_entry + h, scale5(h / 6.0f, ct));
+    StageVjp r3 = vjp_stage<SCHEME>(lo, hi, dlo, dhi, g, z_plane, sg.s3,
+                                    z_entry + h2,
+                                    axpy(scale5(h / 3.0f, ct), h, r4.v));
+    StageVjp r2 = vjp_stage<SCHEME>(lo, hi, dlo, dhi, g, z_plane, sg.s2,
+                                    z_entry + h2,
+                                    axpy(scale5(h / 3.0f, ct), h2, r3.v));
+    StageVjp r1 = vjp_stage<SCHEME>(lo, hi, dlo, dhi, g, z_plane, sg.s1,
+                                    z_entry,
+                                    axpy(scale5(h / 6.0f, ct), h2, r2.v));
     d_st = axpy(axpy(axpy(axpy(d_new, 1.0f, r4.v), 1.0f, r3.v), 1.0f, r2.v),
                 1.0f, r1.v);
     State5 combo = {r1.k.x + 2.0f * r2.k.x + 2.0f * r3.k.x + r4.k.x,
@@ -239,6 +200,7 @@ __device__ __forceinline__ void entry_bwd(const MarchGeom& g,
 // rays, ct_out, d_rays: (6, P); texit: (3, P) raw exit T of the forward;
 // traj: the forward's (S, rows, P) stage residual; d_field: zeroed
 // (D, H, W) float4.
+template <int SCHEME>
 __global__ void march_bwd_stage_kernel(const float* __restrict__ rays,
                                        const float* __restrict__ texit,
                                        const float* __restrict__ traj,
@@ -271,15 +233,16 @@ __global__ void march_bwd_stage_kernel(const float* __restrict__ rays,
         sg.s4 = load_state5(tr + 15 * P, P);
       }
       const long long off = (long long)ks * slab;
-      slab_backward(algorithm, field + off, field + off + slab, d_field + off,
-                    d_field + off + slab, g, z_plane, z_entry,
-                    z_plane - z_entry, sg, ct);
+      slab_backward<SCHEME>(algorithm, field + off, field + off + slab,
+                            d_field + off, d_field + off + slab, g, z_plane,
+                            z_entry, z_plane - z_entry, sg, ct);
     }
   }
   entry_bwd(g, r, e, ct, d_rays, P, p);
 }
 
 // as above, with the forward's outputs `out` (6, P) in place of the residual
+template <int SCHEME>
 __global__ void march_bwd_remarch_kernel(const float* __restrict__ rays,
                                          const float* __restrict__ texit,
                                          const float* __restrict__ out,
@@ -314,23 +277,26 @@ __global__ void march_bwd_remarch_kernel(const float* __restrict__ rays,
         // fixed-point inverse of the Euler step (entry = exit - h k(entry)):
         // three evaluations as in the TPU kernel, two more for each defect
         // iteration that the grid's anisotropy asks for
-        State5 guess = axpy(st, -h, rhs(lo, hi, g, z_plane, st, z_plane));
+        State5 guess =
+            axpy(st, -h, rhs<SCHEME>(lo, hi, g, z_plane, st, z_plane));
         for (int it = 0; it < 2 + 2 * defect_iters; ++it)
-          guess = axpy(st, -h, rhs(lo, hi, g, z_plane, guess, z_entry));
+          guess =
+              axpy(st, -h, rhs<SCHEME>(lo, hi, g, z_plane, guess, z_entry));
         sg.s1 = guess;
       } else {
-        State5 rec = rk4(lo, hi, g, z_plane, st, -h, z_plane);
+        State5 rec = rk4<SCHEME>(lo, hi, g, z_plane, st, -h, z_plane);
         for (int it = 0; it < defect_iters; ++it) {
-          State5 fwd = rk4(lo, hi, g, z_plane, rec, h, z_entry);
+          State5 fwd = rk4<SCHEME>(lo, hi, g, z_plane, rec, h, z_entry);
           rec = {rec.x - (fwd.x - st.x), rec.y - (fwd.y - st.y),
                  rec.tx - (fwd.tx - st.tx), rec.ty - (fwd.ty - st.ty),
                  rec.tz - (fwd.tz - st.tz)};
         }
         // replay the forward stages from the reconstructed entry
-        rk4(lo, hi, g, z_plane, rec, h, z_entry, &sg);
+        rk4<SCHEME>(lo, hi, g, z_plane, rec, h, z_entry, &sg);
       }
-      slab_backward(algorithm, lo, hi, d_field + off, d_field + off + slab, g,
-                    z_plane, z_entry, h, sg, ct);
+      slab_backward<SCHEME>(algorithm, lo, hi, d_field + off,
+                            d_field + off + slab, g, z_plane, z_entry, h, sg,
+                            ct);
       st = sg.s1;
     }
   }
@@ -340,19 +306,22 @@ __global__ void march_bwd_remarch_kernel(const float* __restrict__ rays,
 }  // namespace
 
 // Both return cudaGetLastError() after the launch.  The wrapper zeroes
-// d_field; geom as in march_dense.cu.
+// d_field; geom and scheme as in march_dense.cu.
 extern "C" int photon_march_bwd_stage(const float* rays, const float* texit,
                                       const float* traj, const float* ct_out,
                                       const float* field, float* d_field,
                                       float* d_rays, long long P, int W,
                                       int H, int D, const float* geom,
-                                      int algorithm, void* stream) {
+                                      int algorithm, int scheme,
+                                      void* stream) {
+  if (scheme != 1 && scheme != 2) return (int)cudaErrorInvalidValue;
   if (P <= 0) return 0;
   MarchGeom g = make_geom(geom, W, H, D);
   const int threads = 128;
   long long blocks = (P + threads - 1) / threads;
-  march_bwd_stage_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
+  auto kernel = scheme == 2 ? march_bwd_stage_kernel<2>
+                            : march_bwd_stage_kernel<1>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       rays, texit, traj, ct_out, reinterpret_cast<const float4*>(field),
       reinterpret_cast<float4*>(d_field), d_rays, P, g, algorithm);
   return (int)cudaGetLastError();
@@ -363,14 +332,16 @@ extern "C" int photon_march_bwd_remarch(const float* rays, const float* texit,
                                         const float* field, float* d_field,
                                         float* d_rays, long long P, int W,
                                         int H, int D, const float* geom,
-                                        int algorithm, int defect_iters,
-                                        void* stream) {
+                                        int algorithm, int scheme,
+                                        int defect_iters, void* stream) {
+  if (scheme != 1 && scheme != 2) return (int)cudaErrorInvalidValue;
   if (P <= 0) return 0;
   MarchGeom g = make_geom(geom, W, H, D);
   const int threads = 128;
   long long blocks = (P + threads - 1) / threads;
-  march_bwd_remarch_kernel<<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
+  auto kernel = scheme == 2 ? march_bwd_remarch_kernel<2>
+                            : march_bwd_remarch_kernel<1>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       rays, texit, out, ct_out, reinterpret_cast<const float4*>(field),
       reinterpret_cast<float4*>(d_field), d_rays, P, g, algorithm,
       defect_iters);

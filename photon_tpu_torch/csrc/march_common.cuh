@@ -1,5 +1,10 @@
 // Device functions shared by the dense march kernels: the forward march
-// (march_dense.cu) and its two backward kernels (march_bwd.cu).
+// (march_dense.cu), its two backward kernels (march_bwd.cu) and the per-stage
+// slab sampler with its backward (slab_sample.cu).
+//
+// Interpolation scheme 1 is trilinear; scheme 2 is the cubic B-spline in x
+// and y over prefiltered coefficients, blended linearly in z (4 x 4 x 2 taps).
+// Every device function that samples is a template on the scheme.
 //
 // The march integrates the z-parametrised eikonal ODE in Sharma's
 // T = n dr/ds form,
@@ -80,29 +85,190 @@ __device__ __forceinline__ Taps taps(const MarchGeom& g, float ux, float uy) {
   return t;
 }
 
+// Cubic B-spline kernel B3(x), support |x| < 2, and its derivative.
+__device__ __forceinline__ float b3(float x) {
+  float ax = fabsf(x);
+  float inner = (4.0f - 6.0f * ax * ax + 3.0f * ax * ax * ax) / 6.0f;
+  float t = 2.0f - ax;
+  float outer = t * t * t / 6.0f;
+  return ax < 1.0f ? inner : (ax < 2.0f ? outer : 0.0f);
+}
+
+__device__ __forceinline__ float b3_d(float x) {
+  float ax = fabsf(x);
+  float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  float inner = sgn * (-12.0f * ax + 9.0f * ax * ax) / 6.0f;
+  float t = 2.0f - ax;
+  float outer = -sgn * t * t / 2.0f;
+  return ax < 1.0f ? inner : (ax < 2.0f ? outer : 0.0f);
+}
+
+// Cubic addressing of one axis: the coordinate is clamped into [-2, n+1],
+// the four taps sit at floor(uc)-1 .. floor(uc)+2 with weight B3(uc - j), and
+// every tap's index is clipped into [0, n-1].  Taps that clip onto a border
+// voxel add up there: that is the border fold of the dense cubic weights
+// (up to three taps a border).  `free`: the clamp let the coordinate through,
+// so the weights' derivatives `d` are live.
+struct CubicAxis {
+  int i[4];
+  float w[4], d[4];
+  bool free;
+};
+
+template <bool DERIV>
+__device__ __forceinline__ CubicAxis cubic_axis(float u, int n) {
+  CubicAxis a;
+  a.free = (u > -2.0f) && (u < (float)(n + 1));
+  float uc = clampf(u, -2.0f, (float)(n + 1));
+  int j0 = (int)floorf(uc) - 1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int j = j0 + k;
+    float x = uc - (float)j;
+    a.w[k] = b3(x);
+    a.d[k] = DERIV ? b3_d(x) : 0.0f;
+    a.i[k] = min(max(j, 0), n - 1);
+  }
+  return a;
+}
+
 // (grad n, n-1) at voxel coordinates between slab `lo` (weight 1-uz) and
-// `hi` (weight uz): the two-tap clamped fetch per axis that the dense hat
-// weights max(0, 1-|clip(u,0,n-1)-i|) evaluate to.
+// `hi` (weight uz).  Scheme 1: the two-tap clamped fetch per axis that the
+// dense hat weights max(0, 1-|clip(u,0,n-1)-i|) evaluate to.  Scheme 2: the
+// four-tap clipped fetch per axis that the dense cubic weights evaluate to.
+template <int SCHEME>
 __device__ __forceinline__ float4 sample(const float4* __restrict__ lo,
                                          const float4* __restrict__ hi,
                                          const MarchGeom& g, float ux,
                                          float uy, float uz) {
-  Taps t = taps(g, ux, uy);
-  float4 a00 = __ldg(lo + t.o00), a01 = __ldg(lo + t.o00 + 1);
-  float4 a10 = __ldg(lo + t.o10), a11 = __ldg(lo + t.o10 + 1);
-  float4 b00 = __ldg(hi + t.o00), b01 = __ldg(hi + t.o00 + 1);
-  float4 b10 = __ldg(hi + t.o10), b11 = __ldg(hi + t.o10 + 1);
-  float wx0 = 1.0f - t.fx, wx1 = t.fx;
-  float wy0 = 1.0f - t.fy, wy1 = t.fy;
   float wz0 = 1.0f - uz, wz1 = uz;
-  float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
   float4 r;
+  if constexpr (SCHEME == 2) {
+    CubicAxis ax = cubic_axis<false>(ux, g.W);
+    CubicAxis ay = cubic_axis<false>(uy, g.H);
+    float4 sl = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sh = sl;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = ay.i[j] * g.W;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float w = ay.w[j] * ax.w[i];
+        float4 a = __ldg(lo + row + ax.i[i]);
+        float4 b = __ldg(hi + row + ax.i[i]);
+        sl.x += w * a.x; sl.y += w * a.y; sl.z += w * a.z; sl.w += w * a.w;
+        sh.x += w * b.x; sh.y += w * b.y; sh.z += w * b.z; sh.w += w * b.w;
+      }
+    }
+    r = make_float4(wz0 * sl.x + wz1 * sh.x, wz0 * sl.y + wz1 * sh.y,
+                    wz0 * sl.z + wz1 * sh.z, wz0 * sl.w + wz1 * sh.w);
+  } else {
+    Taps t = taps(g, ux, uy);
+    float4 a00 = __ldg(lo + t.o00), a01 = __ldg(lo + t.o00 + 1);
+    float4 a10 = __ldg(lo + t.o10), a11 = __ldg(lo + t.o10 + 1);
+    float4 b00 = __ldg(hi + t.o00), b01 = __ldg(hi + t.o00 + 1);
+    float4 b10 = __ldg(hi + t.o10), b11 = __ldg(hi + t.o10 + 1);
+    float wx0 = 1.0f - t.fx, wx1 = t.fx;
+    float wy0 = 1.0f - t.fy, wy1 = t.fy;
+    float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
 #define PHOTON_BLEND(c)                                                     \
   r.c = wz0 * (w00 * a00.c + w01 * a01.c + w10 * a10.c + w11 * a11.c) +     \
         wz1 * (w00 * b00.c + w01 * b01.c + w10 * b10.c + w11 * b11.c);
-  PHOTON_BLEND(x) PHOTON_BLEND(y) PHOTON_BLEND(z) PHOTON_BLEND(w)
+    PHOTON_BLEND(x) PHOTON_BLEND(y) PHOTON_BLEND(z) PHOTON_BLEND(w)
 #undef PHOTON_BLEND
+  }
   return r;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// one 16-byte atomic a voxel; a tap of zero weight adds nothing
+__device__ __forceinline__ void scatter4(float4* addr, float w,
+                                         const float4& d) {
+  if (w == 0.0f) return;
+  atomicAdd(addr, make_float4(w * d.x, w * d.y, w * d.z, w * d.w));
+}
+
+// The sample's VJP: the cotangent `ds` of (grad n, n-1) pulled back to the
+// two slabs (scattered into `dlo`, `dhi` with the taps' weights) and to the
+// coordinates.  d_ux and d_uy come from the weights' derivatives and are zero
+// where the clamp held the coordinate; d_uz is the hi blend minus the lo
+// blend, unmasked (uz is clipped by the caller, who masks it).
+struct SampleVjp {
+  float d_ux, d_uy, d_uz;
+};
+
+template <int SCHEME>
+__device__ __forceinline__ SampleVjp sample_vjp(
+    const float4* __restrict__ lo, const float4* __restrict__ hi,
+    float4* __restrict__ dlo, float4* __restrict__ dhi, const MarchGeom& g,
+    float ux, float uy, float uz, const float4& ds) {
+  float wz0 = 1.0f - uz, wz1 = uz;
+  SampleVjp v;
+  if constexpr (SCHEME == 2) {
+    CubicAxis ax = cubic_axis<true>(ux, g.W);
+    CubicAxis ay = cubic_axis<true>(uy, g.H);
+    float d_ux = 0.0f, d_uy = 0.0f, d_uz = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = ay.i[j] * g.W;
+      float rx = 0.0f, ry = 0.0f, rz = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = row + ax.i[i];
+        float w = ay.w[j] * ax.w[i];
+        float qa = dot4(__ldg(lo + o), ds);
+        float qb = dot4(__ldg(hi + o), ds);
+        scatter4(dlo + o, wz0 * w, ds);
+        scatter4(dhi + o, wz1 * w, ds);
+        float q = wz0 * qa + wz1 * qb;
+        rx += ax.d[i] * q;
+        ry += ax.w[i] * q;
+        rz += ax.w[i] * (qb - qa);
+      }
+      d_ux += ay.w[j] * rx;
+      d_uy += ay.d[j] * ry;
+      d_uz += ay.w[j] * rz;
+    }
+    v.d_ux = ax.free ? d_ux : 0.0f;
+    v.d_uy = ay.free ? d_uy : 0.0f;
+    v.d_uz = d_uz;
+  } else {
+    Taps t = taps(g, ux, uy);
+    float4 a00 = __ldg(lo + t.o00), a01 = __ldg(lo + t.o00 + 1);
+    float4 a10 = __ldg(lo + t.o10), a11 = __ldg(lo + t.o10 + 1);
+    float4 b00 = __ldg(hi + t.o00), b01 = __ldg(hi + t.o00 + 1);
+    float4 b10 = __ldg(hi + t.o10), b11 = __ldg(hi + t.o10 + 1);
+    float wx0 = 1.0f - t.fx, wx1 = t.fx;
+    float wy0 = 1.0f - t.fy, wy1 = t.fy;
+    float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
+
+    // to the slabs: the eight taps' weights times ds
+    scatter4(dlo + t.o00, wz0 * w00, ds);
+    scatter4(dlo + t.o00 + 1, wz0 * w01, ds);
+    scatter4(dlo + t.o10, wz0 * w10, ds);
+    scatter4(dlo + t.o10 + 1, wz0 * w11, ds);
+    scatter4(dhi + t.o00, wz1 * w00, ds);
+    scatter4(dhi + t.o00 + 1, wz1 * w01, ds);
+    scatter4(dhi + t.o10, wz1 * w10, ds);
+    scatter4(dhi + t.o10 + 1, wz1 * w11, ds);
+
+    // to the coordinates: differences of the taps along each axis
+    float qa00 = dot4(a00, ds), qa01 = dot4(a01, ds);
+    float qa10 = dot4(a10, ds), qa11 = dot4(a11, ds);
+    float qb00 = dot4(b00, ds), qb01 = dot4(b01, ds);
+    float qb10 = dot4(b10, ds), qb11 = dot4(b11, ds);
+    v.d_ux = wz0 * (wy0 * (qa01 - qa00) + wy1 * (qa11 - qa10)) +
+             wz1 * (wy0 * (qb01 - qb00) + wy1 * (qb11 - qb10));
+    v.d_uy = wz0 * (wx0 * (qa10 - qa00) + wx1 * (qa11 - qa01)) +
+             wz1 * (wx0 * (qb10 - qb00) + wx1 * (qb11 - qb01));
+    v.d_uz = (w00 * qb00 + w01 * qb01 + w10 * qb10 + w11 * qb11) -
+             (w00 * qa00 + w01 * qa01 + w10 * qa10 + w11 * qa11);
+    if (!t.free_x) v.d_ux = 0.0f;
+    if (!t.free_y) v.d_uy = 0.0f;
+  }
+  return v;
 }
 
 struct State5 {
@@ -119,6 +285,7 @@ __device__ __forceinline__ float dot5(const State5& a, const State5& b) {
   return a.x * b.x + a.y * b.y + a.tx * b.tx + a.ty * b.ty + a.tz * b.tz;
 }
 
+template <int SCHEME>
 __device__ __forceinline__ State5 rhs(const float4* __restrict__ lo,
                                       const float4* __restrict__ hi,
                                       const MarchGeom& g, float z_plane,
@@ -126,7 +293,7 @@ __device__ __forceinline__ State5 rhs(const float4* __restrict__ lo,
   float uz = clampf((z_at - z_plane) / g.dz_slab, 0.0f, 1.0f);
   float ux = 0.5f + (s.x - g.min_x) / g.sx;
   float uy = 0.5f + (s.y - g.min_y) / g.sy;
-  float4 f = sample(lo, hi, g, ux, uy, uz);
+  float4 f = sample<SCHEME>(lo, hi, g, ux, uy, uz);
   float inv_tz = 1.0f / s.tz;
   float gn = (1.0f + f.w) * inv_tz;
   return {s.tx * inv_tz, s.ty * inv_tz, gn * f.x, gn * f.y, gn * f.z};
@@ -152,19 +319,20 @@ __device__ __forceinline__ State5 rk4_combine(const State5& s, float h,
 }
 
 // One RK4 step; `st`, when not null, receives the stage input states.
+template <int SCHEME>
 __device__ __forceinline__ State5 rk4(const float4* __restrict__ lo,
                                       const float4* __restrict__ hi,
                                       const MarchGeom& g, float z_plane,
                                       const State5& s, float h, float z0,
                                       Stages* st = nullptr) {
-  State5 k1 = rhs(lo, hi, g, z_plane, s, z0);
+  State5 k1 = rhs<SCHEME>(lo, hi, g, z_plane, s, z0);
   float h2 = h / 2.0f;
   State5 s2 = axpy(s, h2, k1);
-  State5 k2 = rhs(lo, hi, g, z_plane, s2, z0 + h2);
+  State5 k2 = rhs<SCHEME>(lo, hi, g, z_plane, s2, z0 + h2);
   State5 s3 = axpy(s, h2, k2);
-  State5 k3 = rhs(lo, hi, g, z_plane, s3, z0 + h2);
+  State5 k3 = rhs<SCHEME>(lo, hi, g, z_plane, s3, z0 + h2);
   State5 s4 = axpy(s, h, k3);
-  State5 k4 = rhs(lo, hi, g, z_plane, s4, z0 + h);
+  State5 k4 = rhs<SCHEME>(lo, hi, g, z_plane, s4, z0 + h);
   if (st != nullptr) *st = {s, s2, s3, s4};
   return rk4_combine(s, h, k1, k2, k3, k4);
 }

@@ -1,16 +1,20 @@
 // Dense chief-ray march through a (D, H, W, 4) refractive-index field, forward.
 //
 // Replaces the TPU kernel photon_tpu/ops/march_dense_fused.py::_fused_kernel_impl
-// (both heads, trilinear scheme): the plain head, and the `_traj` head that
-// also writes every step's stage input states for the stage backward kernel.
+// (both heads, both interpolation schemes): the plain head, and the `_traj`
+// head that also writes every step's stage input states for the stage
+// backward kernel.
 // That kernel turns interpolation into a (W*4, 2H) x (2H, B) matrix product
 // per integrator stage because a TPU cannot gather, which costs O(W*H) per ray
 // and stage and needs a bf16 split.
 // Here one thread owns one chief ray, the slab loop runs inside the thread (it
 // takes the place of the TPU kernel's sequential grid axis), the state
 // (x, y, z, Tx, Ty, Tz) stays in registers, and every integrator stage does
-// eight 16-byte loads of (grad n, n-1) voxels straight from the field: O(1)
-// per ray and stage, all in f32.
+// eight (trilinear) or thirty-two (cubic B-spline in x and y over prefiltered
+// coefficients, linear in z) 16-byte loads of (grad n, n-1) voxels straight
+// from the field: O(1) per ray and stage, all in f32.  The scheme is a
+// template parameter, so the trilinear instantiation is the arithmetic it
+// always was.
 //
 // What bounds it on an H100: operations and load latency, not bytes.  The
 // inputs and outputs are 48 bytes a ray and the field is read once from
@@ -46,7 +50,7 @@ namespace {
 // out: (6, P) rows x, y, z, dirx, diry, dirz after traversal; texit: (3, P)
 // rows Tx, Ty, Tz before the normalisation (GRAD only; rays that never
 // entered leave theirs unwritten)
-template <bool GRAD>
+template <bool GRAD, int SCHEME>
 __global__ void march_dense_kernel(const float* __restrict__ xs,
                                    const float* __restrict__ ys,
                                    const float* __restrict__ zs,
@@ -81,22 +85,22 @@ __global__ void march_dense_kernel(const float* __restrict__ xs,
                       ? traj + (long long)s * rows * P + p : nullptr;
       if (algorithm == 1) {
         if (tr != nullptr) store_state5(tr, P, st);
-        st = axpy(st, hstep, rhs(lo, hi, g, z_plane, st, z));
+        st = axpy(st, hstep, rhs<SCHEME>(lo, hi, g, z_plane, st, z));
       } else if (substeps == 1) {
         if (tr != nullptr) {
           Stages sg;
-          st = rk4(lo, hi, g, z_plane, st, hstep, z, &sg);
+          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hstep, z, &sg);
           store_state5(tr, P, sg.s1);
           store_state5(tr + 5 * P, P, sg.s2);
           store_state5(tr + 10 * P, P, sg.s3);
           store_state5(tr + 15 * P, P, sg.s4);
         } else {
-          st = rk4(lo, hi, g, z_plane, st, hstep, z);
+          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hstep, z);
         }
       } else {
         float hs = hstep / (float)substeps;
         for (int si = 0; si < substeps; ++si)
-          st = rk4(lo, hi, g, z_plane, st, hs, z + (float)si * hs);
+          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hs, z + (float)si * hs);
       }
       z = z_plane;
     }
@@ -123,23 +127,26 @@ __global__ void march_dense_kernel(const float* __restrict__ xs,
 template <bool GRAD>
 int launch_march(const float* rays[6], const float* field, float* out,
                  float* texit, float* traj, long long P, int W, int H, int D,
-                 const float* geom, int algorithm, int substeps,
+                 const float* geom, int algorithm, int substeps, int scheme,
                  void* stream) {
+  if (scheme != 1 && scheme != 2) return (int)cudaErrorInvalidValue;
   if (P <= 0) return 0;
   MarchGeom g = make_geom(geom, W, H, D);
   const int threads = 128;
   long long blocks = (P + threads - 1) / threads;
-  march_dense_kernel<GRAD>
-      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-          rays[0], rays[1], rays[2], rays[3], rays[4], rays[5],
-          reinterpret_cast<const float4*>(field), out, texit, traj, P, g,
-          algorithm, substeps);
+  auto kernel = scheme == 2 ? march_dense_kernel<GRAD, 2>
+                            : march_dense_kernel<GRAD, 1>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      rays[0], rays[1], rays[2], rays[3], rays[4], rays[5],
+      reinterpret_cast<const float4*>(field), out, texit, traj, P, g,
+      algorithm, substeps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// geom: host array [min_x, min_y, sx, sy, z_min, z_max, dz_slab, n0].
+// geom: host array [min_x, min_y, sx, sy, z_min, z_max, dz_slab, n0];
+// scheme: 1 trilinear, 2 cubic (the field then holds B-spline coefficients).
 // Both functions return cudaGetLastError() after the launch (0 = launched).
 extern "C" int photon_march_dense(const float* xs, const float* ys,
                                   const float* zs, const float* dcx,
@@ -147,10 +154,10 @@ extern "C" int photon_march_dense(const float* xs, const float* ys,
                                   const float* field, float* out,
                                   long long P, int W, int H, int D,
                                   const float* geom, int algorithm,
-                                  int substeps, void* stream) {
+                                  int substeps, int scheme, void* stream) {
   const float* rays[6] = {xs, ys, zs, dcx, dcy, dcz};
   return launch_march<false>(rays, field, out, nullptr, nullptr, P, W, H, D,
-                             geom, algorithm, substeps, stream);
+                             geom, algorithm, substeps, scheme, stream);
 }
 
 // rays: (6, P) rows xs, ys, zs, dcx, dcy, dcz; texit: (3, P); traj:
@@ -160,9 +167,9 @@ extern "C" int photon_march_dense_grad(const float* rays6, const float* field,
                                        float* out, float* texit, float* traj,
                                        long long P, int W, int H, int D,
                                        const float* geom, int algorithm,
-                                       void* stream) {
+                                       int scheme, void* stream) {
   const float* rays[6] = {rays6,         rays6 + P,     rays6 + 2 * P,
                           rays6 + 3 * P, rays6 + 4 * P, rays6 + 5 * P};
   return launch_march<true>(rays, field, out, texit, traj, P, W, H, D, geom,
-                            algorithm, 1, stream);
+                            algorithm, 1, scheme, stream);
 }

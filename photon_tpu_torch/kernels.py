@@ -46,13 +46,20 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # (cudaGetLastError() after its launch)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "march_dense": {
-        "photon_march_dense": [_vp] * 8 + [_ll, _i, _i, _i, _vp, _i, _i, _vp],
-        "photon_march_dense_grad": [_vp] * 5 + [_ll, _i, _i, _i, _vp, _i, _vp],
+        "photon_march_dense": [_vp] * 8 + [_ll, _i, _i, _i, _vp, _i, _i, _i,
+                                           _vp],
+        "photon_march_dense_grad": [_vp] * 5 + [_ll, _i, _i, _i, _vp, _i, _i,
+                                                _vp],
     },
     "march_bwd": {
-        "photon_march_bwd_stage": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _vp],
+        "photon_march_bwd_stage": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _i,
+                                               _vp],
         "photon_march_bwd_remarch": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _i,
-                                                 _vp],
+                                                 _i, _vp],
+    },
+    "slab_sample": {
+        "photon_slab_sample": [_vp] * 6 + [_ll, _i, _i, _i, _vp],
+        "photon_slab_sample_bwd": [_vp] * 9 + [_ll, _i, _i, _i, _vp],
     },
     "fan_stats": {
         "photon_fan_const_floats": [],

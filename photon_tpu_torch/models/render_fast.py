@@ -14,9 +14,11 @@ Counterpart of ``photon_tpu/models/render_fast.py``.  The renderer keeps the
 This slice covers the main configuration: the axis-aligned single-lens
 train with the 'apparent', 'thin-lens' or 'general' lens model, the erf
 diffraction sensor, an unrotated camera, and a density volume in the dense
-tier marched with Euler, RK4 or RK4 with explicit substeps under trilinear
-interpolation.  Every other option raises ``NotImplementedError`` naming
-the ROADMAP.md item that brings it; nothing falls through to another path.
+tier marched with any integrator of the menu (Euler, RK4, RK4 with substeps
+given or chosen from the data, Adams-Bashforth) under trilinear or cubic
+B-spline interpolation.  Every other option raises ``NotImplementedError``
+naming the ROADMAP.md item that brings it; nothing falls through to another
+path.
 """
 from __future__ import annotations
 
@@ -32,11 +34,13 @@ from photon_tpu_torch.models.optics import CameraSetup
 from photon_tpu_torch.models.render import RenderParams
 from photon_tpu_torch.models.scenes import LightfieldSource
 from photon_tpu_torch.ops.fan import FanScalars, fan_stats
-from photon_tpu_torch.ops.march_dense import (chief_deltas_dense,
+from photon_tpu_torch.ops.march_dense import (check_march_options,
+                                              chief_deltas_dense,
+                                              choose_substeps,
                                               dense_march_supported)
 from photon_tpu_torch.ops.sensor_fast import particle_splat
-from photon_tpu_torch.roadmap import (AB4, CONFIGS, EXACT_PATH, LARGE_VOLUMES,
-                                      MULTI_DEVICE, TRICUBIC, later)
+from photon_tpu_torch.roadmap import (CONFIGS, EXACT_PATH, LARGE_VOLUMES,
+                                      MULTI_DEVICE, later)
 from photon_tpu_torch.volume import DensityVolume
 
 
@@ -67,6 +71,23 @@ def _chief_geometry(xs, ys, zs, inv_rot, z_offset, image_distance):
     cpos_w = inv_rot @ cpos_cam
     return tuple(c.contiguous() for c in (cpos_w[0], cpos_w[1], cpos_w[2],
                                           cdir_w[0], cdir_w[1], cdir_w[2]))
+
+
+# substep counts chosen for algorithm 3, by interpolation scheme and scene
+_substep_cache = {}
+
+
+def _scene_fingerprint(vol, setup, params, source) -> int:
+    """Hash of everything the substep probe reads but the field's values
+    (as the JAX package keys its cache)."""
+    return hash((
+        tuple(int(s) for s in vol.sizes),
+        np.asarray(vol.min_bound).tobytes(),
+        np.asarray(vol.max_bound).tobytes(),
+        np.asarray(setup.inverse_rotation_matrix).tobytes(),
+        float(params.z_offset), float(params.image_distance),
+        *(np.asarray(a, np.float32).tobytes()
+          for a in (source.x, source.y, source.z))))
 
 
 def auto_patch(params: RenderParams) -> int:
@@ -142,19 +163,7 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     if params.lens_model not in ("apparent", "thin-lens", "general"):
         raise ValueError(f"unknown lens_model {params.lens_model!r}")
     if vol is not None:
-        if interpolation_scheme == 2:
-            raise later("tricubic interpolation (scheme 2)", TRICUBIC)
-        if interpolation_scheme != 1:
-            raise ValueError(
-                f"unknown interpolation_scheme {interpolation_scheme}")
-        if algorithm == 4:
-            raise later("Adams-Bashforth (algorithm 4)", AB4)
-        if algorithm == 3 and march_substeps is None:
-            raise later("algorithm 3 without explicit march_substeps "
-                        "(the error-controlled choose_substeps)",
-                        TRICUBIC)
-        if algorithm not in (1, 2, 3):
-            raise ValueError(f"unknown ray_tracing_algorithm {algorithm}")
+        check_march_options(algorithm, interpolation_scheme)
         if dense_march is False or not dense_march_supported(vol):
             raise later("a march outside the dense tier (slabs over "
                         "256x256, or dense_march=False)", LARGE_VOLUMES)
@@ -201,6 +210,16 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
         inv_rot = as_f32(setup.inverse_rotation_matrix, dev)
         chief = _chief_geometry(xs, ys, zs, inv_rot, params.z_offset,
                                 params.image_distance)
+        if algorithm == 3 and march_substeps is None:
+            # the substep count comes from the data (a Richardson estimate
+            # on a subsample of the chief rays), once per scene
+            key = (int(interpolation_scheme),
+                   _scene_fingerprint(vol, setup, params, source))
+            march_substeps = _substep_cache.get(key)
+            if march_substeps is None:
+                march_substeps = choose_substeps(
+                    vol, *chief, interpolation_scheme=interpolation_scheme)
+                _substep_cache[key] = march_substeps
         deltas6 = chief_deltas_dense(
             vol, *chief, algorithm=algorithm,
             interpolation_scheme=interpolation_scheme,

@@ -6,8 +6,6 @@ through to a different path.
 """
 from __future__ import annotations
 
-TRICUBIC = "Tricubic, prefilter, choose_substeps"
-AB4 = "AB4 and the per-stage sampler"
 LARGE_VOLUMES = "Large volumes"
 CONFIGS = "PIV, Mie, calibration, rotation, noise, bilinear sensor"
 EXACT_PATH = "The exact-semantics path"

@@ -187,16 +187,3 @@ def test_upward_missing_and_horizontal_rays_give_finite_gradients(scene,
                               algorithm=algorithm)
     for o, a in zip(out, alone):
         assert torch.equal(o.detach()[torch.from_numpy(keep)], a)
-
-
-def test_card_route_backward_with_substeps_names_its_roadmap_item(scene):
-    """Tensors that are not on the CPU take the kernel route, which has no
-    backward for RK4 with substeps yet: it raises before any launch (meta
-    tensors stand in for the card here)."""
-    _, tv, rays = scene
-    field = torch.empty_like(tv.field, device="meta").requires_grad_(True)
-    ts = [torch.empty(len(a), device="meta") for a in rays]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*AB4 and the per-stage sampler"):
-        march_chief_fused(tv._replace(field=field), *ts, algorithm=3,
-                          substeps=2)

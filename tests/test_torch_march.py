@@ -146,7 +146,7 @@ def test_dense_support_and_unported_options(volumes):
     _, tv = volumes["random10x14x12"]
     assert dense_march_supported(tv)
     rays = [torch.from_numpy(a) for a in _chiefs(tv, p=4)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        march_chief_fused(tv, *rays, interpolation_scheme=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        march_chief_dense(tv, *rays, algorithm=4)
+    with pytest.raises(ValueError, match="unknown interpolation_scheme"):
+        march_chief_fused(tv, *rays, interpolation_scheme=3)
+    with pytest.raises(ValueError, match="unknown ray_tracing_algorithm"):
+        march_chief_dense(tv, *rays, algorithm=5)

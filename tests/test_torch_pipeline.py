@@ -76,6 +76,27 @@ def test_raw_images_match_jax(results):
                                   ref.dot_positions["x"])
 
 
+@pytest.mark.parametrize("algorithm,scheme", [(2, 2), (3, 1), (4, 1)])
+def test_run_bos_matches_jax_across_the_march_menu(case, algorithm, scheme):
+    """The config's ray_tracing_algorithm and interpolation_scheme reach the
+    march: tricubic RK4, RK4 with substeps chosen from the data, and
+    Adams-Bashforth, im2 within L1 1e-3 of the JAX package's."""
+    import copy
+    name = "bos_pattern_image_2"
+    pair = []
+    for cfg, run in ((case["jax_cfg"], jax_run_bos),
+                     (case["torch_cfg"], run_bos)):
+        cfg = copy.deepcopy(cfg)
+        cfg.density_gradients.ray_tracing_algorithm = algorithm
+        cfg.density_gradients.interpolation_scheme = scheme
+        kw = {} if run is jax_run_bos else dict(device="cpu")
+        pair.append(run(cfg, rng=np.random.default_rng(11), **kw))
+    ref, got = pair
+    l1 = rel_l1(got.raw_images[name], ref.raw_images[name])
+    print(f"algorithm {algorithm} scheme {scheme}: im2 L1 {l1:.3g}")
+    assert l1 < 1e-3, l1
+
+
 def test_quantised_images_match_jax(results):
     ref, got = results
     level = 65535.0 / 1023.0            # one 10-bit level in 16-bit counts

@@ -69,6 +69,65 @@ def test_render_matches_jax_with_volume(general):
     assert rel_l1(ref, ref0) > 0.05
 
 
+MENU = {
+    "tricubic RK4": dict(interpolation_scheme=2),
+    "tricubic Euler": dict(algorithm=1, interpolation_scheme=2),
+    "RK4, substeps chosen from the data": dict(algorithm=3),
+    "tricubic RK4, substeps chosen from the data": dict(
+        algorithm=3, interpolation_scheme=2),
+    "RK4 x 3 substeps": dict(algorithm=3, march_substeps=3),
+    "Adams-Bashforth": dict(algorithm=4),
+    "tricubic Adams-Bashforth": dict(algorithm=4, interpolation_scheme=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MENU))
+def test_render_matches_jax_across_the_march_menu(general, case):
+    """Every (algorithm, scheme) of the dense march through the renderer:
+    L1 within 1e-3 of the image sum, as the default march above."""
+    kw = MENU[case]
+    ref = np.asarray(jax_render(*general["jax"], vol=general["jax_vol"],
+                                **kw))
+    got = render_image_fast(*general["torch"], vol=general["torch_vol"],
+                            device="cpu", **kw).numpy()
+    l1 = rel_l1(got, ref)
+    print(f"{case}: L1 {l1:.3g}")
+    assert np.isfinite(got).all() and got.sum() > 0
+    assert l1 < _L1, l1
+
+
+def test_chosen_substeps_are_cached_by_scene_and_scheme(general, monkeypatch):
+    from photon_tpu_torch.models import render_fast
+    monkeypatch.setattr(render_fast, "_substep_cache", {})
+    calls = []
+    real = render_fast.choose_substeps
+
+    def counting(*a, **kw):
+        calls.append(kw["interpolation_scheme"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(render_fast, "choose_substeps", counting)
+    kw = dict(vol=general["torch_vol"], algorithm=3, device="cpu")
+    a = render_image_fast(*general["torch"], **kw)
+    b = render_image_fast(*general["torch"], **kw)
+    assert calls == [1] and torch.equal(a, b)
+    assert list(render_fast._substep_cache.values()) == [2]
+    render_image_fast(*general["torch"], interpolation_scheme=2, **kw)
+    assert calls == [1, 2]
+    # explicit substeps and the other integrators never probe
+    render_image_fast(*general["torch"], **{**kw, "march_substeps": 2})
+    render_image_fast(*general["torch"], **{**kw, "algorithm": 2})
+    assert calls == [1, 2]
+
+
+@pytest.mark.parametrize("kw", [dict(interpolation_scheme=3),
+                                dict(algorithm=5), dict(algorithm=0)])
+def test_unknown_march_option_raises_value_error(general, kw):
+    with pytest.raises(ValueError, match="unknown"):
+        render_image_fast(*general["torch"], vol=general["torch_vol"],
+                          device="cpu", **kw)
+
+
 def test_chunked_equals_unchunked(general):
     kw = dict(vol=general["torch_vol"], device="cpu")
     whole = render_image_fast(*general["torch"], **kw).numpy()
@@ -111,17 +170,13 @@ def _opts(name):
           "chief_march=False": dict(chief_march=False),
           "Mie scattering": dict(scattering={"scattering_angle": [0.0]}),
           "mesh": dict(mesh=object()),
-          "scheme 2": dict(interpolation_scheme=2),
-          "algorithm 3 without substeps": dict(algorithm=3),
-          "algorithm 4": dict(algorithm=4),
           "dense_march=False": dict(dense_march=False)}.get(name, {})
     return edit, kw
 
 
 @pytest.mark.parametrize("option", [
     "rotated camera", "position noise", "bilinear sensor", "per_ray_splat",
-    "chief_march=False", "Mie scattering", "mesh", "scheme 2",
-    "algorithm 3 without substeps", "algorithm 4", "dense_march=False"])
+    "chief_march=False", "Mie scattering", "mesh", "dense_march=False"])
 def test_unsupported_option_raises(general, option):
     import copy
     cfg, _setup, src, r1, r2 = general["torch"]
