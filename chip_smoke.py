@@ -37,8 +37,27 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    over the sampler kernels; tricubic RK4 over the cubic march kernels, by
    stage residual and by re-march) and holds each d_rho against the plain
    versions at every tenth particle;
-7. prints one JSON line describing the kernels and, last, one JSON line
+7. holds the same march kernels on volumes whose slab exceeds 256 x 256
+   voxels (phase 2j: the counterpart of the TPU's windowed march and its
+   backward): random 320 x 224 x 6 and 140 x 116 x 8 volumes with rays that
+   leave sideways, then the bench scene's 120,000 chief rays through a 512^3
+   volume built on the device (2.15 GB), both heads, both backward kernels,
+   rays in input and in shuffled order (a cone that stays near the L2) and
+   as many rays spread over the whole slab (the reading beyond it), with
+   the voxels each set touches, and the sampler pair on one 512 x 512 slab
+   pair;
+8. drives such volumes through the entry points (phase 7: the pair through
+   the command line on a 288 x 288 x 64 NRRD; render_image_fast through the
+   512^3 volume with RK4, tricubic RK4 and Adams-Bashforth) and
+   differentiates through them (phase 8: one forward and backward of
+   mean(img^2) with respect to the 512^3 field by stage residual and by
+   re-march, with Adams-Bashforth and with tricubic interpolation; two steps
+   of invert_bos on the 512^3 density grid), with launch counts per tier and
+   peak device memory;
+9. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
+
+``--large-only`` runs the build and items 7 and 8 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -152,8 +171,57 @@ def write_bench_case(directory, cfg, rho, spacings, origin):
     return case, nrrd
 
 
-def main() -> int:
+def bench_volume_512(setup, dev, n=512):
+    """The structured large volume of the JAX package's bench (bench.py,
+    ``build_vol512``), built on the device from three 1-D factors so that no
+    2 GB array crosses from the host: rho = 1.225 + 2 g(x) g(y) g(z) with
+    Gaussian factors (sigma 0.35 of each extent), the gradient channels the
+    analytic derivatives, ``data_min = K * 1.225``.  Returns the volume and
+    ``(gx, gz, amplitude)``, from which rho is rebuilt on the device."""
+    import numpy as np
     import torch
+
+    from photon_tpu_torch.volume import Z_ORIGIN_SHIFT, DensityVolume
+
+    x = np.linspace(-1.5e5, 1.5e5, n)
+    z = np.linspace(setup.object_distance - 5e5, setup.object_distance - 1e2,
+                    n)
+    K, amp = 0.225e-3, 2.0
+    sig_l = 0.35 * (x.max() - x.min())
+    sig_z = 0.35 * (z.max() - z.min())
+    zc = 0.5 * (z.min() + z.max())
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    gx = f32(np.exp(-(x / sig_l) ** 2 / 2.0))
+    gz = f32(np.exp(-((z - zc) / sig_z) ** 2 / 2.0))
+    dgx = f32(-(x / sig_l ** 2))
+    dgz = f32(-((z - zc) / sig_z ** 2))
+    # field[z, y, x, c]; c = (K drho/dx, K drho/dy, K drho/dz, K rho)
+    g3 = gz[:, None, None] * gx[None, :, None] * gx[None, None, :]
+    ka = float(np.float32(K * amp))
+    field = torch.empty((n, n, n, 4), dtype=torch.float32, device=dev)
+    field[..., 0] = ka * g3 * dgx[None, None, :]
+    field[..., 1] = ka * g3 * dgx[None, :, None]
+    field[..., 2] = ka * g3 * dgz[:, None, None]
+    field[..., 3] = float(np.float32(K)) * (1.225 + amp * g3)
+    spac = np.array([x[1] - x[0], x[1] - x[0], z[1] - z[0]])
+    origin = np.array([x[0], x[0], z[0] - Z_ORIGIN_SHIFT])
+    vol = DensityVolume(
+        field=field, min_bound=origin.astype(np.float32),
+        max_bound=(origin + (n - 1.0) * spac).astype(np.float32),
+        grid_spacing=spac.astype(np.float32), data_min=float(K * 1.225),
+        step_size=float(spac.min()), max_step_size=float(spac.max()))
+    return vol, (gx, gz, amp)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--large-only", action="store_true",
+                    help="after the build, run the large-volume phases (2j, "
+                    "7, 8) alone; the kernels line then lists their rows only")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA device", file=sys.stderr)
@@ -270,9 +338,9 @@ def main() -> int:
             failures.append(name)
 
     # ------------------------------------------------------------------
-    # phase 2a: K1, the dense march
+    # what every phase shares: the chief rays, the fan's scalars, the splat's
+    # settings, tolerances and helpers (nothing here launches a kernel)
     # ------------------------------------------------------------------
-    print("K1 march_dense (csrc/march_dense.cu) against its plain version")
     inv_rot = f32(setup.inverse_rotation_matrix)
     chief = _chief_geometry(xs, ys, zs, inv_rot, params.z_offset,
                             params.image_distance)
@@ -290,6 +358,1177 @@ def main() -> int:
     # are normalised: positions by the largest coordinate of the volume,
     # directions as they are.  5e-6 is about 40 f32 roundings.
     K1_TOL = 5e-6
+    st = setup.elements
+    lens_params = (float(setup.z_lens), float(st.pitch[0]),
+                   float(st.vertex_distance[0]),
+                   float(st.front_surface_radius[0]),
+                   float(st.back_surface_radius[0]),
+                   float(st.refractive_index[0]),
+                   float(st.transmission_ratio[0]))
+    sc = fan_scalars(params, lens_params)
+    r1d, r2d = f32(r1), f32(r2)
+    cone = params.ray_cone_pitch_ratio * params.lens_pitch
+    x_lens = cone * r1d * torch.cos(2.0 * math.pi * r2d)
+    y_lens = cone * r1d * torch.sin(2.0 * math.pi * r2d)
+    amp0 = f32(source.radiance) * float(
+        np.float32((8.0 / math.pi) / params.aperture_f_number ** 2))
+
+    K = auto_patch(params)
+    D = params.diffraction_diameter
+    skw = dict(K=K, ny=sensor, nx=sensor, diameter=D, render_fraction=0.75)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    # limits of the JAX package's own fused-vs-autodiff tests
+    # (tests/test_dense_fused.py): 5e-4 of the largest field gradient, 1e-3
+    # of the largest entry-state gradient.  Kernel and plain version differ
+    # by FMA contraction, by the order of the sum over rays (atomics against
+    # index_add) and, for K5, by the reconstruction of the stage states.
+    # Where those maxima are no measure (march_bwd_case, `kinked`): 1 - cosine
+    # at most 1e-4, that package's bound for its gradient beyond the slab cap
+    # (tests/test_march_window.py).
+    MARCH_FIELD_TOL, MARCH_STATE_TOL, MARCH_COSINE_TOL = 5e-4, 1e-3, 1e-4
+
+    def nerr(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def march_grads(fn, v, rays, cts, alg, scheme=1, ray_slice=None):
+        """Gradients of the march with respect to the field and the rays;
+        `ray_slice` rays at a time (the field's sums over the slices, the
+        rays' concatenate), which bounds the graph of the plain cubic
+        march."""
+        n_r = rays[0].shape[0]
+        d_fld, d_rr = None, []
+        for s0 in range(0, n_r, ray_slice or n_r):
+            sl = slice(s0, min(s0 + (ray_slice or n_r), n_r))
+            fld = v.field.detach().clone().requires_grad_(True)
+            rr = [r[sl].detach().clone().requires_grad_(True) for r in rays]
+            outs = fn(v._replace(field=fld), *rr, algorithm=alg,
+                      interpolation_scheme=scheme)
+            g = torch.autograd.grad(outs, [fld] + rr,
+                                    grad_outputs=[c[sl] for c in cts])
+            d_fld = g[0] if d_fld is None else d_fld + g[0]
+            d_rr.append(g[1:])
+        return (d_fld,) + tuple(torch.cat(c) for c in zip(*d_rr))
+
+    def with_budget(nbytes, fn):
+        """fn() with the stage residual's budget, of both tiers, at nbytes."""
+        saved = mdf.TRAJ_MAX_BYTES, mdf.TRAJ_MAX_BYTES_LARGE
+        mdf.TRAJ_MAX_BYTES = mdf.TRAJ_MAX_BYTES_LARGE = nbytes
+        try:
+            return fn()
+        finally:
+            mdf.TRAJ_MAX_BYTES, mdf.TRAJ_MAX_BYTES_LARGE = saved
+
+    def cosine(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    def all_but_a_hundredth(diff):
+        """The 99th percentile of |diff|."""
+        flat = diff.abs().flatten()
+        return float(flat.kthvalue(max(1, int(0.99 * flat.numel()))).values)
+
+    def march_bwd_case(v, rays, alg, label, scheme=1, ray_slice=None,
+                       kinked=False, seed=None):
+        """K4 and K5 against autograd through the plain march.  `kinked`: the
+        trilinear interpolant of a noise field has a gradient that jumps at
+        every voxel face, so a ray whose stage lands within the two sides'
+        rounding of a face gets another Jacobian on each side; a few rays in
+        a thousand then differ by percents of the maximum while the median
+        ray agrees to 1e-6.  Such a case is held by the cosine (1 - cosine
+        at most 1e-4, the JAX package's bound for this volume) and by all
+        but one entry in a hundred at the limits of the other cases; its
+        largest difference is printed.  K4 against K5 is held at the maximum
+        everywhere: the two meet the same kinks.  K5 runs with the defect
+        corrections that the dispatch chooses from the field; where the
+        dispatch refuses the re-march (its reconstruction does not converge
+        on this field), the case holds that it raises.  `seed`: of the
+        cotangents, where a case must not depend on what ran before it."""
+        n_r = rays[0].shape[0]
+        gen_c = gen
+        if seed is not None:
+            gen_c = torch.Generator(device=dev)
+            gen_c.manual_seed(seed)
+        cts = [torch.randn(n_r, generator=gen_c, device=dev) * sc_
+               for sc_ in (1.0, 1.0, 1.0, 1e5, 1e5, 1e5)]
+        g4 = march_grads(march_chief_fused, v, rays, cts, alg, scheme)
+        gp = march_grads(march_chief_dense, v, rays, cts, alg, scheme,
+                         ray_slice)
+        fld = bspline_prefilter(v.field) if scheme == 2 else v.field
+        gg = march_geometry(v)
+        contraction = mdf.remarch_contraction(fld, gg)
+        del fld
+
+        def rows(gr):
+            return torch.stack([a / b.abs().max().clamp_min(1e-30)
+                                for a, b in zip(gr[1:], gp[1:])])
+
+        def remarch():
+            return with_budget(0, lambda: march_grads(
+                march_chief_fused, v, rays, cts, alg, scheme))
+
+        if contraction >= mdf.REMARCH_MAX_CONTRACTION:
+            try:
+                remarch()
+                refused = False
+            except ValueError:
+                refused = True
+            print(f"    K5 {label}: a defect correction changes the error by "
+                  f"{contraction:.2f}: the dispatch "
+                  f"{'refuses the re-march' if refused else 'DID NOT REFUSE'}")
+            if not refused:
+                failures.append(f"K5 {label}: not refused")
+            cases = (("K4", g4),)
+        else:
+            print(f"    K5 {label}: a defect correction changes the error by "
+                  f"{contraction:.3f}, "
+                  f"{mdf.defect_iterations(gg, contraction)} corrections")
+            cases = (("K4", g4), ("K5", remarch()))
+        sync()
+
+        errs = {}
+        for nm, gk in cases:
+            errs[nm] = (nerr(gk[0], gp[0]),
+                        max(nerr(a, b) for a, b in zip(gk[1:], gp[1:])))
+            if kinked:
+                hold(f"{nm} {label}: d_field, 1 - cosine (largest difference "
+                     f"{errs[nm][0]:.1e} of its maximum)",
+                     1.0 - cosine(gk[0], gp[0]), MARCH_COSINE_TOL)
+                hold(f"{nm} {label}: cotangents of the rays, 1 - cosine "
+                     f"(largest difference {errs[nm][1]:.1e} of their "
+                     f"maxima)", 1.0 - cosine(rows(gk), rows(gp)),
+                     MARCH_COSINE_TOL)
+                hold(f"{nm} {label}: d_field, 99 in 100 entries (of its "
+                     f"maximum)", all_but_a_hundredth(
+                         (gk[0] - gp[0]) / gp[0].abs().max()),
+                     MARCH_FIELD_TOL)
+                hold(f"{nm} {label}: cotangents of the rays, 99 in 100 "
+                     f"entries (of their maxima)",
+                     all_but_a_hundredth(rows(gk) - rows(gp)),
+                     MARCH_STATE_TOL)
+            else:
+                hold(f"{nm} {label}: d_field (of its maximum)", errs[nm][0],
+                     MARCH_FIELD_TOL)
+                hold(f"{nm} {label}: cotangents of the rays (of their "
+                     f"maxima)", errs[nm][1], MARCH_STATE_TOL)
+            if not bool(torch.isfinite(torch.stack(
+                    [g.abs().max() for g in gk])).all()):
+                failures.append(f"{nm} {label}: not finite")
+        if len(cases) == 2:
+            hold(f"K4 against K5 {label}: d_field (of its maximum)",
+                 nerr(g4[0], cases[1][1][0]), MARCH_FIELD_TOL)
+        return errs
+
+    amp2 = f32(source.radiance) * float(np.float32(
+        (8.0 / math.pi) / params.aperture_f_number ** 2
+        * lens_params[6]))                               # with transmission
+
+    def plain_render(v, sel, algorithm=2, scheme=1, substeps=None):
+        """The image of the particles `sel` through the plain versions
+        only (differentiable with respect to v.field)."""
+        ch = tuple(c[sel] for c in chief)
+        x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(
+            v, *ch, algorithm=algorithm, interpolation_scheme=scheme,
+            substeps=substeps)
+        t_exit = (z1 - ch[2]) / ch[5]
+        d6p = (z1, x1 - (ch[0] + ch[3] * t_exit),
+               y1 - (ch[1] + ch[4] * t_exit),
+               dx1 - ch[3], dy1 - ch[4], dz1 - ch[5])
+        cols = [a[sel] for a in (xs, ys, zs, amp2)]
+        img = torch.zeros((sensor, sensor), dtype=torch.float32, device=dev)
+        n_sel = cols[0].shape[0]
+        for s0 in range(0, n_sel, chunk):
+            sl = slice(s0, min(s0 + chunk, n_sel))
+            pA, pAX, pAY = fan_stats_plain(
+                *(c[sl] for c in cols), tuple(d[sl] for d in d6p), x_lens,
+                y_lens, sc=sc, lens_model="general", mirror_x=True)
+            on = pA > 0
+            pX = torch.where(on, pAX / pA.clamp_min(1e-30),
+                             torch.full_like(pA, -1e6))
+            pY = torch.where(on, pAY / pA.clamp_min(1e-30),
+                             torch.full_like(pA, -1e6))
+            img = img + splat_particles_plain(
+                pX, pY, torch.where(on, pA, torch.zeros_like(pA))
+                * (math.pi / 32.0),
+                (torch.round(pX).to(torch.int32) - K // 2).clamp(0, sensor - K),
+                (torch.round(pY).to(torch.int32) - K // 2).clamp(0, sensor - K),
+                **skw)
+        return img
+
+    def large_tier():
+        """Phases 2j, 7 and 8: volumes whose slab exceeds 256 x 256 voxels,
+        through the same kernels.  Returns the rows it adds to the kernels
+        line."""
+        from torch.profiler import ProfilerActivity, profile
+        rows = []
+        gen_l = torch.Generator(device=dev)
+        gen_l.manual_seed(12)
+        everyone, tenth = slice(0, P), slice(0, P, 10)
+        sub_src = dataclasses.replace(
+            source, x=source.x[tenth], y=source.y[tenth], z=source.z[tenth],
+            radiance=source.radiance[tenth],
+            diameter_index=source.diameter_index[tenth])
+        wrappers = dict(
+            march=march_chief_fused, march_bwd_stage=march_backward_stage,
+            march_bwd_remarch=march_backward_remarch,
+            slab_sample=slab_sample_forward,
+            slab_sample_bwd=slab_sample_backward, fan_stats=fan_stats,
+            fan_stats_bwd=fan_stats_backward, splat=splat_particles,
+            splat_bwd=splat_backward)
+        tiered = ("march", "march_bwd_stage", "march_bwd_remarch",
+                  "slab_sample", "slab_sample_bwd")
+
+        def counted(fn):
+            """fn's result, the launches of every wrapper during it, and of
+            the march and sampler wrappers those on a slab over 256 x 256."""
+            for k, w in wrappers.items():
+                w.launches = 0
+                if k in tiered:
+                    w.launches_large = 0
+            out_ = fn()
+            sync()
+            return (out_, {k: int(w.launches) for k, w in wrappers.items()},
+                    {k: int(wrappers[k].launches_large) for k in tiered})
+
+        def with_peak(fn):
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out_ = fn()
+            sync()
+            return out_, torch.cuda.max_memory_allocated(dev) / 1e9
+
+        def expect_counts(label, got_counts, want):
+            for k, v in want.items():
+                require(got_counts[k] == v, f"{label}: {k} launched "
+                        f"{got_counts[k]} times, expected {v}")
+
+        def device_time(prof_, tag=None):
+            evs = [ev for ev in prof_.key_averages()
+                   if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
+            if tag is not None:
+                evs = [ev for ev in evs if tag in ev.key]
+            return (sum(ev.self_device_time_total for ev in evs) / 1e3,
+                    sum(ev.count for ev in evs))
+
+        def in_band_steps(v, rays):
+            """Ray-slab steps that this run's rays take through v."""
+            gg = march_geometry(v)
+            z_in = torch.where(rays[2] >= float(gg.z_max),
+                               torch.full_like(rays[2], float(gg.z_max)),
+                               rays[2])
+            ins = (z_in >= float(gg.z_min)) & (rays[5] < 0)
+            pl = f32(gg.z_planes(int(v.sizes[2])))
+            return int(((z_in[:, None] > pl[None, :]) & ins[:, None]).sum())
+
+        def touched_voxels(v, rays, slabs_at_once=16):
+            """Distinct voxels of v.field under the 2 x 2 x 2 footprints of
+            these rays' trilinear samples: at the top, the middle and the
+            bottom of every slab a ray crosses (where RK4 samples), on both
+            planes of the slab's pair.  Straight rays: this volume bends
+            them by far less than a voxel.  It is what the march must read
+            of the field."""
+            gg = march_geometry(v)
+            w, h, d = (int(n_) for n_ in v.sizes)
+            x0, y0, z0, cx, cy, cz = rays
+            z_max = float(gg.z_max)
+            z_in = torch.where(z0 >= z_max, torch.full_like(z0, z_max), z0)
+            inside = (z_in >= float(gg.z_min)) & (cz < 0)
+            planes = f32(gg.z_planes(d))                    # top-down
+            above = torch.cat([planes.new_tensor([z_max]), planes[:-1]])
+            mask = torch.zeros((d, h * w), dtype=torch.bool, device=dev)
+            for s0 in range(0, d - 1, slabs_at_once):
+                zb = planes[s0:s0 + slabs_at_once, None]
+                zt = torch.minimum(above[s0:s0 + slabs_at_once, None],
+                                   z_in[None])
+                band = inside[None] & (zt > zb)
+                ks = (d - 2 - torch.arange(s0, s0 + zb.shape[0], device=dev)
+                      )[:, None].expand_as(band)[band]
+                for frac in (0.0, 0.5, 1.0):
+                    t = (zt + frac * (zb - zt) - z0[None]) / cz[None]
+                    ux = 0.5 + (x0[None] + cx[None] * t
+                                - float(gg.min_x)) / float(gg.sx)
+                    uy = 0.5 + (y0[None] + cy[None] * t
+                                - float(gg.min_y)) / float(gg.sy)
+                    ix = ux.clamp(0.0, w - 1.0).long().clamp_max(w - 2)
+                    iy = uy.clamp(0.0, h - 1.0).long().clamp_max(h - 2)
+                    o00 = (iy * w + ix)[band]
+                    for plane in (ks, ks + 1):
+                        for tap in (0, 1, w, w + 1):
+                            mask[plane, o00 + tap] = True
+            return int(mask.sum())
+
+        # --------------------------------------------------------------
+        # phase 2j (i): small volumes of the large tier, every kernel of the
+        # march against its plain version
+        # --------------------------------------------------------------
+        print("phase 2j: the march kernels on slabs over 256 x 256 voxels "
+              "(the counterpart of the TPU's windowed march and its backward) "
+              "against the plain march and autograd through it")
+
+        def random_volume(w, h, d, seed, half_x, noise=0.08):
+            """`noise` kg/m^3 of density noise on a (w, h, d) grid of square
+            voxels between z = 4e5 and 9e5 um."""
+            rng = np.random.default_rng(seed)
+            vox = 2.0 * half_x / (w - 1)
+            v = build_density_volume(
+                1.225 + noise * rng.random((w, h, d)),
+                [vox, vox, 5.0e5 / (d - 1)], [-half_x, -half_x * h / w, 4.0e5],
+                device=dev)
+            return v, vox, rng
+
+        def downward(rng, p, half_x, half_y):
+            """Downward rays from above the volume: 64 start beyond its +x
+            face, 256 near that face with a slope that takes them out of
+            it sideways on the way down."""
+            x0 = rng.uniform(-half_x, half_x, p)
+            y0 = rng.uniform(-half_y, half_y, p)
+            tx = rng.uniform(-0.02, 0.02, p)
+            ty = rng.uniform(-0.01, 0.01, p)
+            x0[:64] = rng.uniform(1.1, 1.3, 64) * half_x
+            x0[64:320] = rng.uniform(0.8, 0.95, 256) * half_x
+            tx[64:320] = 0.08
+            inv = 1.0 / np.sqrt(tx * tx + ty * ty + 1.0)
+            return [f32(a) for a in (x0, y0, np.full(p, 1.0e6), tx * inv,
+                                     ty * inv, -inv)]
+
+        # These grids are a hundred times coarser along z than across, and
+        # 0.08 kg/m^3 of voxel noise (the JAX package's test volume) makes a
+        # step's Jacobian d(exit) / d(entry) differ from the identity by
+        # about h^2 |d^2 n / dx^2| ~ 0.6 (320 wide) and 0.1 (140 wide): the
+        # reverse reconstruction of the re-march backward (K5, and the TPU
+        # kernel it replaces) converges slowly or not at all there.  The
+        # dispatch reads that from the field (remarch_contraction), gives K5
+        # the corrections it needs and refuses it where none would do; every
+        # case below holds whichever of the two the field calls for, on the
+        # same grids with 0.08, 0.008 and 0.002 kg/m^3 of noise.  K4 is
+        # held at its maxima but for the three trilinear RK4 cases in which
+        # a few rays meet a kink of the interpolant (volumes, rays and
+        # cotangents come from seeds, so the cases repeat).
+        kinks_show = {(320, 0.08), (320, 0.008), (140, 0.008)}
+        for w_, h_, d_, seed_, half_ in ((320, 224, 6, 11, 9e4),
+                                         (140, 116, 8, 4, 6e4)):
+            v_, vox_, rng_ = random_volume(w_, h_, d_, seed_, half_)
+            v_mid = random_volume(w_, h_, d_, seed_, half_, noise=0.008)[0]
+            v_calm = random_volume(w_, h_, d_, seed_, half_, noise=0.002)[0]
+            rays_ = downward(rng_, 4096, 0.94 * half_, 0.45 * vox_ * h_)
+            gg_ = march_geometry(v_)
+            gnp_ = np.asarray(gg_, dtype=np.float32)
+            sc_v = float(max(abs(float(t)) for t in
+                             (gg_.min_x, gg_.min_y, gg_.z_min, gg_.z_max)))
+            vname = f"{w_} x {h_} x {d_}"
+            is_large = w_ * h_ > 256 * 256
+            print(f"    {vname} ({'over' if is_large else 'under'} 256 x 256"
+                  f"{'' if w_ % 32 == 0 and h_ % 8 == 0 else '; W, H no multiples of 32, 8'}"
+                  f"), 4096 rays")
+            rays6_ = torch.stack(rays_).contiguous()
+            for scheme in (1, 2):
+                fld_ = bspline_prefilter(v_.field) if scheme == 2 else v_.field
+                for alg, ss, label in ((2, None, "RK4"), (1, None, "Euler"),
+                                       (3, 2, "RK4 x 2 substeps")):
+                    (g, _, lg) = counted(lambda: march_chief_fused(
+                        v_, *rays_, algorithm=alg, substeps=ss,
+                        interpolation_scheme=scheme))
+                    r = march_chief_dense(v_, *rays_, algorithm=alg,
+                                          substeps=ss,
+                                          interpolation_scheme=scheme)
+                    pe, de = march_err(g, r)
+                    hold(f"K1 scheme {scheme} {label}, {vname} (normalised)",
+                         max(pe / sc_v, de), K1_TOL)
+                    require(lg["march"] == (1 if is_large else 0),
+                            f"{vname}: launches_large {lg['march']}")
+                    if ss is not None:
+                        continue
+                    out_t = march_forward_residual(fld_, rays6_, gnp_, alg,
+                                                   True, scheme)[0]
+                    out_p = mdf.march_forward_noresidual(fld_, rays_, gnp_,
+                                                         alg, 1, scheme)
+                    hold(f"K1 scheme {scheme} {label}, {vname}: values of the "
+                         f"residual head that differ from the plain head",
+                         float((out_t != out_p).sum()), 0.0)
+                    for vv, noise in ((v_, 0.08), (v_mid, 0.008),
+                                      (v_calm, 0.002)):
+                        march_bwd_case(
+                            vv, rays_, alg, f"scheme {scheme} {label}, {vname}, "
+                            f"noise {noise}", scheme=scheme,
+                            kinked=(scheme, alg) == (1, 2)
+                            and (w_, noise) in kinks_show, seed=7)
+            moved = float((g[3][:320] - rays_[3][:320]).abs().max())
+            require(moved > 0, f"{vname}: the rays at the +x face are not bent")
+            del v_, v_mid, v_calm, fld_, rays6_
+
+        # --------------------------------------------------------------
+        # phase 2j (ii): the 512^3 volume and the bench scene's chief rays
+        # --------------------------------------------------------------
+        n5 = 512
+        (vol5, rho5_factors), vol5_gb = with_peak(
+            lambda: bench_volume_512(setup, dev, n5))
+        g5 = march_geometry(vol5)
+        gnp5 = np.asarray(g5, dtype=np.float32)
+        scale5 = float(max(abs(float(t)) for t in
+                           (g5.min_x, g5.min_y, g5.z_min, g5.z_max)))
+        field5_bytes = vol5.field.numel() * 4
+        steps5 = in_band_steps(vol5, chief)
+        contraction5 = mdf.remarch_contraction(vol5.field, g5)
+        iters5 = mdf.defect_iterations(g5, contraction5)
+        print(f"    {n5}^3 volume built on the device: field "
+              f"{field5_bytes / 1e9:.2f} GB (peak {vol5_gb:.2f} GB while "
+              f"building); {P} chief rays take {steps5} ray-slab steps "
+              f"({steps5 / P:.1f} a ray); K5 with {iters5} defect "
+              f"corrections (one changes the reconstruction error by "
+              f"{contraction5:.2e})  [{card}]")
+        got5 = march_chief_fused(vol5, *chief, algorithm=2)
+        sync()
+        t0 = time.perf_counter()
+        ref5 = march_chief_dense(vol5, *chief, algorithm=2)
+        sync()
+        k1l_plain_ms = (time.perf_counter() - t0) * 1e3
+        pe, de = march_err(got5, ref5)
+        k1l_err = max(pe / scale5, de)
+        print(f"    K1 RK4, {P} rays through {n5}^3: position error "
+              f"{pe:.3e} um, direction error {de:.3e}; the rays turn by up "
+              f"to {float((got5[3] - chief[3]).abs().max()):.3e}")
+        hold(f"K1 RK4 {P} rays, {n5}^3 (normalised)", k1l_err, K1_TOL)
+        require(float((got5[3] - chief[3]).abs().max()) > 1e-6,
+                "the 512^3 volume does not bend the rays")
+        del ref5
+
+        rays6 = torch.stack(chief).contiguous()
+        (out_t, texit5, traj5), traj_gb = with_peak(
+            lambda: march_forward_residual(vol5.field, rays6, gnp5, 2, True))
+        hold(f"K1 residual head, {P} rays, {n5}^3: values that differ from "
+             f"the plain head", float((out_t != torch.stack(got5)).sum()),
+             0.0)
+        traj5_bytes = steps5 * 20 * 4
+        print(f"    stage residual {traj5.numel() * 4 / 1e9:.2f} GB allocated, "
+              f"{traj5_bytes / 1e9:.2f} GB written; peak device memory of the "
+              f"residual head {traj_gb:.2f} GB  [{card}]")
+        require(traj5.numel() * 4 <= mdf.traj_max_bytes(n5, n5)
+                and traj5.numel() * 4 > mdf.TRAJ_MAX_BYTES,
+                "the 512^3 residual does not sit between the two budgets")
+
+        # K4 and K5 against autograd through the plain march, both sides on
+        # every tenth ray (the plain march's graph is ~0.6 kB a ray and
+        # stage: 6000 rays at a time)
+        rays10 = [c[tenth].contiguous() for c in chief]
+        n10 = rays10[0].shape[0]
+        cts10 = [torch.randn(n10, generator=gen_l, device=dev) * s_
+                 for s_ in (1.0, 1.0, 1.0, 1e5, 1e5, 1e5)]
+        g4 = march_grads(march_chief_fused, vol5, rays10, cts10, 2)
+        g5_ = with_budget(0, lambda: march_grads(march_chief_fused, vol5,
+                                                 rays10, cts10, 2))
+        sync()
+        t0 = time.perf_counter()
+        gp = march_grads(march_chief_dense, vol5, rays10, cts10, 2,
+                         ray_slice=6000)
+        sync()
+        bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+        large_errs = {}
+        for nm, gk in (("K4", g4), ("K5", g5_)):
+            large_errs[nm] = (nerr(gk[0], gp[0]),
+                              max(nerr(a, b) for a, b in zip(gk[1:], gp[1:])))
+            hold(f"{nm} RK4, {n10} rays (every tenth), {n5}^3: d_field (of "
+                 f"its maximum)", large_errs[nm][0], MARCH_FIELD_TOL)
+            hold(f"{nm} RK4, {n10} rays, {n5}^3: cotangents of the rays (of "
+                 f"their maxima)", large_errs[nm][1], MARCH_STATE_TOL)
+        hold(f"K4 against K5, {n5}^3: d_field (of its maximum)",
+             nerr(g4[0], g5_[0]), MARCH_FIELD_TOL)
+        del g4, g5_, gp
+
+        def kernel_step_ms(rays_l):
+            """Forward and backward of the kernel route on these rays."""
+            fld = vol5.field.detach().requires_grad_(True)
+            outs = march_chief_fused(vol5._replace(field=fld), *rays_l)
+            torch.autograd.grad(outs, fld, grad_outputs=cts10)
+        k_same_ms = time_ms(lambda: kernel_step_ms(rays10), reps=3, warm=1)
+        print(f"    forward + backward on every tenth ray: kernels (K1 "
+              f"residual head, K4) {k_same_ms:.2f} ms, the plain march and "
+              f"autograd through it {bwd_plain_ms:.0f} ms  [{card}]")
+
+        del traj5, texit5, out_t
+
+        # Times at 120,000 rays.  The bench scene's chief rays converge on
+        # the lens axis: a cone that covers a few percent of each slab, so
+        # what they read of the field, and the part of d_field they add to,
+        # stays near the 50 MB L2 whatever the field's size ("input": in
+        # the scene's order, where the particles of a dot are neighbours;
+        # "shuffled": permuted).  The reading beyond L2 is "spread": as many
+        # near-vertical rays over the whole 512 x 512 slab, which touch most
+        # of the 2.15 GB, sorted by voxel column and unsorted.
+        ct6 = torch.randn(6, P, generator=gen_l, device=dev)
+        perm = torch.randperm(P, generator=gen_l, device=dev)
+
+        def uniform(lo_, hi_):
+            return lo_ + (hi_ - lo_) * torch.rand(P, generator=gen_l,
+                                                  device=dev)
+
+        tilt_x, tilt_y = uniform(-0.005, 0.005), uniform(-0.005, 0.005)
+        inv_n = torch.rsqrt(tilt_x * tilt_x + tilt_y * tilt_y + 1.0)
+        spread6 = torch.stack([
+            float(g5.min_x) + float(g5.sx) * uniform(0.5, n5 - 2.5),
+            float(g5.min_y) + float(g5.sy) * uniform(0.5, n5 - 2.5),
+            torch.full((P,), float(g5.z_max) + 1.0e3, device=dev),
+            tilt_x * inv_n, tilt_y * inv_n, -inv_n]).contiguous()
+        column = ((spread6[1] - float(g5.min_y)) / float(g5.sy)).long() * n5 \
+            + ((spread6[0] - float(g5.min_x)) / float(g5.sx)).long()
+        spread_sorted6 = spread6[:, torch.argsort(column)].contiguous()
+        sp10 = [c[tenth].contiguous() for c in spread6.unbind(0)]
+        pe, de = march_err(march_chief_fused(vol5, *sp10, algorithm=2),
+                           march_chief_dense(vol5, *sp10, algorithm=2))
+        hold(f"K1 RK4, {sp10[0].shape[0]} rays spread over the {n5} x {n5} "
+             f"slab (normalised)", max(pe / scale5, de), K1_TOL)
+
+        def march_times(rays6_o):
+            """Times and peak memory of the four march kernels on these
+            rays, the voxels they touch and the steps they take."""
+            rays_o = list(rays6_o.unbind(0))
+            out_o, texit_o, traj_o = march_forward_residual(
+                vol5.field, rays6_o, gnp5, 2, True)
+            t = dict(steps=in_band_steps(vol5, rays_o),
+                     touched=touched_voxels(vol5, rays_o))
+            t["k1"], t["k1_gb"] = with_peak(lambda: time_ms(
+                lambda: mdf.march_forward_noresidual(vol5.field, rays_o, gnp5,
+                                                     2, 1), reps=5, warm=1))
+            t["k1t"], t["k1t_gb"] = with_peak(lambda: time_ms(
+                lambda: march_forward_residual(vol5.field, rays6_o, gnp5, 2,
+                                               True), reps=3, warm=1))
+            t["k4"], t["k4_gb"] = with_peak(lambda: time_ms(
+                lambda: march_backward_stage(vol5.field, rays6_o, texit_o,
+                                             traj_o, ct6, gnp5, 2),
+                reps=3, warm=1))
+            t["k5"], t["k5_gb"] = with_peak(lambda: time_ms(
+                lambda: march_backward_remarch(vol5.field, rays6_o, texit_o,
+                                               out_o, ct6, gnp5, 2, iters5),
+                reps=3, warm=1))
+            return t
+
+        def march_bounds(t):
+            """Bounds of the four kernels from what these rays need: their
+            own columns and the residual of their steps, the voxels they
+            touch read once, d_field written once."""
+            touched_b = t["touched"] * 16
+            res_b = t["steps"] * 20 * 4
+            k1_ops = t["steps"] * (4 * MARCH_OPS_PER_RHS
+                                   + MARCH_OPS_PER_RK4_COMBINE)
+            k4_ops = t["steps"] * (4 * MARCH_VJP_OPS_PER_STAGE
+                                   + MARCH_VJP_OPS_PER_COMBINE)
+            k5_ops = k4_ops + t["steps"] * (
+                (8 + 4 * iters5) * MARCH_OPS_PER_RHS
+                + (2 + iters5) * MARCH_OPS_PER_RK4_COMBINE)
+            return dict(
+                k1=bound_ms(12 * P * 4 + touched_b, k1_ops),
+                k1t=bound_ms(15 * P * 4 + touched_b + res_b, k1_ops),
+                k4=bound_ms(res_b + 21 * P * 4 + touched_b + field5_bytes,
+                            k4_ops),
+                k5=bound_ms(27 * P * 4 + touched_b + field5_bytes, k5_ops))
+
+        order_ms, order_bounds = {}, {}
+        for order, rays6_o in (("input", rays6), ("shuffled",
+                                                  rays6[:, perm].contiguous()),
+                               ("spread, sorted by voxel column",
+                                spread_sorted6), ("spread", spread6)):
+            t = order_ms[order] = march_times(rays6_o)
+            bd = order_bounds[order] = march_bounds(t)
+            print(f"    {order} order, {P} rays, {n5}^3: {t['steps']} steps, "
+                  f"{t['touched']} voxels touched "
+                  f"({t['touched'] * 16 / 1e6:.1f} MB, "
+                  f"{t['touched'] * 16 / field5_bytes:.4f} of the field); "
+                  f"K1 {t['k1']:.3f} ms (bound {bd['k1'][0]:.3f} ms, "
+                  f"{bd['k1'][1]}; peak {t['k1_gb']:.2f} GB), residual head "
+                  f"{t['k1t']:.3f} ms ({bd['k1t'][0]:.3f} ms, {bd['k1t'][1]}; "
+                  f"{t['k1t_gb']:.2f} GB), K4 {t['k4']:.3f} ms "
+                  f"({bd['k4'][0]:.3f} ms, {bd['k4'][1]}; {t['k4_gb']:.2f} "
+                  f"GB), K5 {t['k5']:.3f} ms ({bd['k5'][0]:.3f} ms, "
+                  f"{bd['k5'][1]}; {t['k5_gb']:.2f} GB)  [{card}]")
+        del rays6_o, spread6, spread_sorted6
+        zero_ms = time_ms(lambda: torch.zeros_like(vol5.field), reps=3, warm=1)
+        print(f"    zero-fill of a {field5_bytes / 1e9:.2f} GB cotangent "
+              f"(inside K4's and K5's times): {zero_ms:.3f} ms  [{card}]")
+        require(order_ms["input"]["steps"] == steps5,
+                "the timed rays take other steps than the checked ones")
+        require(order_ms["spread"]["touched"] * 16 > 0.5 * field5_bytes,
+                "the spread rays do not touch half of the field")
+
+        bd = order_bounds["input"]
+        (k1l_bound, k1l_by), (k1tl_bound, k1tl_by) = bd["k1"], bd["k1t"]
+        (k4l_bound, k4l_by), (k5l_bound, k5l_by) = bd["k4"], bd["k5"]
+        print(f"    the plain march forward {k1l_plain_ms:.0f} ms  [{card}]")
+        tin, tsh = order_ms["input"], order_ms["shuffled"]
+        tss, tsp = (order_ms["spread, sorted by voxel column"],
+                    order_ms["spread"])
+
+        def beyond_l2(key):
+            """The same kernel on the rays spread over the whole slab."""
+            return dict(
+                touched_bytes=tsp["touched"] * 16, steps=tsp["steps"],
+                ms_sorted_by_voxel_column=tss[key], ms=tsp[key],
+                bound_ms=order_bounds["spread"][key][0],
+                bound_by=order_bounds["spread"][key][1])
+        shape5 = f"{P} rays, {n5}^3 field, RK4, trilinear"
+        same = dict(rays=n10, kernel_forward_backward_ms=k_same_ms,
+                    plain_forward_backward_ms=bwd_plain_ms)
+        rows.append(dict(
+            name="march_window_fwd", route="cuda",
+            source="photon_tpu_torch/csrc/march_dense.cu",
+            replaces="photon_tpu/ops/march_window.py:546", shape=shape5,
+            max_abs_err=k1l_err, tolerance=K1_TOL, ms=tin["k1"],
+            ms_shuffled_rays=tsh["k1"], plain_ms=k1l_plain_ms,
+            bound_ms=k1l_bound, bound_by=k1l_by, library_ms=None,
+            peak_gb=tin["k1_gb"], touched_bytes=tin["touched"] * 16,
+            spread_rays=beyond_l2("k1"),
+            residual_head=dict(
+                shape=shape5 + f", ({n5 - 1}, 20, {P}) residual",
+                max_abs_err=0.0, tolerance=0.0, ms=tin["k1t"],
+                ms_shuffled_rays=tsh["k1t"], bound_ms=k1tl_bound,
+                bound_by=k1tl_by, peak_gb=tin["k1t_gb"],
+                spread_rays=beyond_l2("k1t"))))
+        for nm, line, key, e, bnd, by in (
+                ("march_window_bwd_stage", 813, "k4", large_errs["K4"],
+                 k4l_bound, k4l_by),
+                ("march_window_bwd_remarch", 813, "k5", large_errs["K5"],
+                 k5l_bound, k5l_by)):
+            rows.append(dict(
+                name=nm, route="cuda",
+                source="photon_tpu_torch/csrc/march_bwd.cu",
+                replaces=f"photon_tpu/ops/march_window.py:{line}",
+                shape=shape5, max_abs_err=e[0], state_err=e[1],
+                tolerance=MARCH_FIELD_TOL, ms=tin[key],
+                ms_shuffled_rays=tsh[key], plain_ms=bwd_plain_ms,
+                plain_ms_is="forward and backward of the plain march at "
+                f"every tenth ray ({n10}); the kernels' forward and backward "
+                f"on the same rays is in same_rays",
+                same_rays=same, bound_ms=bnd, bound_by=by, library_ms=None,
+                peak_gb=tin[key + "_gb"], touched_bytes=tin["touched"] * 16,
+                spread_rays=beyond_l2(key)))
+
+        # K8 / K9 on one 512 x 512 slab pair: the chief rays on a slab pair of
+        # the bench volume, and noise slabs with coordinates beyond the clamps
+        print(f"    K8 / K9 on a {n5} x {n5} slab pair against the plain "
+              f"sampler and autograd through it")
+        coeff5, prefilter5_gb = with_peak(lambda: bspline_prefilter(
+            vol5.field))
+        prefilter5_ms = time_ms(lambda: bspline_prefilter(vol5.field), reps=2,
+                                warm=0)
+        print(f"    prefilter of the {n5}^3 field (PyTorch): "
+              f"{prefilter5_ms:.1f} ms, peak device memory "
+              f"{prefilter5_gb:.2f} GB  [{card}]")
+        ks5 = n5 // 2
+        on_slab5 = (0.5 + (chief[0] - float(g5.min_x)) / float(g5.sx),
+                    0.5 + (chief[1] - float(g5.min_y)) / float(g5.sy))
+
+        def rows_err(a, b):
+            return max(nerr(x_, y_) for x_, y_ in zip(a, b))
+
+        # limits as phase 2i; on the smooth slab pair the coordinate
+        # cotangents are sums of differences of neighbouring voxels that
+        # agree to 1e-3, so FMA contraction shows at 1e-4 of the largest row:
+        # 1e-3 there, each row at its own maximum to 5e-6 on the noise slabs
+        K8L_TOL, K9L_SLAB_TOL, K9L_SMOOTH_TOL, K9L_ROW_TOL = (5e-6, 5e-5, 1e-3,
+                                                               5e-6)
+        noise5 = [torch.randn(n5, n5, 4, generator=gen_l, device=dev)
+                  for _ in range(2)]
+        big = {}
+        for scheme in (1, 2):
+            fld = coeff5 if scheme == 2 else vol5.field
+            for label, lo_s, hi_s, uu in (
+                    ("the chief rays on a slab pair of the 512^3 volume",
+                     fld[ks5], fld[ks5 + 1], on_slab5 + (uniform(0.0, 1.0),)),
+                    ("noise slabs, coordinates beyond both clamps", *noise5,
+                     (uniform(-4.0, n5 + 3.0), uniform(-4.0, n5 + 3.0),
+                      uniform(0.0, 1.0)))):
+                uu = tuple(u.contiguous() for u in uu)
+                got = slab_sample_forward(lo_s, hi_s, *uu, scheme)
+                sync()
+                ref = torch.stack(slab_sample_plain(lo_s, hi_s, *uu, scheme))
+                e8 = rows_err(got, ref)
+                hold(f"K8 scheme {scheme}, {P} rays, {label} (each channel "
+                     f"of its maximum)", e8, K8L_TOL)
+                ct4 = torch.randn(4, P, generator=gen_l, device=dev)
+                d_lo, d_hi, d_u = slab_sample_backward(lo_s, hi_s, *uu, ct4,
+                                                       scheme)
+                sync()
+                leaves = [t_.detach().clone().requires_grad_(True)
+                          for t_ in (lo_s, hi_s) + uu]
+                gp_ = torch.autograd.grad(
+                    torch.stack(slab_sample_plain(*leaves, scheme)), leaves,
+                    grad_outputs=ct4)
+                e9s = max(nerr(d_lo, gp_[0]), nerr(d_hi, gp_[1]))
+                smooth = label.startswith("the chief")
+                if smooth:
+                    e9u = float(max((a_ - b_).abs().max()
+                                    for a_, b_ in zip(d_u, gp_[2:]))
+                                / max(b_.abs().max() for b_ in gp_[2:]))
+                else:
+                    e9u = rows_err(d_u, gp_[2:])
+                hold(f"K9 scheme {scheme}, {label}: d_lo, d_hi (of their "
+                     f"maxima)", e9s, K9L_SLAB_TOL)
+                hold(f"K9 scheme {scheme}, {label}: d_ux, d_uy, d_uz "
+                     f"({'of the largest' if smooth else 'each of its maximum'})",
+                     e9u, K9L_SMOOTH_TOL if smooth else K9L_ROW_TOL)
+                if smooth:
+                    big[scheme] = dict(uu=uu, ct=ct4, lo=lo_s.contiguous(),
+                                       hi=hi_s.contiguous(), e8=e8,
+                                       e9=max(e9s, e9u))
+        del coeff5, noise5
+        slab5_bytes = n5 * n5 * 16
+
+        def slab_taps(ux, uy, width):
+            """Distinct voxels of one slab under the width x width taps of
+            these coordinates (clipped indices, as the kernels address)."""
+            first = 0 if width == 2 else -1
+            ix = ux.clamp(0.0, n5 - 1.0).long().clamp_max(n5 - 2)
+            iy = uy.clamp(0.0, n5 - 1.0).long().clamp_max(n5 - 2)
+            mask = torch.zeros(n5 * n5, dtype=torch.bool, device=dev)
+            for jy in range(first, first + width):
+                for jx in range(first, first + width):
+                    mask[(iy + jy).clamp(0, n5 - 1) * n5
+                         + (ix + jx).clamp(0, n5 - 1)] = True
+            return int(mask.sum())
+        for scheme in (1, 2):
+            c = big[scheme]
+            c["k8_ms"] = time_ms(lambda: slab_sample_forward(
+                c["lo"], c["hi"], *c["uu"], scheme), inner=20)
+            c["k9_ms"] = time_ms(lambda: slab_sample_backward(
+                c["lo"], c["hi"], *c["uu"], c["ct"], scheme), inner=20)
+            c["k8_plain_ms"] = time_ms(lambda: slab_sample_plain(
+                c["lo"], c["hi"], *c["uu"], scheme), reps=5, warm=1)
+            leaves = [t_.detach().clone().requires_grad_(True)
+                      for t_ in (c["lo"], c["hi"]) + c["uu"]]
+            out_p = torch.stack(slab_sample_plain(*leaves, scheme))
+            c["k9_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+                out_p, leaves, grad_outputs=c["ct"], retain_graph=True),
+                reps=5, warm=1)
+            del out_p, leaves
+            # the rays' taps read once (2 x 2 or 4 x 4 a slab); d_lo and
+            # d_hi written once
+            c["touched"] = 2 * slab_taps(c["uu"][0], c["uu"][1],
+                                         2 if scheme == 1 else 4)
+            c["k8_bound"], c["k8_by"] = bound_ms(
+                7 * P * 4 + c["touched"] * 16, P * SAMPLE_OPS[scheme])
+            c["k9_bound"], c["k9_by"] = bound_ms(
+                10 * P * 4 + c["touched"] * 16 + 2 * slab5_bytes,
+                P * (SAMPLE_OPS[scheme] + SAMPLE_VJP_OPS[scheme]))
+        c1, c2 = big[1], big[2]
+        gs_in = torch.stack([c1["lo"], c1["hi"]]).permute(3, 0, 1, 2)[None]
+        gs_in = gs_in.contiguous().requires_grad_(True)
+        gs_grid = torch.stack([2.0 * c1["uu"][0] / (n5 - 1.0) - 1.0,
+                               2.0 * c1["uu"][1] / (n5 - 1.0) - 1.0,
+                               2.0 * c1["uu"][2] - 1.0], -1)
+        gs_grid = gs_grid.reshape(1, 1, 1, P, 3).requires_grad_(True)
+        gs_kw = dict(mode="bilinear", padding_mode="border",
+                     align_corners=True)
+        with torch.no_grad():
+            k8l_lib_ms = time_ms(lambda: torch.nn.functional.grid_sample(
+                gs_in, gs_grid, **gs_kw), inner=20)
+        gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
+        k9l_lib_ms = time_ms(lambda: torch.autograd.grad(
+            gs_out, [gs_in, gs_grid],
+            grad_outputs=c1["ct"].reshape(gs_out.shape), retain_graph=True),
+            inner=20)
+        del gs_out, gs_in, gs_grid
+        for scheme in (1, 2):
+            c = big[scheme]
+            print(f"    scheme {scheme}, {n5} x {n5} slab pair: "
+                  f"{c['touched']} voxels touched of {2 * n5 * n5}; K8 time "
+                  f"{c['k8_ms']:.4f} ms  plain {c['k8_plain_ms']:.3f} ms  "
+                  f"bound {c['k8_bound']:.5f} ms ({c['k8_by']})  K9 time "
+                  f"{c['k9_ms']:.4f} ms  autograd through the plain sampler "
+                  f"{c['k9_plain_ms']:.3f} ms  bound {c['k9_bound']:.5f} ms "
+                  f"({c['k9_by']})  [{card}]")
+        print(f"    grid_sample {k8l_lib_ms:.4f} ms, its backward "
+              f"{k9l_lib_ms:.4f} ms (trilinear only)  [{card}]")
+        for nm, line, key, lib_ms in (
+                ("slab_sample_large", 166, "k8", k8l_lib_ms),
+                ("slab_sample_bwd_large", 181, "k9", k9l_lib_ms)):
+            err_key = "e8" if key == "k8" else "e9"
+            rows.append(dict(
+                name=nm, route="cuda",
+                source="photon_tpu_torch/csrc/slab_sample.cu",
+                replaces=f"photon_tpu/ops/march_dense_pallas.py:{line}",
+                shape=f"{P} rays, one {n5} x {n5} slab pair, trilinear",
+                max_abs_err=c1[err_key],
+                tolerance=K8L_TOL if key == "k8" else K9L_SMOOTH_TOL,
+                ms=c1[key + "_ms"], plain_ms=c1[key + "_plain_ms"],
+                bound_ms=c1[key + "_bound"], bound_by=c1[key + "_by"],
+                library_ms=lib_ms,
+                cubic=dict(shape=f"{P} rays, one {n5} x {n5} slab pair, "
+                           f"tricubic", max_abs_err=c2[err_key],
+                           ms=c2[key + "_ms"], plain_ms=c2[key + "_plain_ms"],
+                           bound_ms=c2[key + "_bound"], library_ms=None)))
+        del big, c1, c2
+        if failures:
+            raise SystemExit(f"chip_smoke: kernel comparisons on the large "
+                             f"tier failed: {failures}")
+
+        # --------------------------------------------------------------
+        # phase 7: large volumes through the normal entry points
+        # --------------------------------------------------------------
+        print("phase 7: large volumes through the entry points: cli.main on "
+              "a 288 x 288 x 64 NRRD, render_image_fast on the 512^3 volume")
+        n_l, n_z = 288, 64
+        xh = np.linspace(-1.5e5, 1.5e5, n_l)
+        zh = np.linspace(setup.object_distance - 5e5,
+                         setup.object_distance - 1e2, n_z)
+        gxh = np.exp(-(xh / (0.35 * (xh.max() - xh.min()))) ** 2 / 2.0)
+        gzh = np.exp(-((zh - 0.5 * (zh.min() + zh.max()))
+                       / (0.35 * (zh.max() - zh.min()))) ** 2 / 2.0)
+        rho288 = 1.225 + 2.0 * gxh[:, None, None] * gxh[None, :, None] \
+            * gzh[None, None, :]
+        spac288 = [xh[1] - xh[0], xh[1] - xh[0], zh[1] - zh[0]]
+        orig288 = [xh[0], xh[0], zh[0]]
+        for label, alg, scheme in (("RK4, trilinear", 2, 1),
+                                   ("algorithm 3, substeps from the data", 3,
+                                    1)):
+            cfg_m = dataclasses.replace(
+                cfg, density_gradients=dataclasses.replace(
+                    cfg.density_gradients, ray_tracing_algorithm=alg,
+                    interpolation_scheme=scheme))
+            render_fast._substep_cache.clear()
+            with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
+                case, nrrd = write_bench_case(tmp, cfg_m, rho288, spac288,
+                                              orig288)
+                out = os.path.join(tmp, "out")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc, counts_m, large_m = counted(
+                        lambda: cli_main([case, "--out", out, "--verbose"]))
+                require(rc == 0, f"the CLI returned {rc} ({label})")
+                ims = [np.fromfile(os.path.join(
+                    out, "raw", f"bos_pattern_image_{i}.bin"),
+                    np.float32).reshape(sensor, sensor) for i in (1, 2)]
+                vol_file = load_density_volume(
+                    nrrd, gladstone_dale=cfg.density_gradients.gladstone_dale,
+                    device=dev)
+            chosen = list(render_fast._substep_cache.values())
+            n_march = 1 if alg == 2 else 3
+            print(f"    {n_l} x {n_l} x {n_z} pair, {label}: launches "
+                  f"{counts_m}, of them on the large tier {large_m}"
+                  + (f"; substeps chosen {chosen}" if alg == 3 else ""))
+            expect_counts(label, counts_m, dict(
+                march=n_march, march_bwd_stage=0, march_bwd_remarch=0,
+                slab_sample=0, slab_sample_bwd=0, fan_stats=2 * n_chunks,
+                splat=2 * n_chunks))
+            expect_counts(label + " (large tier)", large_m,
+                          dict(march=n_march))
+            if alg == 3:
+                require(len(chosen) == 1 and 2 <= chosen[0] <= 16,
+                        f"choose_substeps gave {chosen}")
+            with torch.no_grad():
+                plain_m = plain_render(vol_file, everyone, alg, scheme,
+                                       chosen[0] if alg == 3 else None
+                                       ).cpu().numpy()
+            l1_m = float(np.abs(ims[1] - plain_m).sum() / plain_m.sum())
+            moved_m = float(np.abs(ims[1] - ims[0]).sum() / ims[0].sum())
+            print(f"    {label}: im2 against the plain render L1 {l1_m:.3e} "
+                  f"of the sum (tolerance 1.0e-03); |im1 - im2| / sum "
+                  f"{moved_m:.3f}")
+            require(np.isfinite(ims[1]).all() and l1_m < 1e-3,
+                    f"{label}: im2 is {l1_m} (L1) from the plain render")
+            require(moved_m > 0.01, f"{label}: the volume moves nothing")
+            for line in buf.getvalue().splitlines():
+                mt = re.match(r"\s*(render:\S+|volume): ([0-9.]+)s(?:\s+"
+                              r"([0-9.]+)M rays/s)?", line)
+                if mt:
+                    rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
+                    print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}"
+                          f"  [{card}]")
+            del vol_file
+
+        def render5(**kw):
+            return render_image_fast(cfg, setup, source, r1, r2, vol=vol5,
+                                     device=dev, **kw)
+
+        def timed(fn, reps=3):
+            ts = []
+            for _ in range(reps):
+                sync()
+                ta = time.perf_counter()
+                fn()
+                sync()
+                ts.append(time.perf_counter() - ta)
+            return statistics.median(ts)
+
+        menu5 = {}
+        n_s5 = n5 - 1
+        for label, kw, plain_kw, want, reps in (
+                ("RK4, trilinear", {}, dict(algorithm=2),
+                 dict(march=1, slab_sample=0), 3),
+                ("RK4, tricubic", dict(interpolation_scheme=2),
+                 dict(algorithm=2, scheme=2), dict(march=1, slab_sample=0), 2),
+                ("Adams-Bashforth", dict(algorithm=4), dict(algorithm=4),
+                 dict(march=0, slab_sample=4 * n_s5), 2)):
+            ((img5, counts5, large5), peak5) = with_peak(
+                lambda: counted(lambda: render5(**kw)))
+            secs5 = timed(lambda: render5(**kw), reps)
+            with torch.no_grad():
+                plain5 = plain_render(vol5, everyone, **plain_kw)
+            l1_5 = float((img5 - plain5).abs().sum() / plain5.sum())
+            print(f"    render_image_fast through {n5}^3, {label}: launches "
+                  f"{counts5}, large tier {large5}; {secs5:.4f} s, "
+                  f"{P * R / secs5 / 1e6:.1f}M rays/s; peak device memory "
+                  f"{peak5:.2f} GB; image against the plain render L1 "
+                  f"{l1_5:.3e} of the sum (tolerance 1.0e-03)  [{card}]")
+            expect_counts(label, counts5, dict(
+                fan_stats=1, splat=1, march_bwd_stage=0, march_bwd_remarch=0,
+                slab_sample_bwd=0, **want))
+            expect_counts(label + " (large tier)", large5, want)
+            require(bool(torch.isfinite(img5).all()) and l1_5 < 1e-3,
+                    f"{label}: the 512^3 image is {l1_5} (L1) from the plain "
+                    f"render")
+            menu5[label] = dict(counts=large5, seconds=secs5, l1=l1_5)
+            del plain5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            render5()
+            sync()
+        dev_ms, _ = device_time(prof)
+        k1_dev_ms, k1_dev_n = device_time(prof, "march_dense_kernel")
+        rk4_s = menu5["RK4, trilinear"]["seconds"]
+        if dev_ms > 0:
+            print(f"    traced render through {n5}^3: device busy "
+                  f"{dev_ms:.2f} ms, {k1_dev_ms:.3f} ms of it in "
+                  f"{k1_dev_n} launch of the march kernel; an untraced render "
+                  f"takes {rk4_s * 1e3:.1f} ms, so the device was busy for "
+                  f"about {dev_ms / 1e3 / rk4_s:.1%} of it  [{card}]")
+            rows[0]["device_ms_on_main_path"] = k1_dev_ms
+        else:
+            print("    traced render: the profiler reported no device time; "
+                  "not measured")
+        on_render = f"render_image_fast through the {n5}^3 volume"
+        rows[0]["launches"] = menu5["RK4, trilinear"]["counts"]["march"]
+        rows[0]["launches_on"] = on_render + ", RK4, one chunk"
+        rows[3]["launches"] = menu5["Adams-Bashforth"]["counts"]["slab_sample"]
+        rows[3]["launches_on"] = on_render + ", Adams-Bashforth"
+
+        # --------------------------------------------------------------
+        # phase 8: gradients at 512^3
+        # --------------------------------------------------------------
+        print(f"phase 8: gradients at {n5}^3: mean(img^2) with respect to the "
+              f"field, one chunk; invert_bos on the {n5}^3 density grid")
+
+        def field_step(src=source, render=None, **kw):
+            """(loss, d_field, forward s, backward s) of mean(img^2)."""
+            fld = vol5.field.detach().requires_grad_(True)
+            v = vol5._replace(field=fld)
+            sync()
+            ta = time.perf_counter()
+            if render is None:
+                img = render_image_fast(cfg, setup, src, r1, r2, vol=v,
+                                        device=dev, **kw)
+            else:
+                img = render(v)
+            loss = torch.mean(img * img)
+            sync()
+            tb = time.perf_counter()
+            (g,) = torch.autograd.grad(loss, fld)
+            sync()
+            return float(loss.detach()), g, tb - ta, time.perf_counter() - tb
+
+        def step_times(reps=3, **kw):
+            fb = [field_step(**kw)[2:] for _ in range(reps)]
+            return (statistics.median(t[0] for t in fb),
+                    statistics.median(t[1] for t in fb))
+
+        step_rows = {}
+        for label, budget, want in (
+                ("stage residual (the default)", None,
+                 dict(march=1, march_bwd_stage=1, march_bwd_remarch=0)),
+                ("residual budget 0 (re-march)", 0,
+                 dict(march=1, march_bwd_stage=0, march_bwd_remarch=1))):
+            run = (lambda f: f()) if budget is None else \
+                (lambda f: with_budget(0, f))
+            ((res_s, counts_s, large_s), peak_s) = with_peak(
+                lambda: counted(lambda: run(field_step)))
+            del res_s
+            f_s, b_s = run(step_times)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(field_step)
+            dev_ms, _ = device_time(prof)
+            parts = {tag: device_time(prof, tag)[0] for tag in (
+                "march_dense_kernel", "march_bwd_stage_kernel",
+                "march_bwd_remarch_kernel", "fan_stats_kernel",
+                "fan_stats_bwd_kernel", "splat_kernel", "splat_bwd_kernel")}
+            busy = (f"{dev_ms / 1e3 / (f_s + b_s):.1%}" if dev_ms > 0
+                    else "not measured")
+            print(f"    one step, {label}: launches {counts_s}, large tier "
+                  f"{large_s}; forward {f_s * 1e3:.2f} ms, backward "
+                  f"{b_s * 1e3:.2f} ms (median of 3); peak device memory "
+                  f"{peak_s:.2f} GB; device busy {busy} of the step "
+                  f"({dev_ms:.2f} ms; by kernel "
+                  f"{ {k: round(v, 3) for k, v in parts.items() if v} })  "
+                  f"[{card}]")
+            expect_counts(label, counts_s, dict(
+                fan_stats=1, fan_stats_bwd=1, splat=1, splat_bwd=1,
+                slab_sample=0, slab_sample_bwd=0, **want))
+            expect_counts(label + " (large tier)", large_s, want)
+            step_rows[budget] = dict(large=large_s, parts=parts)
+        # d_field against the same step through the plain versions, every
+        # tenth particle
+        _, g_k, _, _ = field_step(src=sub_src)
+        _, g_k5, _, _ = with_budget(0, lambda: field_step(src=sub_src))
+        loss_p, g_p, _, _ = field_step(
+            render=lambda v: plain_render(v, tenth))
+        cos_k, cos_k5 = cosine(g_k, g_p), cosine(g_k5, g_p)
+        rel_k = float((g_k - g_p).norm() / g_p.norm())
+        rel_k5 = float((g_k5 - g_p).norm() / g_p.norm())
+        print(f"    d_field at every tenth particle against the plain "
+              f"versions: stage backward cosine {cos_k:.7f}, relative L2 "
+              f"{rel_k:.3e}; re-march backward cosine {cos_k5:.7f}, relative "
+              f"L2 {rel_k5:.3e}")
+        require(cos_k >= 0.9999 and cos_k5 >= 0.9999
+                and bool(torch.isfinite(g_k).all())
+                and float(g_p.abs().max()) > 0,
+                f"d_field at 512^3: cosine {cos_k} / {cos_k5}")
+        del g_k5, g_p
+        for i, key in ((1, "march_bwd_stage"), (2, "march_bwd_remarch")):
+            budget = None if i == 1 else 0
+            rows[i]["launches"] = step_rows[budget]["large"][key]
+            rows[i]["launches_on"] = (
+                f"one forward + backward of mean(img^2) with respect to the "
+                f"{n5}^3 field, one chunk"
+                + ("" if i == 1 else ", the stage residual over its budget"))
+            tag = key + "_kernel"
+            if step_rows[budget]["parts"].get(tag):
+                rows[i]["device_ms_on_main_path"] = \
+                    step_rows[budget]["parts"][tag]
+        rows[0]["residual_head"]["launches"] = step_rows[None]["large"]["march"]
+        rows[0]["residual_head"]["launches_on"] = rows[1]["launches_on"]
+        if step_rows[None]["parts"].get("march_dense_kernel"):
+            rows[0]["residual_head"]["device_ms_on_main_path"] = \
+                step_rows[None]["parts"]["march_dense_kernel"]
+
+        # the per-stage route at this size: Adams-Bashforth under autograd
+        # (K8 and K9 on 512 x 512 slabs), held against the RK4 gradient here
+        # and against the plain versions on the 288 x 288 x 64 volume
+        ((res_a, counts_a, large_a), peak_a) = with_peak(
+            lambda: counted(lambda: field_step(algorithm=4)))
+        cos_a = cosine(res_a[1], g_k)
+        _, g_a10, _, _ = field_step(src=sub_src, algorithm=4)
+        cos_a10 = cosine(g_a10, g_k)
+        print(f"    one step with Adams-Bashforth: launches {counts_a}, "
+              f"large tier {large_a}; forward {res_a[2] * 1e3:.0f} ms, "
+              f"backward {res_a[3] * 1e3:.0f} ms (one step); peak device "
+              f"memory {peak_a:.2f} GB; d_field at every tenth particle "
+              f"against the RK4 kernels' cosine {cos_a10:.7f}  [{card}]")
+        expect_counts("Adams-Bashforth step", large_a, dict(
+            march=0, slab_sample=4 * n_s5, slab_sample_bwd=4 * n_s5))
+        require(cos_a10 >= 0.999 and bool(torch.isfinite(res_a[1]).all()),
+                f"Adams-Bashforth d_field: cosine {cos_a10} against RK4's")
+        rows[4]["launches"] = large_a["slab_sample_bwd"]
+        rows[4]["launches_on"] = (
+            f"one forward + backward of mean(img^2) with respect to the "
+            f"{n5}^3 field with Adams-Bashforth")
+        rows[3]["launches_gradient_step"] = large_a["slab_sample"]
+        del res_a, g_a10, g_k, cos_a
+        vol288 = build_density_volume(rho288, spac288, orig288, device=dev)
+
+        def step288(render):
+            fld = vol288.field.detach().clone().requires_grad_(True)
+            img = render(vol288._replace(field=fld))
+            (g,) = torch.autograd.grad(torch.mean(img * img), fld)
+            return g
+
+        g_a = step288(lambda v: render_image_fast(
+            cfg, setup, sub_src, r1, r2, vol=v, algorithm=4, device=dev))
+        g_ap = step288(lambda v: plain_render(v, tenth, algorithm=4))
+        cos_288 = cosine(g_a, g_ap)
+        print(f"    Adams-Bashforth d_field on the {n_l} x {n_l} x {n_z} "
+              f"volume at every tenth particle against the plain versions: "
+              f"cosine {cos_288:.7f}, relative L2 "
+              f"{float((g_a - g_ap).norm() / g_ap.norm()):.3e}")
+        require(cos_288 >= 0.9999, f"Adams-Bashforth d_field: cosine "
+                f"{cos_288} against the plain versions")
+        del vol288, g_a, g_ap
+
+        # one tricubic step: the prefilter under autograd, K1 and K4 cubic
+        ((res_c, counts_c, large_c), peak_c) = with_peak(
+            lambda: counted(lambda: field_step(interpolation_scheme=2)))
+        g_c5 = with_budget(0, lambda: field_step(interpolation_scheme=2))[1]
+        cos_c = cosine(res_c[1], g_c5)
+        print(f"    one tricubic step: launches {counts_c}, large tier "
+              f"{large_c}; forward {res_c[2] * 1e3:.0f} ms, backward "
+              f"{res_c[3] * 1e3:.0f} ms (one step, the prefilter and its "
+              f"transpose included); peak device memory {peak_c:.2f} GB; "
+              f"stage against re-march backward cosine {cos_c:.7f}  [{card}]")
+        expect_counts("tricubic step", large_c, dict(
+            march=1, march_bwd_stage=1, march_bwd_remarch=0))
+        require(cos_c >= 0.9999 and bool(torch.isfinite(res_c[1]).all()),
+                f"tricubic d_field: cosine {cos_c} between the two backwards")
+        del res_c, g_c5
+
+        # invert_bos: the unknown is the 512^3 density grid
+        gx5, gz5, amp5 = rho5_factors
+        rho_true5 = 1.225 + amp5 * gx5[:, None, None] * gx5[None, :, None] \
+            * gz5[None, None, :]
+        gd = cfg.density_gradients.gladstone_dale
+        with torch.no_grad():
+            observed5 = render_image_fast(
+                cfg, setup, source, r1, r2,
+                vol=volume_from_rho(rho_true5, vol5, gd), device=dev)
+        rho_uni = cfg.density_gradients.rho_0
+        rho0_5 = rho_uni + 0.8 * (rho_true5 - rho_uni)
+        # Adam's first step moves every voxel that a ray touches by the
+        # learning rate, and 511 slabs add up along a ray: with 1e-4 of
+        # rho's range the loss falls, with 1e-3 it rose many times over
+        lr5 = 1e-4 * float(rho_true5.max() - rho_true5.min())
+        del rho_true5
+        render_fast._substep_cache.clear()
+        stamps = []
+
+        def stamp(t, loss, rho):
+            sync()
+            stamps.append(time.perf_counter())
+
+        sync()
+        t0 = time.perf_counter()
+        ((res5, counts_i, large_i), peak_i) = with_peak(
+            lambda: counted(lambda: invert_bos(
+                cfg, setup, source, r1, r2, observed5, vol5, rho0=rho0_5,
+                steps=2, learning_rate=lr5, callback=stamp, device=dev)))
+        t_end = time.perf_counter()
+        print(f"    invert_bos, 2 steps on the {n5}^3 grid "
+              f"({rho0_5.numel() * 4 / 1e9:.2f} GB of unknowns): losses "
+              f"{', '.join(f'{v:.6g}' for v in res5.losses)}; steps "
+              f"{stamps[0] - t0:.3f} s and {stamps[1] - stamps[0]:.3f} s; "
+              f"the recovered volume's precompute on the host and its copy "
+              f"{t_end - stamps[1]:.1f} s; launches {counts_i}, large tier "
+              f"{large_i}; peak device memory {peak_i:.2f} GB  [{card}]")
+        require(all(math.isfinite(v) for v in res5.losses),
+                "a loss of the 512^3 inversion is not finite")
+        require(res5.losses[1] < res5.losses[0],
+                f"the 512^3 inversion's loss did not fall: {res5.losses}")
+        require(res5.rho.shape == (n5, n5, n5) and np.isfinite(res5.rho).all()
+                and tuple(res5.volume.field.shape) == (n5, n5, n5, 4),
+                "the recovered 512^3 rho or its volume is malformed")
+        expect_counts("invert_bos at 512^3", counts_i, dict(
+            march=2, march_bwd_stage=2, march_bwd_remarch=0, fan_stats=2,
+            fan_stats_bwd=2, splat=2, splat_bwd=2, slab_sample=0,
+            slab_sample_bwd=0))
+        expect_counts("invert_bos at 512^3 (large tier)", large_i,
+                      dict(march=2, march_bwd_stage=2))
+        rows[1]["launches_inversion"] = large_i["march_bwd_stage"]
+        for row in rows:
+            require(row.get("launches", 0) > 0,
+                    f"{row['name']} was never launched on a large-volume path")
+        return rows
+
+    def finish(rows_) -> int:
+        print(f"chip_smoke: all phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"kernels": rows_}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if args.large_only:
+        return finish(large_tier())
+
+    # ------------------------------------------------------------------
+    # phase 2a: K1, the dense march
+    # ------------------------------------------------------------------
+    print("K1 march_dense (csrc/march_dense.cu) against its plain version")
     got = march_chief_fused(vol, *chief, algorithm=2)
     sync()
     ref = march_chief_dense(vol, *chief, algorithm=2)
@@ -346,20 +1585,6 @@ def main() -> int:
     # ------------------------------------------------------------------
     print("K2 fan_stats (csrc/fan_stats.cu) against its plain version")
     deltas6 = chief_deltas_dense(vol, *chief, algorithm=2)
-    st = setup.elements
-    lens_params = (float(setup.z_lens), float(st.pitch[0]),
-                   float(st.vertex_distance[0]),
-                   float(st.front_surface_radius[0]),
-                   float(st.back_surface_radius[0]),
-                   float(st.refractive_index[0]),
-                   float(st.transmission_ratio[0]))
-    sc = fan_scalars(params, lens_params)
-    r1d, r2d = f32(r1), f32(r2)
-    cone = params.ray_cone_pitch_ratio * params.lens_pitch
-    x_lens = cone * r1d * torch.cos(2.0 * math.pi * r2d)
-    y_lens = cone * r1d * torch.sin(2.0 * math.pi * r2d)
-    amp0 = f32(source.radiance) * float(
-        np.float32((8.0 / math.pi) / params.aperture_f_number ** 2))
 
     # tolerances: kernel and plain version evaluate the same f32 formulas
     # without FMA contraction and differ by the order of the sum over the
@@ -451,8 +1676,6 @@ def main() -> int:
     # phase 2c: K3, the splat
     # ------------------------------------------------------------------
     print("K3 splat (csrc/splat.cu) against its plain version")
-    K = auto_patch(params)
-    D = params.diffraction_diameter
     okp = A > 0
     Xbar = torch.where(okp, AX / A.clamp_min(1e-30), torch.full_like(A, -1e6))
     Ybar = torch.where(okp, AY / A.clamp_min(1e-30), torch.full_like(A, -1e6))
@@ -463,7 +1686,6 @@ def main() -> int:
     Asc[:50] = 0.0
     Xbar[:50] = -1e6
     col0[:50] = 0
-    skw = dict(K=K, ny=sensor, nx=sensor, diameter=D, render_fraction=0.75)
 
     # tolerance: 1e-5 of the image maximum.  Kernel and plain version use the
     # same erff; about a hundred spots of a dot overlap on a pixel and float
@@ -571,70 +1793,6 @@ def main() -> int:
     # ------------------------------------------------------------------
     print("K4 / K5 march backward (csrc/march_bwd.cu) against autograd "
           "through the plain march")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    # limits of the JAX package's own fused-vs-autodiff tests
-    # (tests/test_dense_fused.py): 5e-4 of the largest field gradient, 1e-3
-    # of the largest entry-state gradient.  Kernel and plain version differ
-    # by FMA contraction, by the order of the sum over rays (atomics against
-    # index_add) and, for K5, by the reconstruction of the stage states.
-    MARCH_FIELD_TOL, MARCH_STATE_TOL = 5e-4, 1e-3
-
-    def nerr(a, b):
-        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-
-    def march_grads(fn, v, rays, cts, alg, scheme=1, ray_slice=None):
-        """Gradients of the march with respect to the field and the rays;
-        `ray_slice` rays at a time (the field's sums over the slices, the
-        rays' concatenate), which bounds the graph of the plain cubic
-        march."""
-        n_r = rays[0].shape[0]
-        d_fld, d_rr = None, []
-        for s0 in range(0, n_r, ray_slice or n_r):
-            sl = slice(s0, min(s0 + (ray_slice or n_r), n_r))
-            fld = v.field.detach().clone().requires_grad_(True)
-            rr = [r[sl].detach().clone().requires_grad_(True) for r in rays]
-            outs = fn(v._replace(field=fld), *rr, algorithm=alg,
-                      interpolation_scheme=scheme)
-            g = torch.autograd.grad(outs, [fld] + rr,
-                                    grad_outputs=[c[sl] for c in cts])
-            d_fld = g[0] if d_fld is None else d_fld + g[0]
-            d_rr.append(g[1:])
-        return (d_fld,) + tuple(torch.cat(c) for c in zip(*d_rr))
-
-    def with_budget(nbytes, fn):
-        saved = mdf.TRAJ_MAX_BYTES
-        mdf.TRAJ_MAX_BYTES = nbytes
-        try:
-            return fn()
-        finally:
-            mdf.TRAJ_MAX_BYTES = saved
-
-    def march_bwd_case(v, rays, alg, label, scheme=1, ray_slice=None):
-        n_r = rays[0].shape[0]
-        cts = [torch.randn(n_r, generator=gen, device=dev) * sc_
-               for sc_ in (1.0, 1.0, 1.0, 1e5, 1e5, 1e5)]
-        g4 = march_grads(march_chief_fused, v, rays, cts, alg, scheme)
-        g5 = with_budget(0, lambda: march_grads(march_chief_fused, v, rays,
-                                                cts, alg, scheme))
-        sync()
-        gp = march_grads(march_chief_dense, v, rays, cts, alg, scheme,
-                         ray_slice)
-        errs = {}
-        for nm, gk in (("K4", g4), ("K5", g5)):
-            errs[nm] = (nerr(gk[0], gp[0]),
-                        max(nerr(a, b) for a, b in zip(gk[1:], gp[1:])))
-            hold(f"{nm} {label}: d_field (of its maximum)", errs[nm][0],
-                 MARCH_FIELD_TOL)
-            hold(f"{nm} {label}: cotangents of the rays (of their maxima)",
-                 errs[nm][1], MARCH_STATE_TOL)
-        hold(f"K4 against K5 {label}: d_field (of its maximum)",
-             nerr(g4[0], g5[0]), MARCH_FIELD_TOL)
-        if not bool(torch.isfinite(torch.stack([g.abs().max() for g in g4 + g5]
-                                               )).all()):
-            failures.append(f"march backward {label}: not finite")
-        return errs
-
     # the random-density volume of the JAX package's fused-march tests
     rgen = np.random.default_rng(3)
     rx = np.linspace(-6e4, 6e4, 12)
@@ -653,9 +1811,9 @@ def main() -> int:
     rand_rays[2][:3000] = f32(rgen.uniform(4.5e5, 8.5e5, 3000))
     rand_rays[2][3000:4000] = 3.0e5
     rand_rays[5][4000:5000] = -rand_rays[5][4000:5000]
-    print(f"    defect corrections of K5: {mdf.defect_iterations(geom)} on the "
-          f"bench volume, "
-          f"{mdf.defect_iterations(march_geometry(vol_rand))} on the random one")
+    iters_bench = mdf.defect_iterations(
+        geom, mdf.remarch_contraction(vol.field, geom))
+    print(f"    defect corrections of K5 on the bench volume: {iters_bench}")
     march_errs = {}
     for alg, alg_name in ((2, "RK4"), (1, "Euler")):
         march_errs[alg_name] = march_bwd_case(
@@ -664,7 +1822,6 @@ def main() -> int:
                        f"{alg_name}, {P} rays, random 12^3")
 
     ct6 = torch.randn(6, P, generator=gen, device=dev)
-    iters_bench = mdf.defect_iterations(geom)
 
     def run_k4():
         return march_backward_stage(vol.field, rays6, texit, traj, ct6, gnp,
@@ -1247,42 +2404,6 @@ def main() -> int:
     if failures:
         raise SystemExit(f"chip_smoke: kernel comparisons failed: {failures}")
 
-    amp2 = f32(source.radiance) * float(np.float32(
-        (8.0 / math.pi) / params.aperture_f_number ** 2
-        * lens_params[6]))                               # with transmission
-
-    def plain_render(v, sel, algorithm=2, scheme=1, substeps=None):
-        """The image of the particles `sel` through the plain versions
-        only (differentiable with respect to v.field)."""
-        ch = tuple(c[sel] for c in chief)
-        x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(
-            v, *ch, algorithm=algorithm, interpolation_scheme=scheme,
-            substeps=substeps)
-        t_exit = (z1 - ch[2]) / ch[5]
-        d6p = (z1, x1 - (ch[0] + ch[3] * t_exit),
-               y1 - (ch[1] + ch[4] * t_exit),
-               dx1 - ch[3], dy1 - ch[4], dz1 - ch[5])
-        cols = [a[sel] for a in (xs, ys, zs, amp2)]
-        img = torch.zeros((sensor, sensor), dtype=torch.float32, device=dev)
-        n_sel = cols[0].shape[0]
-        for s0 in range(0, n_sel, chunk):
-            sl = slice(s0, min(s0 + chunk, n_sel))
-            pA, pAX, pAY = fan_stats_plain(
-                *(c[sl] for c in cols), tuple(d[sl] for d in d6p), x_lens,
-                y_lens, sc=sc, lens_model="general", mirror_x=True)
-            on = pA > 0
-            pX = torch.where(on, pAX / pA.clamp_min(1e-30),
-                             torch.full_like(pA, -1e6))
-            pY = torch.where(on, pAY / pA.clamp_min(1e-30),
-                             torch.full_like(pA, -1e6))
-            img = img + splat_particles_plain(
-                pX, pY, torch.where(on, pA, torch.zeros_like(pA))
-                * (math.pi / 32.0),
-                (torch.round(pX).to(torch.int32) - K // 2).clamp(0, sensor - K),
-                (torch.round(pY).to(torch.int32) - K // 2).clamp(0, sensor - K),
-                **skw)
-        return img
-
     # ------------------------------------------------------------------
     # phase 3: the main path, through the command line entry point
     # ------------------------------------------------------------------
@@ -1550,9 +2671,6 @@ def main() -> int:
     loss_k, g_k = first_step(kernel_render(sub))
     _, g_k5 = with_budget(0, lambda: first_step(kernel_render(sub)))
     loss_p, g_p = first_step(lambda v: plain_render(v, tenth))
-
-    def cosine(a, b):
-        return float((a * b).sum() / (a.norm() * b.norm()))
 
     cos_kp, cos_k5 = cosine(g_k, g_p), cosine(g_k5, g_p)
     rel_l2 = float((g_k - g_p).norm() / g_p.norm())
@@ -1837,14 +2955,8 @@ def main() -> int:
         require(row.get("launches", 0) > 0,
                 f"{row['name']} was never launched on a main path")
 
-    print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
-    print(card)
-    print(json.dumps({"kernels": kernel_rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    kernel_rows.extend(large_tier())
+    return finish(kernel_rows)
 
 
 if __name__ == "__main__":

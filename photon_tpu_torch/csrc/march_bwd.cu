@@ -7,7 +7,11 @@
 // without a residual, each step's entry state reconstructed from its exit
 // state by a reverse RK4 step plus `defect_iters` corrections against the
 // discrete forward map (Euler: a fixed point of 3 + 2 `defect_iters`
-// evaluations; the TPU kernel always takes three).
+// evaluations; the TPU kernel always takes three).  The two also replace the
+// two flavours of photon_tpu/ops/march_window.py::_bwd_window_kernel, the
+// backward of the TPU's march for slabs over 256 x 256 voxels, whose
+// read-modify-write of window cotangents is here the same atomicAdd at a
+// 64-bit offset into a field cotangent of any size.
 //
 // The TPU kernels sweep a (slab, ray block) grid, keep the cotangent state of
 // all rays in a scratch register file, form the sample's VJP as matrix

@@ -3,7 +3,11 @@
 // Replaces the TPU kernel photon_tpu/ops/march_dense_fused.py::_fused_kernel_impl
 // (both heads, both interpolation schemes): the plain head, and the `_traj`
 // head that also writes every step's stage input states for the stage
-// backward kernel.
+// backward kernel.  It also replaces photon_tpu/ops/march_window.py::
+// _window_kernel_impl, the TPU's march for slabs over 256 x 256 voxels (the same
+// integrator over windows of the field that are planned on the host): voxels
+// are gathered from device memory with 64-bit slab offsets, so one kernel
+// serves every slab size below 2^31 voxels and needs no window.
 // That kernel turns interpolation into a (W*4, 2H) x (2H, B) matrix product
 // per integrator stage because a TPU cannot gather, which costs O(W*H) per ray
 // and stage and needs a bf16 split.
@@ -18,7 +22,8 @@
 //
 // What bounds it on an H100: operations and load latency, not bytes.  The
 // inputs and outputs are 48 bytes a ray and the field is read once from
-// device memory (a 64^3 field is 4 MB and then sits in the 50 MB L2), while a
+// device memory (a 64^3 field is 4 MB and then sits in the 50 MB L2; of a
+// 512^3 field only the slab pairs the rays are in do), while a
 // ray does S slabs x 4 stages x 8 gathers with a few hundred f32 operations
 // a stage, each stage depending on the one before.  The design answers with
 // parallelism across rays (one thread each, 128-thread blocks) and with

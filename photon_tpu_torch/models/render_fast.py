@@ -13,8 +13,8 @@ Counterpart of ``photon_tpu/models/render_fast.py``.  The renderer keeps the
 
 This slice covers the main configuration: the axis-aligned single-lens
 train with the 'apparent', 'thin-lens' or 'general' lens model, the erf
-diffraction sensor, an unrotated camera, and a density volume in the dense
-tier marched with any integrator of the menu (Euler, RK4, RK4 with substeps
+diffraction sensor, an unrotated camera, and a density volume of any slab
+size marched with any integrator of the menu (Euler, RK4, RK4 with substeps
 given or chosen from the data, Adams-Bashforth) under trilinear or cubic
 B-spline interpolation.  Every other option raises ``NotImplementedError``
 naming the ROADMAP.md item that brings it; nothing falls through to another
@@ -36,11 +36,10 @@ from photon_tpu_torch.models.scenes import LightfieldSource
 from photon_tpu_torch.ops.fan import FanScalars, fan_stats
 from photon_tpu_torch.ops.march_dense import (check_march_options,
                                               chief_deltas_dense,
-                                              choose_substeps,
-                                              dense_march_supported)
+                                              choose_substeps)
 from photon_tpu_torch.ops.sensor_fast import particle_splat
-from photon_tpu_torch.roadmap import (CONFIGS, EXACT_PATH, LARGE_VOLUMES,
-                                      MULTI_DEVICE, later)
+from photon_tpu_torch.roadmap import (CONFIGS, EXACT_PATH, MULTI_DEVICE,
+                                      later)
 from photon_tpu_torch.volume import DensityVolume
 
 
@@ -138,6 +137,13 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     (numpy arrays or tensors).  ``vol``: density volume on ``device``, or
     None for the reference image.  ``particles_per_chunk``: render the
     particles in chunks of this size and sum the chunk images.
+    ``dense_march``: accepted for the JAX package's callers and without
+    effect on the route.  There it chooses between three marches by the
+    slab's size (None: dense up to 256 x 256, windowed above; True: dense,
+    and an error above; False: the voxel-tube march); here one gather march
+    (``ops/march_dense_fused.march_chief_fused``) serves every size, and its
+    render is within the bound that package's tests hold its marches to each
+    other (L1 2e-3 of the image sum; tests/test_torch_large_volume.py).
     ``device``: None is the CUDA device (raises without one); the tests
     pass "cpu".
     """
@@ -164,9 +170,6 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
         raise ValueError(f"unknown lens_model {params.lens_model!r}")
     if vol is not None:
         check_march_options(algorithm, interpolation_scheme)
-        if dense_march is False or not dense_march_supported(vol):
-            raise later("a march outside the dense tier (slabs over "
-                        "256x256, or dense_march=False)", LARGE_VOLUMES)
         if vol.field.device != dev:
             raise ValueError(f"volume on {vol.field.device}, render on {dev}")
     elif dense_march:

@@ -44,17 +44,7 @@ import torch
 from photon_tpu_torch.ops.march_dense_sampler import (check_scheme,
                                                       dense_slab_sample,
                                                       slab_sample_plain)
-from photon_tpu_torch.roadmap import LARGE_VOLUMES, later
 from photon_tpu_torch.volume import DensityVolume
-
-# slab-area ceiling of the dense tier (the JAX package's routing on its
-# accelerator); larger volumes belong to the large-volume march
-DENSE_MAX_SLAB = 256 * 256
-
-
-def dense_march_supported(vol: DensityVolume) -> bool:
-    w, h, _ = vol.sizes
-    return int(w) * int(h) <= DENSE_MAX_SLAB
 
 
 class MarchGeometry(NamedTuple):
@@ -118,16 +108,18 @@ def _prefilter_axis(x, axis: int):
     lam = float(f((1.0 - _POLE) * (1.0 - 1.0 / _POLE)))
     last = float(z / (z * z - f(1.0)))
     z = float(z)
-    x = x.movedim(axis, 0)
-    n = x.shape[0]
+    # one unbind, not n selects: under autograd its backward is one stack,
+    # where every select would allocate a cotangent the size of the field
+    xs = x.movedim(axis, 0).unbind(0)
+    n = len(xs)
     horizon = min(n, max(12, int(math.ceil(math.log(1e-7)
                                            / math.log(abs(_POLE))))))
     zk = torch.as_tensor((_POLE ** np.arange(horizon)).astype(np.float32),
                          device=x.device)
     zk = zk.reshape((horizon,) + (1,) * (x.dim() - 1))
-    causal = [lam * (zk * x[:horizon]).sum(0)]
+    causal = [lam * (zk * torch.stack(xs[:horizon])).sum(0)]
     for i in range(1, n):
-        causal.append(lam * x[i] + z * causal[-1])
+        causal.append(lam * xs[i] + z * causal[-1])
     out = [None] * n
     out[n - 1] = last * (z * causal[n - 2] + causal[n - 1])
     for i in range(n - 2, -1, -1):
@@ -304,12 +296,12 @@ def choose_substeps(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     deflection, and scales it to ``budget``: 2, 4, or
     ``ceil(4 (err4 / budget)^(1/4))`` capped at ``max_substeps``.  The rays
     are (P,) tensors on the volume's device; the two marches go through
-    ``march_chief_fused`` without gradients.
+    ``march_chief_fused`` without gradients, whatever the slab's size (the
+    JAX package probes a large slab through a window plan of the subsample
+    and returns 2 where no plan can be made; a gather march needs no plan, so
+    that case does not arise here).
     """
     from photon_tpu_torch.ops.march_dense_fused import march_chief_fused
-    if not dense_march_supported(vol):
-        raise later("choose_substeps beyond the dense tier (slabs over "
-                    "256x256)", LARGE_VOLUMES)
     P = xs.shape[0]
     if P > sample:
         idx = np.linspace(0, P - 1, sample).astype(np.int64)

@@ -25,8 +25,10 @@ call costs.
 
 Plain version: :func:`slab_sample_plain` and ``torch.autograd`` through it.
 Tensors on the CPU go to the plain version, tensors on a CUDA device to the
-kernels.  ``slab_sample_forward.launches`` and
-``slab_sample_backward.launches`` count kernel launches.
+kernels, at any slab size (a voxel's offset inside its slab is 32-bit: fewer
+than 2^31 voxels a slab).  ``slab_sample_forward.launches`` and
+``slab_sample_backward.launches`` count kernel launches, ``launches_large``
+those on a slab over 256 x 256.
 """
 from __future__ import annotations
 
@@ -127,6 +129,7 @@ def _check_sampler_tensors(lo, hi, ux, uy, uz, interpolation_scheme, ct=None):
     if lo.dim() != 3 or lo.shape[-1] != 4 or min(lo.shape[:2]) < 2:
         raise ValueError(f"lo: expected (H, W, 4) with H, W >= 2, got "
                          f"{tuple(lo.shape)}")
+    check_slab_extent(lo.shape[1], lo.shape[0])
     kernels.check_kernel_input("hi", hi, lo.device, torch.float32)
     if hi.shape != lo.shape:
         raise ValueError(f"hi: expected shape {tuple(lo.shape)}, got "
@@ -145,6 +148,30 @@ def _check_sampler_tensors(lo, hi, ux, uy, uz, interpolation_scheme, ct=None):
                              f"{tuple(ct.shape)}")
 
 
+# slabs above this many voxels are the large tier: the march kernels'
+# wrappers count their launches apart (``launches_large``) and keep a larger
+# stage residual (``march_dense_fused.traj_max_bytes``)
+LARGE_SLAB = 256 * 256
+
+
+def large_slab(w: int, h: int) -> bool:
+    return int(w) * int(h) > LARGE_SLAB
+
+
+def check_slab_extent(w: int, h: int) -> None:
+    """The kernels address a voxel inside its slab with a 32-bit offset
+    (the slab's own offset in the field is 64-bit)."""
+    if int(w) * int(h) >= 2 ** 31:
+        raise ValueError(f"slab of {w} x {h} voxels: the march and sampler "
+                         f"kernels take slabs of fewer than 2^31 voxels")
+
+
+def count_launch(wrapper, w: int, h: int) -> None:
+    wrapper.launches += 1
+    if large_slab(w, h):
+        wrapper.launches_large += 1
+
+
 def slab_sample_forward(lo, hi, ux, uy, uz, interpolation_scheme: int = 1):
     """Launch the sampler kernel: (4, P) rows gx, gy, gz, n-1."""
     _check_sampler_tensors(lo, hi, ux, uy, uz, interpolation_scheme)
@@ -158,7 +185,7 @@ def slab_sample_forward(lo, hi, ux, uy, uz, interpolation_scheme: int = 1):
             hi.data_ptr(), out.data_ptr(), P, w, h,
             int(interpolation_scheme), kernels.current_stream(lo.device))
     kernels.check_launch(code, "photon_slab_sample")
-    slab_sample_forward.launches += 1
+    count_launch(slab_sample_forward, w, h)
     return out
 
 
@@ -181,12 +208,12 @@ def slab_sample_backward(lo, hi, ux, uy, uz, ct,
             d_hi.data_ptr(), P, w, h, int(interpolation_scheme),
             kernels.current_stream(lo.device))
     kernels.check_launch(code, "photon_slab_sample_bwd")
-    slab_sample_backward.launches += 1
+    count_launch(slab_sample_backward, w, h)
     return d_lo, d_hi, d_u
 
 
-slab_sample_forward.launches = 0
-slab_sample_backward.launches = 0
+slab_sample_forward.launches = slab_sample_forward.launches_large = 0
+slab_sample_backward.launches = slab_sample_backward.launches_large = 0
 
 
 class _SlabSample(torch.autograd.Function):

@@ -6,7 +6,6 @@ through to a different path.
 """
 from __future__ import annotations
 
-LARGE_VOLUMES = "Large volumes"
 CONFIGS = "PIV, Mie, calibration, rotation, noise, bilinear sensor"
 EXACT_PATH = "The exact-semantics path"
 MULTI_DEVICE = "Multi-device"

@@ -201,3 +201,56 @@ def test_invert_bos_smoothness_term_and_device_rule(apparent):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             invert_bos(*apparent["torch"], observed, tv, steps=1)
+
+
+# ---------------------------------------------------------------------------
+# a volume whose slab exceeds 256 x 256 voxels, from a cold start
+# ---------------------------------------------------------------------------
+
+def test_invert_bos_through_a_large_slab_cold():
+    """The scene of tests/test_inverse.py:65-97 (a 288 x 288 x 6 density
+    ramp).  The port's first call on this scene is ``invert_bos`` itself: no
+    eager render warms anything first.  Losses finite and falling; the first
+    step's loss within 1e-4 and its ``d_rho`` at cosine >= 0.9999 and 1e-3 of
+    the largest component of the JAX package's (through its windowed march
+    and backward)."""
+    cfg = bos_case("apparent", n_dots=8, rays=8)
+    setup = jax_camera_setup(cfg)
+    src, *_ = jax_bos_source(cfg, setup, np.random.default_rng(4))
+    r1, r2 = (np.asarray(r) for r in jax_lens_samples(jax.random.key(9), 8))
+    n, d = 288, 6
+    x = np.linspace(-2e5, 2e5, n)
+    z = np.linspace(0.4 * setup.object_distance, 0.9 * setup.object_distance,
+                    d)
+    rho_true = (1.225 + 4.0 * np.linspace(0, 1, n)[:, None, None]
+                * np.ones((1, n, d))).astype(np.float32)
+    jv = jax_build_volume(
+        rho_true, [x[1] - x[0], x[1] - x[0], z[1] - z[0]], [x[0], x[0], z[0]])
+    observed = np.array(jax_render(cfg, setup, src, r1, r2, vol=jv))
+
+    tcfg = port_config(cfg)
+    targs = (tcfg, camera_setup(tcfg), port_source(src), r1, r2)
+    tv = port_volume(jv)
+    got = invert_bos(*targs, observed, tv, steps=8, learning_rate=0.02,
+                     device="cpu")
+    assert np.isfinite(got.losses).all() and got.rho.shape == (n, n, d)
+    assert min(got.losses) < 0.9 * got.losses[0], got.losses
+    assert tuple(got.volume.field.shape) == (d, n, n, 4)
+
+    gd = cfg.density_gradients.gladstone_dale
+    rho0 = np.full((n, n, d), cfg.density_gradients.rho_0, np.float32)
+    loss_ref, g_ref = jax.value_and_grad(lambda r: jnp.mean((jax_render(
+        cfg, setup, src, r1, r2, vol=jax_volume_from_rho(r, jv, gd))
+        - jnp.asarray(observed)) ** 2))(jnp.asarray(rho0))
+    np.testing.assert_allclose(got.losses[0], float(loss_ref), rtol=1e-4)
+    r0 = torch.from_numpy(rho0).requires_grad_(True)
+    img = render_image_fast(*targs, vol=volume_from_rho(r0, tv, gd),
+                            device="cpu")
+    torch.mean((img - torch.from_numpy(observed)) ** 2).backward()
+    g_got, g_ref = r0.grad.numpy(), np.asarray(g_ref)
+    g_err = float(np.abs(g_got - g_ref).max() / np.abs(g_ref).max())
+    print(f"first d_rho through 288 x 288 x 6: cosine "
+          f"{_cosine(g_got, g_ref):.7f}, max difference {g_err:.3g} of the "
+          f"largest component")
+    assert _cosine(g_got, g_ref) >= 0.9999 and g_err < 1e-3
+    print(f"losses of 8 steps: {[f'{v:.4g}' for v in got.losses]}")

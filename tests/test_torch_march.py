@@ -12,8 +12,8 @@ from photon_tpu.ops.march_dense import (chief_deltas_dense as jax_deltas,
 from photon_tpu.ops.march_dense_fused import march_chief_fused as jax_fused
 from photon_tpu.volume import build_density_volume
 from photon_tpu_torch.ops.march_dense import (chief_deltas_dense,
-                                              dense_march_supported,
                                               march_chief_dense)
+from photon_tpu_torch.ops import march_dense as md
 from photon_tpu_torch.ops.march_dense_fused import march_chief_fused
 from tests.test_bos_pipeline import bos_case, gradient_volume_between
 from tests.torch_port_helpers import port_volume
@@ -144,7 +144,9 @@ def test_wrapper_on_cpu_matches_fused_interpret(volumes):
 
 def test_dense_support_and_unported_options(volumes):
     _, tv = volumes["random10x14x12"]
-    assert dense_march_supported(tv)
+    # no slab cap: the one march takes every size
+    assert not hasattr(md, "dense_march_supported")
+    assert not hasattr(md, "DENSE_MAX_SLAB")
     rays = [torch.from_numpy(a) for a in _chiefs(tv, p=4)]
     with pytest.raises(ValueError, match="unknown interpolation_scheme"):
         march_chief_fused(tv, *rays, interpolation_scheme=3)

@@ -190,3 +190,67 @@ def test_later_slices_raise(case, edit):
         cfg.density_gradients.add_ngrad_noise = True
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_simulation(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# a case whose NRRD has slabs over 256 x 256 voxels
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def large_case(tmp_path_factory):
+    """The small case above with a 288 x 272 x 6 density ramp: beyond the JAX
+    package's dense cap, so its side runs the windowed march."""
+    d = tmp_path_factory.mktemp("bos_large")
+    cfg = bos_case("general", n_dots=4, rays=16)
+    cfg.camera_design.x_pixel_number = 128
+    cfg.camera_design.y_pixel_number = 96
+    cfg.reference_lens_rng = True
+    setup = jax_camera_setup(cfg)
+    w, h, dd = 288, 272, 6
+    x = np.linspace(-2e5, 2e5, w)
+    y = np.linspace(-2e5, 2e5, h)
+    z = np.linspace(setup.object_distance * 0.4,
+                    setup.object_distance * 0.9, dd)
+    rho = 1.225 + 4.0 * (x[:, None, None] - x.min()) / (x.max() - x.min()) \
+        * np.ones((1, h, dd))
+    nrrd = str(d / "rho.nrrd")
+    write_nrrd(nrrd, rho.astype(np.float32),
+               spacings=(x[1] - x[0], y[1] - y[0], z[1] - z[0]),
+               space_origin=(x[0], y[0], z[0]))
+    cfg.density_gradients.simulate_density_gradients = True
+    cfg.density_gradients.density_gradient_filename = nrrd
+    return dict(dir=d, jax_cfg=cfg, torch_cfg=port_config(cfg))
+
+
+def test_run_bos_through_a_large_slab_matches_jax(large_case):
+    from photon_tpu.ops.march_dense import dense_march_supported
+    jv = jax_load_volume(
+        large_case["jax_cfg"].density_gradients.density_gradient_filename)
+    assert not dense_march_supported(jv)
+    ref = jax_run_bos(large_case["jax_cfg"], rng=np.random.default_rng(11))
+    got = run_bos(large_case["torch_cfg"], rng=np.random.default_rng(11),
+                  device="cpu")
+    for name in sorted(ref.raw_images):
+        l1 = rel_l1(got.raw_images[name], ref.raw_images[name])
+        print(f"288 x 272 x 6, {name}: raw L1 {l1:.3g}")
+        # the windowed march against the tube march in the JAX package's own
+        # test of this route: 2e-3 of the sum
+        assert l1 < 2e-3, l1
+    im1, im2 = (got.raw_images[n] for n in sorted(got.raw_images))
+    assert np.abs(im1 - im2).sum() > 1e-3 * im1.sum()
+
+
+@pytest.mark.parametrize("algorithm,scheme", [(2, 1), (3, 2), (4, 1)])
+def test_cli_through_a_large_slab_on_the_cpu(large_case, algorithm, scheme):
+    import copy
+    cfg = copy.deepcopy(large_case["torch_cfg"])
+    cfg.density_gradients.ray_tracing_algorithm = algorithm
+    cfg.density_gradients.interpolation_scheme = scheme
+    cfg_path = str(large_case["dir"] / f"case_{algorithm}_{scheme}.json")
+    cfg.to_json(cfg_path)
+    out = str(large_case["dir"] / f"out_cli_{algorithm}_{scheme}")
+    assert cli_main([cfg_path, "--out", out, "--device", "cpu"]) == 0
+    im1 = read_tiff16(os.path.join(out, "tif", "bos_pattern_image_1.tif"))
+    im2 = read_tiff16(os.path.join(out, "tif", "bos_pattern_image_2.tif"))
+    assert im1.shape == (96, 128) and im1.sum() > 0
+    assert np.abs(im1.astype(np.int64) - im2.astype(np.int64)).sum() > 0
