@@ -114,6 +114,38 @@ def bound_ms(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+NOT_MEASURED = "not measured"
+
+
+def device_events(prof):
+    """The device side of a torch.profiler trace (its key_averages())."""
+    return [ev for ev in prof.key_averages()
+            if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
+
+
+def held_to_counters(events, launches):
+    """Each kernel's device time in one trace, held to the launch counter of
+    the same run: ``{kernel: (ms in all, launches)}``, or NOT_MEASURED where
+    the trace holds another number of launches of that kernel than its
+    counter, or no time for a kernel that launched (a profiler can drop
+    records: in one traced 512^3 render the trace held no march kernel while
+    its counter read 1).  ``events``: the trace's device events (``key``,
+    ``count``, ``self_device_time_total`` in us); ``launches``: {kernel name,
+    or a part of it that no other kernel's name holds: launches counted}."""
+    out = {}
+    for tag, n in launches.items():
+        hit = [ev for ev in events if tag in ev.key]
+        traced_n = sum(ev.count for ev in hit)
+        us = sum(ev.self_device_time_total for ev in hit)
+        out[tag] = ((us / 1e3, traced_n) if traced_n == n and (n == 0 or us > 0)
+                    else NOT_MEASURED)
+    return out
+
+
+def ms_or_not(v, digits=3):
+    return v if v == NOT_MEASURED else f"{v:.{digits}f} ms"
+
+
 MERGES_A_SAMPLE = 4      # kMaxMerges of csrc/march_common.cuh
 FEW_MOVERS = 8           # kFewMovers of csrc/march_bwd.cu
 
@@ -292,6 +324,90 @@ def ptxas_lines(procs, nvcc):
     return out
 
 
+def sass_functions(text):
+    """{mangled kernel name: [(address, instruction)]} of ``cuobjdump -sass``
+    output."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        out[name] = [(int(a, 16), " ".join(i.split())) for a, i in
+                     re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", part)]
+    return out
+
+
+def sass_loops(ins):
+    """Each loop of one kernel's SASS (a branch back to an earlier address):
+    (instructions in its body, those on its common path, its global loads).
+    The common path leaves out the few instructions that a predicated
+    forward branch jumps over where they hold a CALL: the call of the
+    out-of-line slow path of an IEEE f32 division, reciprocal or square
+    root, taken only near the ends of the range."""
+    loops = []
+    for addr, txt in ins:
+        back = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", txt)
+        if not back or int(back.group(1), 16) > addr:
+            continue
+        body = [(a, t) for a, t in ins if int(back.group(1), 16) <= a <= addr]
+        slow = set()
+        for a, t in body:
+            fwd = re.match(r"@!?U?P\w+ BRA\b.*?0x([0-9a-f]+)", t)
+            if fwd and int(fwd.group(1), 16) > a:
+                region = [b for b, u in body if a < b < int(fwd.group(1), 16)]
+                if len(region) <= 8 and any(
+                        u.startswith("CALL") for b, u in body if b in region):
+                    slow.update(region)
+        loads = sum(1 for a, t in body if a not in slow
+                    and re.match(r"(@!?P\w+ )?LDG\b", t))
+        loops.append((len(body), len(body) - len(slow), loads))
+    return loops
+
+
+def sass_issue(cubin_dir, nvcc):
+    """Phase 1's count of what K1 and K2 issue, from ``cuobjdump -sass`` of
+    the cubins ptxas_start compiled: {"fan_stats": instructions a (particle,
+    ray) pair, "march_dense": instructions a ray's RK4 stage (trilinear; the
+    two-ray kernel, or the one-ray kernel of a checkout that has no other),
+    "march_dense_cubic": the same under scheme 2}, each on the common path
+    of its loop (sass_loops); printed with the loops' own counts.  K2's is
+    its pair loop (the least loop that loads the ray's lens sample); K1's
+    the loop that holds one ray's RK4 step and nothing else (4 stages of
+    `taps` loads: the substep loop of the two-ray kernel, the unswitched
+    slab loop of the one-ray kernel), over 4.  None where the loop is not
+    found."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out = {}
+    for key, src, kernel, taps, what in (
+            ("fan_stats", "fan_stats", ("fan_stats_kernelILi2ELb1E",), None,
+             "the pair loop of fan_stats_kernel<2, true> (thick lens, march "
+             "deltas)"),
+            ("march_dense", "march_dense",
+             ("march_dense_kernel_raysILb0E", "march_dense_kernelILb0ELi1E"),
+             8, "a ray's RK4 step in the trilinear plain head"),
+            ("march_dense_cubic", "march_dense",
+             ("march_dense_kernelILb0ELi2E",), 32,
+             "a ray's RK4 step in the tricubic plain head")):
+        res = subprocess.run([cuobjdump, "-sass",
+                              os.path.join(cubin_dir, src + ".cubin")],
+                             capture_output=True, text=True)
+        fns = sass_functions(res.stdout)
+        named = [(k, n) for k in kernel for n in fns if k in n][:1]
+        loops = [lp for _, n in named for lp in sass_loops(fns[n])]
+        what = f"{what} ({named[0][0] if named else kernel[0]})"
+        if taps is None:          # the fan: the inner loop that loads its
+            per = [(lp[1], lp) for lp in loops if lp[2] >= 2]    # ray, a pair
+        else:                     # one ray's RK4 step: 4 x `taps` loads
+            per = [(lp[1] / 4, lp) for lp in loops if lp[2] == 4 * taps]
+        if not per:
+            print(f"    SASS, {src}: {what}: not found")
+            out[key] = None
+            continue
+        out[key], (n_all, n_common, n_loads) = min(per)
+        print(f"    SASS, {src}: {what}: {n_all} instructions, {n_common} on "
+              f"the common path, {n_loads} global loads: {out[key]:.1f} a "
+              f"{'pair' if taps is None else 'ray and stage'}")
+    return out
+
+
 def require(cond, message) -> None:
     """A check that stays under ``python -O``."""
     if not cond:
@@ -392,6 +508,291 @@ def bench_volume_512(setup, dev, n=512):
     return vol, (gx, gz, amp)
 
 
+def bench_inputs(dev):
+    """What K1 and K2 take on the main path of the bench scene: the scene
+    (bench_scene), its source points, lens samples, 64^3 volume, render
+    parameters, chief rays and the fan's scalars, lens rows and amplitudes,
+    as a namespace."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.models.render import RenderParams
+    from photon_tpu_torch.models.render_fast import (_chief_geometry,
+                                                     fan_scalars)
+    from photon_tpu_torch.models.scenes import bos_source
+    from photon_tpu_torch.pipeline import _lens_sample_pair
+    from photon_tpu_torch.volume import build_density_volume
+
+    b = types.SimpleNamespace()
+    b.cfg, b.setup, b.rho, b.spacings, b.origin = bench_scene()
+    b.source, b.dot_x, b.dot_y = bos_source(
+        b.cfg, b.setup, np.random.default_rng(b.cfg.seed))
+    b.r1, b.r2 = _lens_sample_pair(b.cfg, BENCH_RAYS)
+    b.vol = build_density_volume(b.rho, b.spacings, b.origin, device=dev)
+    b.params = params = RenderParams.from_setup(b.cfg, b.setup, b.source)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    b.xs, b.ys, b.zs = (f32(b.source.x), f32(b.source.y),
+                        f32(b.source.z))
+    b.chief = _chief_geometry(b.xs, b.ys, b.zs,
+                              f32(b.setup.inverse_rotation_matrix),
+                              params.z_offset, params.image_distance)
+    st = b.setup.elements
+    b.lens_params = (float(b.setup.z_lens), float(st.pitch[0]),
+                     float(st.vertex_distance[0]),
+                     float(st.front_surface_radius[0]),
+                     float(st.back_surface_radius[0]),
+                     float(st.refractive_index[0]),
+                     float(st.transmission_ratio[0]))
+    b.sc = fan_scalars(params, b.lens_params)
+    r1d, r2d = f32(b.r1), f32(b.r2)
+    cone = params.ray_cone_pitch_ratio * params.lens_pitch
+    b.x_lens = cone * r1d * torch.cos(2.0 * math.pi * r2d)
+    b.y_lens = cone * r1d * torch.sin(2.0 * math.pi * r2d)
+    b.amp0 = f32(b.source.radiance) * float(
+        np.float32((8.0 / math.pi) / params.aperture_f_number ** 2))
+    return b
+
+
+def spread_rays(g5, n5, P, gen, dev):
+    """(6, P) near-vertical rays spread over the whole n5 x n5 slab of the
+    volume of geometry g5, and the same sorted by voxel column."""
+    import torch
+
+    def uniform(lo_, hi_):
+        return lo_ + (hi_ - lo_) * torch.rand(P, generator=gen, device=dev)
+
+    tilt_x, tilt_y = uniform(-0.005, 0.005), uniform(-0.005, 0.005)
+    inv_n = torch.rsqrt(tilt_x * tilt_x + tilt_y * tilt_y + 1.0)
+    spread6 = torch.stack([
+        float(g5.min_x) + float(g5.sx) * uniform(0.5, n5 - 2.5),
+        float(g5.min_y) + float(g5.sy) * uniform(0.5, n5 - 2.5),
+        torch.full((P,), float(g5.z_max) + 1.0e3, device=dev),
+        tilt_x * inv_n, tilt_y * inv_n, -inv_n]).contiguous()
+    column = ((spread6[1] - float(g5.min_y)) / float(g5.sy)).long() * n5 \
+        + ((spread6[0] - float(g5.min_x)) / float(g5.sx)).long()
+    return spread6, spread6[:, torch.argsort(column)].contiguous()
+
+
+def cuda_event_ms(fn, reps=7, warm=2, inner=1):
+    """Median over `reps` of the CUDA-event time of `inner` calls of fn."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(inner):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1) / inner)
+    return statistics.median(ts)
+
+
+def fingerprint(t):
+    """Two int64 sums of the float32 bits of t, plain and weighted by
+    position (mod 65521): what --against compares where a tensor is too
+    large to bring to the host."""
+    import torch
+    flat, a, b = t.reshape(-1), 0, 0
+    for s0 in range(0, flat.numel(), 1 << 26):
+        x = flat[s0:s0 + (1 << 26)].view(torch.int32).to(torch.int64)
+        pos = torch.arange(s0, s0 + x.numel(), device=x.device) % 65521 + 1
+        a += int(x.sum())
+        b += int((x * pos).sum())
+    return a, b
+
+
+def kernel_readings(out_path):
+    """--kernel-readings: K1 (both heads, both schemes; 64^3, and 512^3 in
+    the four ray orders of phase 2j) and K2 (the three lenses, at a chunk
+    and at the whole image) of the photon_tpu_torch first on sys.path, on the
+    bench scene's inputs, through the wrappers a user calls: their outputs
+    (K1's stage residual as a fingerprint), CUDA-event times a call and, for
+    the plain head and K2, device times a launch from a trace, saved with
+    torch.save for --against."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.ops.fan import fan_stats
+    from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
+                                                  march_chief_dense,
+                                                  march_geometry)
+    from photon_tpu_torch.ops.march_dense_fused import (
+        march_chief_fused, march_forward_noresidual, march_forward_residual)
+    from torch.profiler import ProfilerActivity, profile
+    import warnings
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    def device_ms(call, tag, wrapper, n):
+        """The device time a launch of n calls of call() in one trace, held
+        to the wrapper's launch counter (held_to_counters)."""
+        wrapper.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        got = held_to_counters(device_events(prof),
+                               {tag: int(wrapper.launches)})[tag]
+        return got if got == NOT_MEASURED else got[0] / got[1]
+
+    b = bench_inputs(dev)
+    P, n5 = b.xs.shape[0], 512
+    vol5, _ = bench_volume_512(b.setup, dev, n5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    rays6 = torch.stack(b.chief).contiguous()
+    perm = torch.randperm(P, generator=gen, device=dev)
+    spread6, spread_sorted6 = spread_rays(march_geometry(vol5), n5, P, gen,
+                                          dev)
+    g64 = np.asarray(march_geometry(b.vol), dtype=np.float32)
+    g5 = np.asarray(march_geometry(vol5), dtype=np.float32)
+    res = {}
+    for label, fld, gnp, r6, scheme, reps in (
+            ("64^3, trilinear", b.vol.field, g64, rays6, 1, 21),
+            ("64^3, tricubic", bspline_prefilter(b.vol.field), g64, rays6, 2,
+             11),
+            ("512^3, input order", vol5.field, g5, rays6, 1, 9),
+            ("512^3, shuffled", vol5.field, g5, rays6[:, perm].contiguous(),
+             1, 5),
+            ("512^3, spread, sorted by voxel column", vol5.field, g5,
+             spread_sorted6, 1, 5),
+            ("512^3, spread", vol5.field, g5, spread6, 1, 5)):
+        rays = list(r6.unbind(0))
+        out = march_forward_noresidual(fld, rays, gnp, 2, 1, scheme)
+
+        def march():
+            return march_forward_noresidual(fld, rays, gnp, 2, 1, scheme)
+        res["K1 " + label] = dict(
+            out=out.cpu(), ms=cuda_event_ms(march, reps),
+            device_ms=device_ms(march, "march_dense_kernel",
+                                march_chief_fused, 3))
+        out, texit, traj = march_forward_residual(fld, r6, gnp, 2, True,
+                                                  scheme)
+        res["K1 residual head " + label] = dict(
+            out=torch.cat([out.flatten(), texit.flatten()]).cpu(),
+            traj=fingerprint(traj), ms=cuda_event_ms(
+                lambda: march_forward_residual(fld, r6, gnp, 2, True,
+                                               scheme), max(3, reps // 3),
+                warm=1))
+        del out, texit, traj
+    # K2 on deltas from the plain march, the same in every checkout
+    ch = b.chief
+    x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(b.vol, *ch, algorithm=2)
+    t_exit = (z1 - ch[2]) / ch[5]
+    d6 = (z1, x1 - (ch[0] + ch[3] * t_exit), y1 - (ch[1] + ch[4] * t_exit),
+          dx1 - ch[3], dy1 - ch[4], dz1 - ch[5])
+    chunk = 2000
+    for label, lens, n_p, march in (
+            ("general + deltas, 120000 x 500", "general", P, True),
+            ("general + deltas, 2000 x 500", "general", chunk, True),
+            ("general, no deltas, 2000 x 500", "general", chunk, False),
+            ("apparent + deltas, 2000 x 500", "apparent", chunk, True),
+            ("thin-lens + deltas, 2000 x 500", "thin-lens", chunk, True)):
+        cols = [a[:n_p].contiguous() for a in (b.xs, b.ys, b.zs, b.amp0)]
+        dd = tuple(d[:n_p].contiguous() for d in d6) if march else None
+
+        def call():
+            return fan_stats(*cols, dd, b.x_lens, b.y_lens, sc=b.sc,
+                             lens_model=lens, mirror_x=True)
+        res["K2 " + label] = dict(
+            out=torch.stack(call()).cpu(), ms=cuda_event_ms(call, 11),
+            device_ms=device_ms(call, "fan_stats_kernel", fan_stats, 20))
+    torch.save(res, out_path)
+    return 0
+
+
+def compare_checkouts(others, card):
+    """--against: K1 and K2 of each other checkout (a root that holds a
+    photon_tpu_torch, as git archive unpacks one) and of this one, read by
+    kernel_readings in a process each, in turns (the others, this, this, the
+    others in reverse), on one card: every time, and how far each output
+    lies from this checkout's first reading (K1: values that differ,
+    residual fingerprints; K2: largest difference of A, AX, AY relative to
+    the column's maximum, of the centroids in px, and the share of values
+    that are equal); before them each checkout's SASS counts (sass_issue)."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = [os.path.abspath(d) for d in others]
+    for r in roots:
+        require(os.path.isdir(os.path.join(r, "photon_tpu_torch")),
+                f"--against {r}: no photon_tpu_torch there")
+    # each checkout's two libraries, one process each, all at once
+    builds = [(r, subprocess.Popen(
+        [sys.executable, "-c", "from photon_tpu_torch import kernels; "
+         "kernels.build(['march_dense', 'fan_stats'])"], cwd=r,
+        env=dict(os.environ, PYTHONPATH=r), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for r in roots + [here]]
+    for r, proc in builds:
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"the build in {r} failed: {log[-2000:]}")
+    # what each checkout's K1 and K2 issue, by phase 1's count
+    import importlib.util
+    for r in roots + [here]:
+        spec = importlib.util.spec_from_file_location(
+            "kernels_of_checkout", os.path.join(r, "photon_tpu_torch",
+                                                "kernels.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        print(f"SASS of {os.path.relpath(r, here)}:")
+        with tempfile.TemporaryDirectory() as cubins:
+            ptxas_lines(ptxas_start(mod, cubins), mod.nvcc_path())
+            sass_issue(cubins, mod.nvcc_path())
+    order = roots + [here, here] + roots[::-1]
+    readings = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, r in enumerate(order):
+            path = os.path.join(tmp, f"{i}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--kernel-readings", path, "--package-root", r],
+                           check=True)
+            readings.append((r, torch.load(path)))
+    base = readings[len(roots)][1]
+
+    def name(r):
+        return "this checkout" if r == here else os.path.relpath(r, here)
+    for key, ref in base.items():
+        print(f"{key}  [{card}]")
+        for r in dict.fromkeys(order):
+            got = [rd[key] for rr, rd in readings if rr == r]
+            ms = " / ".join(f"{g['ms']:.4f}" for g in got)
+            if "device_ms" in ref:
+                ms += " (device " + " / ".join(
+                    ms_or_not(g["device_ms"], 4).removesuffix(" ms")
+                    for g in got) + ")"
+            g = got[0]
+            if key.startswith("K1"):
+                diff = int((g["out"] != ref["out"]).sum())
+                same = diff == 0 and g.get("traj") == ref.get("traj")
+                print(f"    {name(r)}: {ms} ms; outputs that differ from this "
+                      f"checkout's: {diff} of {ref['out'].numel()}"
+                      + ("" if "traj" not in ref else
+                         f", stage residual {'equal' if same else 'DIFFERS'}"
+                         " (fingerprint)"))
+            else:
+                rel = max(float((g["out"][i] - ref["out"][i]).abs().max()
+                                / ref["out"][i].abs().max()) for i in range(3))
+                on = ref["out"][0] > 0
+                cen = max(float((g["out"][i][on] / g["out"][0][on]
+                                 - ref["out"][i][on] / ref["out"][0][on])
+                                .abs().max()) for i in (1, 2))
+                eq = float((g["out"] == ref["out"]).float().mean())
+                print(f"    {name(r)}: {ms} ms; against this checkout's: "
+                      f"{rel:.3e} of the column maximum, centroids {cen:.3e}"
+                      f" px, {eq:.1%} of the values equal")
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -400,25 +801,41 @@ def main(argv=None) -> int:
     ap.add_argument("--large-only", action="store_true",
                     help="after the build, run the large-volume phases (2j, "
                     "7, 8) alone; the kernels line then lists their rows only")
+    ap.add_argument("--against", action="append", metavar="CHECKOUT",
+                    help="instead of the phases: hold K1 and K2 of this "
+                    "checkout against those of CHECKOUT (a directory that "
+                    "holds a photon_tpu_torch, such as an unpacked git "
+                    "archive of another commit) on the card, outputs and "
+                    "times, in turns; may be given more than once")
+    ap.add_argument("--kernel-readings", metavar="FILE",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--package-root", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA device", file=sys.stderr)
         return 2
+    if args.kernel_readings:
+        sys.path.insert(0, args.package_root)
+        return kernel_readings(args.kernel_readings)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].strip()
+    print(card)
+    if args.against:
+        return compare_checkouts(args.against, card)
 
     import numpy as np
 
     from photon_tpu_torch import kernels
     from photon_tpu_torch.cli import main as cli_main
-    from photon_tpu_torch.models.render import RenderParams
-    from photon_tpu_torch.models.render_fast import (_chief_geometry,
-                                                     auto_patch, fan_scalars)
+    from photon_tpu_torch.models.render_fast import auto_patch
     import dataclasses
 
     from photon_tpu_torch.inverse import invert_bos, volume_from_rho
     from photon_tpu_torch.models import render_fast
     from photon_tpu_torch.models.render_fast import render_image_fast
-    from photon_tpu_torch.models.scenes import bos_source
     from photon_tpu_torch.ops import march_dense_fused as mdf
     from photon_tpu_torch.ops.fan import (fan_backward_constants, fan_stats,
                                           fan_stats_backward, fan_stats_plain)
@@ -433,7 +850,7 @@ def main(argv=None) -> int:
         slab_sample_backward, slab_sample_forward, slab_sample_plain)
     from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
                                             splat_particles_plain)
-    from photon_tpu_torch.pipeline import _lens_sample_pair, _ray_budget, run_bos
+    from photon_tpu_torch.pipeline import _ray_budget, run_bos
     from photon_tpu_torch.utils.tiff_io import read_tiff16
     from photon_tpu_torch.volume import (build_density_volume,
                                          load_density_volume)
@@ -447,11 +864,6 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------------
     # phase 1: the card, the versions, the build
     # ------------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    card = smi.strip()
-    print(card)
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     with tempfile.TemporaryDirectory() as cubin_dir:
@@ -465,42 +877,85 @@ def main(argv=None) -> int:
               f"{', '.join(sorted(kernels.SIGNATURES))}")
         for name, line in ptxas_lines(reports, kernels.nvcc_path()):
             print(f"    ptxas, {name}: {line}")
+        issue = sass_issue(cubin_dir, kernels.nvcc_path())
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+    def issue_floor(units, key, unit):
+        """(ms, text): the least time the SMs take to issue what phase 1's
+        SASS count gives a unit, `units` times: 128 thread instructions a
+        clock on each of 132 SMs (four schedulers, a warp's instruction a
+        clock each) at the card's highest SM clock; (None, "issue floor not
+        measured") without the count."""
+        if issue.get(key) is None:
+            return None, f"issue floor {NOT_MEASURED}"
+        ms = units * issue[key] / (128 * 132 * clock_mhz * 1e6) * 1e3
+        return ms, (f"issue floor {ms:.4f} ms ({issue[key]:.1f} SASS "
+                    f"instructions {unit}, {clock_mhz:.0f} MHz)")
 
     def sync():
         torch.cuda.synchronize(dev)
 
-    def time_ms(fn, reps=7, warm=2, inner=1):
-        """Median over `reps` of the CUDA-event time of `inner` calls."""
-        for _ in range(warm):
-            fn()
-        sync()
-        ts = []
-        for _ in range(reps):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(inner):
-                fn()
-            e1.record()
-            sync()
-            ts.append(e0.elapsed_time(e1) / inner)
-        return statistics.median(ts)
+    from torch.profiler import ProfilerActivity, profile
+    # each kernel's launch counter, by the kernel's name in a trace
+    counters = {
+        "march_dense_kernel": march_chief_fused,
+        "march_bwd_stage_kernel": march_backward_stage,
+        "march_bwd_remarch_kernel": march_backward_remarch,
+        "slab_sample_kernel": slab_sample_forward,
+        "slab_sample_bwd_kernel": slab_sample_backward,
+        "fan_stats_kernel": fan_stats, "fan_stats_bwd_kernel": fan_stats_backward,
+        "splat_kernel": splat_particles, "splat_bwd_kernel": splat_backward}
+
+    def traced(run, others=None):
+        """run() under torch.profiler, every launch counter at 0 just before;
+        each kernel's device time held to its counter (held_to_counters),
+        and run and traced once more where one disagreed.  `others`: {name
+        of a kernel that no counter of this package counts: the launches
+        run() makes of it}, held the same way.  Returns (the device time in
+        all, in ms, of a trace that held every kernel, else NOT_MEASURED;
+        {kernel that launched: (ms in all, launches) from the first trace
+        that held it, else NOT_MEASURED})."""
+        best, total = {}, NOT_MEASURED
+        for _ in range(2):
+            for w in counters.values():
+                w.launches = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                sync()
+            evs = device_events(prof)
+            held = held_to_counters(evs, {**{k: int(w.launches) for k, w in
+                                             counters.items() if w.launches},
+                                          **(others or {})})
+            for k, v in held.items():
+                if best.get(k, NOT_MEASURED) == NOT_MEASURED:
+                    best[k] = v
+            if NOT_MEASURED not in held.values():
+                total = sum(ev.self_device_time_total for ev in evs) / 1e3
+                break
+            print(f"    the trace disagreed with the launch counters "
+                  f"({ {k: v for k, v in held.items() if v == NOT_MEASURED} })"
+                  f": traced once more")
+        return total, best
+
+    time_ms = cuda_event_ms
 
     # ------------------------------------------------------------------
     # the main path's scene (the JAX package's bench scene): 1024^2
     # sensor, 1000 dots x ~100 source points, 500 rays, 64^3 volume
     # ------------------------------------------------------------------
     sensor, n_dots, rays_per = BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS
-    cfg, setup, rho, spacings, origin = bench_scene()
+    b = bench_inputs(dev)
+    cfg, setup, rho, spacings, origin = (b.cfg, b.setup, b.rho, b.spacings,
+                                         b.origin)
     n = rho.shape[0]
     m = cfg.lens_design.focal_length / (
         cfg.lens_design.object_distance - cfg.lens_design.focal_length)
-
-    source, dot_x, dot_y = bos_source(cfg, setup,
-                                      np.random.default_rng(cfg.seed))
-    r1, r2 = _lens_sample_pair(cfg, rays_per)
-    vol = build_density_volume(rho, spacings, origin, device=dev)
-    params = RenderParams.from_setup(cfg, setup, source)
+    source, dot_x, dot_y, r1, r2 = b.source, b.dot_x, b.dot_y, b.r1, b.r2
+    vol, params = b.vol, b.params
     P, R = source.num_particles, rays_per
     chunk = max(1, _ray_budget(cfg) // R)       # particles per launch
     n_chunks = -(-P // chunk)
@@ -509,7 +964,7 @@ def main(argv=None) -> int:
           f"{chunk} particles a chunk ({n_chunks} chunks)")
 
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    xs, ys, zs = f32(source.x), f32(source.y), f32(source.z)
+    xs, ys, zs = b.xs, b.ys, b.zs
     kernel_rows = []
     failures = []
 
@@ -524,9 +979,7 @@ def main(argv=None) -> int:
     # what every phase shares: the chief rays, the fan's scalars, the splat's
     # settings, tolerances and helpers (nothing here launches a kernel)
     # ------------------------------------------------------------------
-    inv_rot = f32(setup.inverse_rotation_matrix)
-    chief = _chief_geometry(xs, ys, zs, inv_rot, params.z_offset,
-                            params.image_distance)
+    chief = b.chief
     geom = march_geometry(vol)
     scale = float(max(abs(float(v)) for v in
                       (geom.min_x, geom.min_y, geom.z_min, geom.z_max)))
@@ -541,20 +994,8 @@ def main(argv=None) -> int:
     # are normalised: positions by the largest coordinate of the volume,
     # directions as they are.  5e-6 is about 40 f32 roundings.
     K1_TOL = 5e-6
-    st = setup.elements
-    lens_params = (float(setup.z_lens), float(st.pitch[0]),
-                   float(st.vertex_distance[0]),
-                   float(st.front_surface_radius[0]),
-                   float(st.back_surface_radius[0]),
-                   float(st.refractive_index[0]),
-                   float(st.transmission_ratio[0]))
-    sc = fan_scalars(params, lens_params)
-    r1d, r2d = f32(r1), f32(r2)
-    cone = params.ray_cone_pitch_ratio * params.lens_pitch
-    x_lens = cone * r1d * torch.cos(2.0 * math.pi * r2d)
-    y_lens = cone * r1d * torch.sin(2.0 * math.pi * r2d)
-    amp0 = f32(source.radiance) * float(
-        np.float32((8.0 / math.pi) / params.aperture_f_number ** 2))
+    lens_params, sc, x_lens, y_lens, amp0 = (b.lens_params, b.sc, b.x_lens,
+                                             b.y_lens, b.amp0)
 
     K = auto_patch(params)
     D = params.diffraction_diameter
@@ -742,7 +1183,6 @@ def main(argv=None) -> int:
         """Phases 2j, 7 and 8: volumes whose slab exceeds 256 x 256 voxels,
         through the same kernels.  Returns the rows it adds to the kernels
         line."""
-        from torch.profiler import ProfilerActivity, profile
         rows = []
         gen_l = torch.Generator(device=dev)
         gen_l.manual_seed(12)
@@ -784,14 +1224,6 @@ def main(argv=None) -> int:
             for k, v in want.items():
                 require(got_counts[k] == v, f"{label}: {k} launched "
                         f"{got_counts[k]} times, expected {v}")
-
-        def device_time(prof_, tag=None):
-            evs = [ev for ev in prof_.key_averages()
-                   if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
-            if tag is not None:
-                evs = [ev for ev in evs if tag in ev.key]
-            return (sum(ev.self_device_time_total for ev in evs) / 1e3,
-                    sum(ev.count for ev in evs))
 
         def in_band_steps(v, rays):
             """Ray-slab steps that this run's rays take through v."""
@@ -1040,20 +1472,7 @@ def main(argv=None) -> int:
         ct6 = torch.randn(6, P, generator=gen_l, device=dev)
         perm = torch.randperm(P, generator=gen_l, device=dev)
 
-        def uniform(lo_, hi_):
-            return lo_ + (hi_ - lo_) * torch.rand(P, generator=gen_l,
-                                                  device=dev)
-
-        tilt_x, tilt_y = uniform(-0.005, 0.005), uniform(-0.005, 0.005)
-        inv_n = torch.rsqrt(tilt_x * tilt_x + tilt_y * tilt_y + 1.0)
-        spread6 = torch.stack([
-            float(g5.min_x) + float(g5.sx) * uniform(0.5, n5 - 2.5),
-            float(g5.min_y) + float(g5.sy) * uniform(0.5, n5 - 2.5),
-            torch.full((P,), float(g5.z_max) + 1.0e3, device=dev),
-            tilt_x * inv_n, tilt_y * inv_n, -inv_n]).contiguous()
-        column = ((spread6[1] - float(g5.min_y)) / float(g5.sy)).long() * n5 \
-            + ((spread6[0] - float(g5.min_x)) / float(g5.sx)).long()
-        spread_sorted6 = spread6[:, torch.argsort(column)].contiguous()
+        spread6, spread_sorted6 = spread_rays(g5, n5, P, gen_l, dev)
         sp10 = [c[tenth].contiguous() for c in spread6.unbind(0)]
         pe, de = march_err(march_chief_fused(vol5, *sp10, algorithm=2),
                            march_chief_dense(vol5, *sp10, algorithm=2))
@@ -1140,6 +1559,8 @@ def main(argv=None) -> int:
                 "the spread rays do not touch half of the field")
 
         bd = order_bounds["input"]
+        k1l_floor = issue_floor(steps5 * 4, "march_dense", "a ray's stage")
+        print(f"    K1 on the input order, {n5}^3: {k1l_floor[1]}  [{card}]")
         (k1l_bound, k1l_by), (k1tl_bound, k1tl_by) = bd["k1"], bd["k1t"]
         (k4l_bound, k4l_by), (k5l_bound, k5l_by) = bd["k4"], bd["k5"]
         print(f"    the plain march forward {k1l_plain_ms:.0f} ms  [{card}]")
@@ -1165,6 +1586,7 @@ def main(argv=None) -> int:
             max_abs_err=k1l_err, tolerance=K1_TOL, ms=tin["k1"],
             ms_shuffled_rays=tsh["k1"], plain_ms=k1l_plain_ms,
             bound_ms=k1l_bound, bound_by=k1l_by, library_ms=None,
+            issue_floor_ms=k1l_floor[0],
             peak_gb=tin["k1_gb"], touched_bytes=tin["touched"] * 16,
             spread_rays=beyond_l2("k1"),
             residual_head=dict(
@@ -1468,23 +1890,19 @@ def main(argv=None) -> int:
                     f"render")
             menu5[label] = dict(counts=large5, seconds=secs5, l1=l1_5)
             del plain5
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            render5()
-            sync()
-        dev_ms, _ = device_time(prof)
-        k1_dev_ms, k1_dev_n = device_time(prof, "march_dense_kernel")
+        dev_ms, held = traced(render5)
+        k1_held = held.get("march_dense_kernel", NOT_MEASURED)
         rk4_s = menu5["RK4, trilinear"]["seconds"]
-        if dev_ms > 0:
-            print(f"    traced render through {n5}^3: device busy "
-                  f"{dev_ms:.2f} ms, {k1_dev_ms:.3f} ms of it in "
-                  f"{k1_dev_n} launch of the march kernel; an untraced render "
-                  f"takes {rk4_s * 1e3:.1f} ms, so the device was busy for "
-                  f"about {dev_ms / 1e3 / rk4_s:.1%} of it  [{card}]")
-            rows[0]["device_ms_on_main_path"] = k1_dev_ms
-        else:
-            print("    traced render: the profiler reported no device time; "
-                  "not measured")
+        busy = (NOT_MEASURED if dev_ms == NOT_MEASURED else
+                f"{dev_ms:.2f} ms, about {dev_ms / 1e3 / rk4_s:.1%} of an "
+                f"untraced render's {rk4_s * 1e3:.1f} ms")
+        print(f"    traced render through {n5}^3: device busy {busy}; the "
+              f"march kernel "
+              f"{ms_or_not(k1_held if k1_held == NOT_MEASURED else k1_held[0])}"
+              f" in {menu5['RK4, trilinear']['counts']['march']} launch  "
+              f"[{card}]")
+        if k1_held != NOT_MEASURED:
+            rows[0]["device_ms_on_main_path"] = k1_held[0]
         on_render = f"render_image_fast through the {n5}^3 volume"
         rows[0]["launches"] = menu5["RK4, trilinear"]["counts"]["march"]
         rows[0]["launches_on"] = on_render + ", RK4, one chunk"
@@ -1532,22 +1950,17 @@ def main(argv=None) -> int:
                 lambda: counted(lambda: run(field_step)))
             del res_s
             f_s, b_s = run(step_times)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                run(field_step)
-            dev_ms, _ = device_time(prof)
-            parts = {tag: device_time(prof, tag)[0] for tag in (
-                "march_dense_kernel", "march_bwd_stage_kernel",
-                "march_bwd_remarch_kernel", "fan_stats_kernel",
-                "fan_stats_bwd_kernel", "splat_kernel", "splat_bwd_kernel")}
-            busy = (f"{dev_ms / 1e3 / (f_s + b_s):.1%}" if dev_ms > 0
-                    else "not measured")
+            dev_ms, held = traced(lambda: run(field_step))
+            parts = {tag: (v if v == NOT_MEASURED else v[0])
+                     for tag, v in held.items()}
+            busy = (NOT_MEASURED if dev_ms == NOT_MEASURED else
+                    f"{dev_ms / 1e3 / (f_s + b_s):.1%} of the step "
+                    f"({dev_ms:.2f} ms)")
             print(f"    one step, {label}: launches {counts_s}, large tier "
                   f"{large_s}; forward {f_s * 1e3:.2f} ms, backward "
                   f"{b_s * 1e3:.2f} ms (median of 3); peak device memory "
-                  f"{peak_s:.2f} GB; device busy {busy} of the step "
-                  f"({dev_ms:.2f} ms; by kernel "
-                  f"{ {k: round(v, 3) for k, v in parts.items() if v} })  "
+                  f"{peak_s:.2f} GB; device busy {busy}; by kernel "
+                  f"{ {k: ms_or_not(v) for k, v in parts.items()} }  "
                   f"[{card}]")
             expect_counts(label, counts_s, dict(
                 fan_stats=1, fan_stats_bwd=1, splat=1, splat_bwd=1,
@@ -1579,15 +1992,16 @@ def main(argv=None) -> int:
                 f"one forward + backward of mean(img^2) with respect to the "
                 f"{n5}^3 field, one chunk"
                 + ("" if i == 1 else ", the stage residual over its budget"))
-            tag = key + "_kernel"
-            if step_rows[budget]["parts"].get(tag):
-                rows[i]["device_ms_on_main_path"] = \
-                    step_rows[budget]["parts"][tag]
+            got_ms = step_rows[budget]["parts"].get(key + "_kernel",
+                                                    NOT_MEASURED)
+            if got_ms != NOT_MEASURED:
+                rows[i]["device_ms_on_main_path"] = got_ms
         rows[0]["residual_head"]["launches"] = step_rows[None]["large"]["march"]
         rows[0]["residual_head"]["launches_on"] = rows[1]["launches_on"]
-        if step_rows[None]["parts"].get("march_dense_kernel"):
-            rows[0]["residual_head"]["device_ms_on_main_path"] = \
-                step_rows[None]["parts"]["march_dense_kernel"]
+        got_ms = step_rows[None]["parts"].get("march_dense_kernel",
+                                              NOT_MEASURED)
+        if got_ms != NOT_MEASURED:
+            rows[0]["residual_head"]["device_ms_on_main_path"] = got_ms
 
         # the per-stage route at this size: Adams-Bashforth under autograd
         # (K8 and K9 on 512 x 512 slabs), held against the RK4 gradient here
@@ -1762,15 +2176,18 @@ def main(argv=None) -> int:
     k1_ops = steps * (4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE)
     k1_bytes = 12 * P * 4 + vol.field.numel() * 4
     k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
+    k1_floor = issue_floor(steps * 4, "march_dense", "a ray's stage")
     print(f"    time {k1_ms:.4f} ms  plain {k1_plain_ms:.2f} ms  bound "
-          f"{k1_bound:.4f} ms ({k1_by}; {steps} ray-slab steps)  [{card}]")
+          f"{k1_bound:.4f} ms ({k1_by}; {steps} ray-slab steps); "
+          f"{k1_floor[1]}  [{card}]")
     kernel_rows.append(dict(
         name="march_dense", route="cuda",
         source="photon_tpu_torch/csrc/march_dense.cu",
         replaces="photon_tpu/ops/march_dense_fused.py:174",
         shape=f"{P} rays, 64^3 field, RK4",
         max_abs_err=k1_err, tolerance=K1_TOL, ms=k1_ms, plain_ms=k1_plain_ms,
-        bound_ms=k1_bound, bound_by=k1_by, library_ms=None))
+        bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
+        issue_floor_ms=k1_floor[0]))
 
     # ------------------------------------------------------------------
     # phase 2b: K2, the fan statistics
@@ -1848,11 +2265,13 @@ def main(argv=None) -> int:
 
     k2_bound, k2_by = fan_bound(chunk)
     k2_bound_whole, _ = fan_bound(P)
+    k2_floor = issue_floor(chunk * R, "fan_stats", "a pair")
+    k2_floor_whole = issue_floor(P * R, "fan_stats", "a pair")
     print(f"    {chunk} x {R}: time {k2_ms:.4f} ms  plain {k2_plain_ms:.2f} ms"
-          f"  bound {k2_bound:.4f} ms ({k2_by})  [{card}]")
+          f"  bound {k2_bound:.4f} ms ({k2_by}); {k2_floor[1]}  [{card}]")
     print(f"    {P} x {R}: time {k2_ms_whole:.4f} ms  plain "
           f"{k2_plain_ms_whole:.2f} ms  bound {k2_bound_whole:.4f} ms "
-          f"({k2_by})  [{card}]")
+          f"({k2_by}); {k2_floor_whole[1]}  [{card}]")
     kernel_rows.append(dict(
         name="fan_stats", route="cuda",
         source="photon_tpu_torch/csrc/fan_stats.cu",
@@ -1860,9 +2279,11 @@ def main(argv=None) -> int:
         shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
         max_abs_err=k2_err, tolerance=K2_TOL, ms=k2_ms, plain_ms=k2_plain_ms,
         bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
+        issue_floor_ms=k2_floor[0],
         whole_image=dict(shape=f"{P} x {R}", max_abs_err=k2_err_whole,
                          ms=k2_ms_whole, plain_ms=k2_plain_ms_whole,
-                         bound_ms=k2_bound_whole)))
+                         bound_ms=k2_bound_whole,
+                         issue_floor_ms=k2_floor_whole[0])))
 
     # ------------------------------------------------------------------
     # phase 2c: K3, the splat
@@ -2577,6 +2998,21 @@ def main(argv=None) -> int:
         gs_out, [gs_in, gs_grid], grad_outputs=c1["ct"].reshape(gs_out.shape),
         retain_graph=True), inner=20)
     del gs_out
+    # like for like: the device time of one K8 launch and of one grid_sample
+    # call on the same inputs, from one trace (K8's event time is mostly its
+    # wrapper's Python)
+    with torch.no_grad():
+        _, held8 = traced(lambda: (
+            slab_sample_forward(c1["lo"], c1["hi"], *c1["uu"], 1),
+            torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)),
+            others={"grid_sampler": 1})
+    k8_dev, gs_dev = (held8.get(k, NOT_MEASURED) for k in
+                      ("slab_sample_kernel", "grid_sampler"))
+    print(f"    one trace: K8 "
+          f"{ms_or_not(k8_dev if k8_dev == NOT_MEASURED else k8_dev[0], 5)}"
+          f", grid_sample "
+          f"{ms_or_not(gs_dev if gs_dev == NOT_MEASURED else gs_dev[0], 5)}"
+          f" on the device (one launch each)  [{card}]")
     print(f"    grid_sample on the same inputs differs from K8 by "
           f"{k8_lib_err:.3e} of each channel's maximum")
     require(k8_lib_err <= 1e-4, "grid_sample does not compute K8's function")
@@ -2603,6 +3039,8 @@ def main(argv=None) -> int:
             ms=c1[key + "_ms"], plain_ms=c1[key + "_plain_ms"],
             bound_ms=c1[key + "_bound"], bound_by=c1[key + "_by"],
             library_ms=lib_ms,
+            **({} if key == "k9" or NOT_MEASURED in (k8_dev, gs_dev) else
+               dict(device_ms=k8_dev[0], library_device_ms=gs_dev[0])),
             cubic=dict(shape=f"{P} rays, one 64 x 64 slab pair, tricubic",
                        max_abs_err=c2[err_key], ms=c2[key + "_ms"],
                        plain_ms=c2[key + "_plain_ms"],
@@ -2727,41 +3165,33 @@ def main(argv=None) -> int:
         # where the device's time goes on the main path: one more run under
         # torch.profiler (CUPTI); host times under the profiler are inflated,
         # so the busy share is device time over the second run's wall time
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_bos(cfg, device=dev)
-            sync()
-        dev_events = [ev for ev in prof.key_averages()
-                      if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
-        dev_us = sum(ev.self_device_time_total for ev in dev_events)
+        dev_ms, held = traced(lambda: run_bos(cfg, device=dev))
         render_s = sum(dt for nm, dt in again.timer.phases.items()
                        if nm.startswith("render:"))
-        if dev_us > 0:
-            tags = dict(march_dense="march_dense_kernel",
-                        fan_stats="fan_stats_kernel", splat="splat_kernel")
-            for row in kernel_rows:
-                if row["name"] not in tags:
-                    continue
-                evs = [ev for ev in dev_events if tags[row["name"]] in ev.key]
-                n_ev = sum(ev.count for ev in evs)
-                us = sum(ev.self_device_time_total for ev in evs)
-                row["device_ms_on_main_path"] = us / max(n_ev, 1) / 1e3
-                print(f"    traced {row['name']}: {n_ev} launches, "
-                      f"{us / 1e3:.3f} ms on the device in all, "
-                      f"{us / max(n_ev, 1):.1f} us a launch  [{card}]")
-            ours = sum(ev.self_device_time_total for ev in dev_events
-                       if any(t in ev.key for t in tags.values()))
-            print(f"    traced run_bos: device busy {dev_us / 1e3:.2f} ms in "
-                  f"all kernels and copies, {ours / 1e3:.2f} ms of it in the "
-                  f"three kernels; the render phases of the untraced second "
-                  f"run took {render_s * 1e3:.1f} ms, so the device was busy "
-                  f"for about {dev_us / 1e6 / render_s:.1%} of "
-                  f"them (an upper estimate: the two times come from "
-                  f"different runs)  [{card}]")
+        tags = dict(march_dense="march_dense_kernel",
+                    fan_stats="fan_stats_kernel", splat="splat_kernel")
+        for row in kernel_rows:
+            got_h = held.get(tags.get(row["name"]), NOT_MEASURED)
+            if row["name"] not in tags:
+                continue
+            if got_h == NOT_MEASURED:
+                print(f"    traced {row['name']}: {NOT_MEASURED}")
+                continue
+            ms, n_ev = got_h
+            row["device_ms_on_main_path"] = ms / n_ev
+            print(f"    traced {row['name']}: {n_ev} launches, {ms:.3f} ms on "
+                  f"the device in all, {ms / n_ev * 1e3:.1f} us a launch  "
+                  f"[{card}]")
+        if dev_ms == NOT_MEASURED:
+            print(f"    traced run_bos: device busy share {NOT_MEASURED}")
         else:
-            print("    traced run_bos: the profiler reported no device time; "
-                  "device busy share not measured")
+            ours = sum(v[0] for k, v in held.items() if k in tags.values())
+            print(f"    traced run_bos: device busy {dev_ms:.2f} ms in all "
+                  f"kernels and copies, {ours:.2f} ms of it in the three "
+                  f"kernels; the render phases of the untraced second run took "
+                  f"{render_s * 1e3:.1f} ms, so the device was busy for about "
+                  f"{dev_ms / 1e3 / render_s:.1%} of them (an upper estimate: "
+                  f"the two times come from different runs)  [{card}]")
 
         for line in log.splitlines():
             mt = re.match(r"\s*(render:\S+): ([0-9.]+)s\s+([0-9.]+)M rays/s",
@@ -2912,37 +3342,31 @@ def main(argv=None) -> int:
     bwd_s = statistics.median(t[1] for t in fb)
     print(f"    one step: forward {fwd_s * 1e3:.3f} ms, backward "
           f"{bwd_s * 1e3:.3f} ms (median of 5)  [{card}]")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        timed_step()
-    dev_events = [ev for ev in prof.key_averages()
-                  if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
-    dev_us = sum(ev.self_device_time_total for ev in dev_events)
-    if dev_us > 0:
-        tags = dict(march_dense_residual="march_dense_kernel",
-                    march_bwd_stage="march_bwd_stage_kernel",
-                    fan_stats="fan_stats_kernel",
-                    fan_stats_bwd="fan_stats_bwd_kernel",
-                    splat="splat_kernel", splat_bwd="splat_bwd_kernel")
-        ours = 0.0
-        for nm, tag in tags.items():
-            evs = [ev for ev in dev_events if tag in ev.key]
-            us = sum(ev.self_device_time_total for ev in evs)
-            ours += us
-            for row in kernel_rows:
-                if row["name"] == nm:
-                    row["device_ms_on_inversion_step"] = us / 1e3
-            print(f"    traced step, {nm}: {sum(ev.count for ev in evs)} "
-                  f"launches, {us / 1e3:.3f} ms on the device  [{card}]")
-        print(f"    traced step: device busy {dev_us / 1e3:.2f} ms in all "
-              f"kernels and copies, {ours / 1e3:.2f} ms of it in the six "
-              f"kernels; an untraced step takes "
-              f"{(fwd_s + bwd_s) * 1e3:.2f} ms, so the device was busy for "
-              f"about {dev_us / 1e6 / (fwd_s + bwd_s):.1%} of it (the two "
-              f"times come from different runs)  [{card}]")
+    dev_ms, held = traced(timed_step)
+    tags = dict(march_dense_residual="march_dense_kernel",
+                march_bwd_stage="march_bwd_stage_kernel",
+                fan_stats="fan_stats_kernel",
+                fan_stats_bwd="fan_stats_bwd_kernel",
+                splat="splat_kernel", splat_bwd="splat_bwd_kernel")
+    for nm, tag in tags.items():
+        got_h = held.get(tag, NOT_MEASURED)
+        if got_h == NOT_MEASURED:
+            print(f"    traced step, {nm}: {NOT_MEASURED}")
+            continue
+        for row in kernel_rows:
+            if row["name"] == nm:
+                row["device_ms_on_inversion_step"] = got_h[0]
+        print(f"    traced step, {nm}: {got_h[1]} launches, {got_h[0]:.3f} ms "
+              f"on the device  [{card}]")
+    if dev_ms == NOT_MEASURED:
+        print(f"    traced step: device busy share {NOT_MEASURED}")
     else:
-        print("    traced step: the profiler reported no device time; device "
-              "busy share not measured")
+        ours = sum(v[0] for k, v in held.items() if k in tags.values())
+        print(f"    traced step: device busy {dev_ms:.2f} ms in all kernels "
+              f"and copies, {ours:.2f} ms of it in the six kernels; an "
+              f"untraced step takes {(fwd_s + bwd_s) * 1e3:.2f} ms, so the "
+              f"device was busy for about {dev_ms / 1e3 / (fwd_s + bwd_s):.1%}"
+              f" of it (the two times come from different runs)  [{card}]")
 
     # ------------------------------------------------------------------
     # phase 5: the rest of the march menu through the command line
@@ -3044,15 +3468,6 @@ def main(argv=None) -> int:
     print("gradients of the new routes: invert_bos's render loss at full "
           "size, one forward and backward each")
 
-    def traced_busy(**kw):
-        """Device time of one traced step, by kernel name."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_:
-            timed_step(**kw)
-        evs = [ev for ev in prof_.key_averages()
-               if "CUDA" in str(getattr(ev, "device_type", "")).upper()]
-        return sum(ev.self_device_time_total for ev in evs), evs
-
     def grad_route(label, expect, plain_kw, **kw):
         """One step of invert_bos for the launch counts, the same step's
         d_rho at every tenth particle against the plain versions, seconds
@@ -3075,18 +3490,18 @@ def main(argv=None) -> int:
         fb_ = [timed_step(**kw) for _ in range(3)]
         f_s = statistics.median(t[0] for t in fb_)
         b_s = statistics.median(t[1] for t in fb_)
-        dev_us_, evs_ = traced_busy(**kw)
-        busy = (f"{dev_us_ / 1e6 / (f_s + b_s):.1%}" if dev_us_ > 0
-                else "not measured")
+        dev_ms_, held_ = traced(lambda: timed_step(**kw))
+        busy = (NOT_MEASURED if dev_ms_ == NOT_MEASURED else
+                f"{dev_ms_ / 1e3 / (f_s + b_s):.1%} of the step ({dev_ms_:.2f}"
+                f" ms of device time, traced run over untraced ones)")
         print(f"    {label}: d_rho at every tenth particle against the plain "
               f"versions cosine {cos:.7f}, relative L2 {rel:.3e}; forward "
               f"{f_s * 1e3:.2f} ms, backward {b_s * 1e3:.2f} ms (median of "
-              f"3); device busy {busy} of the step ({dev_us_ / 1e3:.2f} ms of "
-              f"device time, traced run over untraced ones)  [{card}]")
+              f"3); device busy {busy}  [{card}]")
         require(cos >= 0.9999 and bool(torch.isfinite(g_kern).all())
                 and float(g_plain.abs().max()) > 0,
                 f"{label}: d_rho cosine {cos} against the plain versions")
-        return counts_r, evs_
+        return counts_r, held_
 
     def one_invert_step(algorithm):
         return lambda: invert_bos(
@@ -3100,7 +3515,7 @@ def main(argv=None) -> int:
     # the fused kernel, then every stage of the march samples through K8 and
     # its backward through K9 (substeps x 4 stages a slab)
     sub2 = 2 * 4 * n_slabs
-    counts_s, evs_s = grad_route(
+    counts_s, held_s = grad_route(
         "algorithm 3 (substeps from the data)",
         dict(march_dense=2, slab_sample=sub2, slab_sample_bwd=sub2,
              march_bwd_stage=0, march_bwd_remarch=0),
@@ -3114,7 +3529,7 @@ def main(argv=None) -> int:
              slab_sample_bwd=4 * n_slabs, march_bwd_stage=0,
              march_bwd_remarch=0),
         dict(algorithm=4), step_fn=one_invert_step(4), algorithm=4)
-    counts_c, evs_c = grad_route(
+    counts_c, held_c = grad_route(
         "tricubic RK4, stage residual",
         dict(march_dense=1, march_bwd_stage=1, march_bwd_remarch=0,
              slab_sample=0, slab_sample_bwd=0),
@@ -3128,17 +3543,17 @@ def main(argv=None) -> int:
         dict(algorithm=2, scheme=2),
         step_fn=one_render_step(interpolation_scheme=2),
         interpolation_scheme=2))
-    for tag, evs_ in (("slab_sample_kernel", evs_s),
-                      ("slab_sample_bwd_kernel", evs_s),
-                      ("march_dense_kernel", evs_c),
-                      ("march_bwd_stage_kernel", evs_c)):
-        hit = [ev for ev in evs_ if tag in ev.key]
-        if hit:
-            n_ev = sum(ev.count for ev in hit)
-            us = sum(ev.self_device_time_total for ev in hit)
-            print(f"    traced step, {tag}: {n_ev} launches, {us / 1e3:.3f} "
-                  f"ms on the device, {us / max(n_ev, 1):.1f} us a launch  "
-                  f"[{card}]")
+    for tag, held_ in (("slab_sample_kernel", held_s),
+                       ("slab_sample_bwd_kernel", held_s),
+                       ("march_dense_kernel", held_c),
+                       ("march_bwd_stage_kernel", held_c)):
+        got_h = held_.get(tag, NOT_MEASURED)
+        if got_h == NOT_MEASURED:
+            print(f"    traced step, {tag}: {NOT_MEASURED}")
+        else:
+            print(f"    traced step, {tag}: {got_h[1]} launches, "
+                  f"{got_h[0]:.3f} ms on the device, "
+                  f"{got_h[0] / got_h[1] * 1e3:.1f} us a launch  [{card}]")
     step3 = "one step of invert_bos with algorithm 3 (substeps 2)"
     cubic_step = ("one forward and backward of the render loss with tricubic "
                   "interpolation")

@@ -12,19 +12,28 @@
 // moves where it lands on the sensor, and the centroid loss's cotangent
 // ct_A + ct_AX X + ct_AY Y nearly cancels for every ray, so the pixel
 // coordinates X and Y must be the plain version's to the last bit.  Divisions
-// and square roots are IEEE in both files (nvcc's default), as in PyTorch.
+// and square roots are IEEE in both files (nvcc's default), as in PyTorch;
+// a division by a divisor that every ray of a particle, or every ray, shares
+// (the particle's distance to the image plane, the pixel pitch, the focal
+// length) multiplies by its reciprocal and corrects once (div_rn.cuh), which
+// returns the division's bits in fewer instructions.
 #pragma once
 #include <cuda_runtime.h>
 
+#include "div_rn.cuh"
+
 namespace {
 
-// host-precomputed scalars (formed in float64, rounded once to f32)
+// host-precomputed scalars (formed in float64, rounded once to f32); the
+// last two are the correctly rounded f32 reciprocals of the f32 pixel pitch
+// and focal length, the divisors of div_rn_by
 struct FanConst {
   float image_distance, shift, z_object, magnification;
   float z_lens, half_pitch_sq, focal_length;
   float czf, r_front, czb, r_back, n_lens, inv_n_lens;
   float z_sensor, pixel_pitch, pixel_1_x, pixel_1_y;
   float nx_f, ny_f, nx_m1;
+  float inv_pixel_pitch, inv_focal_length;
 };
 constexpr int kFanConstFloats = sizeof(FanConst) / sizeof(float);
 
@@ -117,6 +126,37 @@ struct Deltas {
   float dze, dpx, dpy, ddx, ddy, ddz;
 };
 
+// What the path of every ray of one particle shares, formed once: the
+// source point, its distance to the image plane and that distance's
+// reciprocal, the deltas, and the source's and the exit's z in the other
+// frame of the march.
+struct Particle {
+  float x0, y0, z0;
+  float denom, inv_denom;     // image_distance - z0, RN(1 / denom)
+  Deltas m;
+  float z_march, z_exit;      // z0 - shift, dze + shift
+};
+
+template <bool MARCH>
+__device__ __forceinline__ Particle load_particle(
+    const FanConst& c, long long p, const float* __restrict__ xs,
+    const float* __restrict__ ys, const float* __restrict__ zs,
+    const float* __restrict__ dze, const float* __restrict__ dpx,
+    const float* __restrict__ dpy, const float* __restrict__ ddx,
+    const float* __restrict__ ddy, const float* __restrict__ ddz) {
+  Particle t;
+  t.x0 = xs[p];
+  t.y0 = ys[p];
+  t.z0 = zs[p];
+  t.m = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (MARCH) t.m = {dze[p], dpx[p], dpy[p], ddx[p], ddy[p], ddz[p]};
+  t.denom = sub_rn(c.image_distance, t.z0);
+  t.inv_denom = __frcp_rn(t.denom);
+  t.z_march = sub_rn(t.z0, c.shift);
+  t.z_exit = add_rn(t.m.dze, c.shift);
+  return t;
+}
+
 // One (particle, ray) from its source point to the sensor, with what the
 // backward needs of each stage.
 struct FanPath {
@@ -137,29 +177,28 @@ struct FanPath {
 };
 
 template <int LENS, bool MARCH>
-__device__ __forceinline__ FanPath fan_path(const FanConst& c, float x0,
-                                            float y0, float z0, float denom,
-                                            float xl, float yl,
-                                            const Deltas& m, int mirror_x) {
+__device__ __forceinline__ FanPath fan_path(const FanConst& c,
+                                            const Particle& pt, float xl,
+                                            float yl, int mirror_x) {
   FanPath f;
-  f.tx = -(xl - x0) / denom;
-  f.ty = -(yl - y0) / denom;
+  const Deltas& m = pt.m;
+  f.tx = div_rn_by(-sub_rn(xl, pt.x0), pt.denom, pt.inv_denom);
+  f.ty = div_rn_by(-sub_rn(yl, pt.y0), pt.denom, pt.inv_denom);
   f.inv = rsq(add_rn(add_rn(mul_rn(f.tx, f.tx), mul_rn(f.ty, f.ty)), 1.0f));
-  V3 p = {x0, y0, z0};
+  V3 p = {pt.x0, pt.y0, pt.z0};
   V3 d = {mul_rn(f.tx, f.inv), mul_rn(f.ty, f.inv), -f.inv};
   f.valid = true;
 
   if (MARCH) {
     // camera -> march frame (z shift only: unrotated camera), apply the
     // chief deltas, back to the camera frame
-    const float pzw = p.z - c.shift;
-    f.t_m = (m.dze - pzw) / d.z;
+    f.t_m = (m.dze - pt.z_march) / d.z;
     p.x = add_rn(add_rn(p.x, mul_rn(d.x, f.t_m)), m.dpx);
     p.y = add_rn(add_rn(p.y, mul_rn(d.y, f.t_m)), m.dpy);
     f.o_m = {d.x + m.ddx, d.y + m.ddy, d.z + m.ddz};
     f.inv_m = rsq(dot3_rn(f.o_m, f.o_m));
     d = scale_rn(f.o_m, f.inv_m);
-    p.z = m.dze + c.shift;
+    p.z = pt.z_exit;
   }
   f.p0 = p;
   f.d0 = d;
@@ -179,8 +218,10 @@ __device__ __forceinline__ FanPath fan_path(const FanConst& c, float x0,
       const float hx = add_rn(p.x, mul_rn(d.x, f.t_l));
       const float hy = add_rn(p.y, mul_rn(d.y, f.t_l));
       f.valid = add_rn(mul_rn(hx, hx), mul_rn(hy, hy)) <= c.half_pitch_sq;
-      f.o_thin = {-hx / c.focal_length + d.x, -hy / c.focal_length + d.y,
-                  d.z};
+      f.o_thin = {
+          add_rn(div_rn_by(-hx, c.focal_length, c.inv_focal_length), d.x),
+          add_rn(div_rn_by(-hy, c.focal_length, c.inv_focal_length), d.y),
+          d.z};
       f.inv_thin = rsq(dot3_rn(f.o_thin, f.o_thin));
       p = {hx, hy, c.z_lens};
       d = scale_rn(f.o_thin, f.inv_thin);
@@ -221,9 +262,11 @@ __device__ __forceinline__ FanPath fan_path(const FanConst& c, float x0,
     f.fd = d;
   }
 
-  f.d_x = (ix - c.pixel_1_x) / c.pixel_pitch;
+  f.d_x = div_rn_by(sub_rn(ix, c.pixel_1_x), c.pixel_pitch,
+                    c.inv_pixel_pitch);
   if (mirror_x) f.d_x = c.nx_m1 - f.d_x;
-  f.d_y = (iy - c.pixel_1_y) / c.pixel_pitch;
+  f.d_y = div_rn_by(sub_rn(iy, c.pixel_1_y), c.pixel_pitch,
+                    c.inv_pixel_pitch);
   const bool on_sensor = (f.d_x >= 0.0f) && (f.d_x < c.nx_f) &&
                          (f.d_y >= 0.0f) && (f.d_y < c.ny_f);
   f.valid = f.valid && on_sensor;

@@ -10,16 +10,25 @@
 // particle
 //   A = sum amp,  AX = sum amp * X,  AY = sum amp * Y      (X = d_x - 0.5).
 //
-// What bounds it on an H100: operations.  Inputs are ten floats a particle
+// What bounds it on an H100: instructions.  Inputs are ten floats a particle
 // and two floats a ray (shared by all particles), outputs three floats a
 // particle, while every (particle, ray) pair costs a few hundred f32
-// operations with several square roots and divisions.  No (P, R) array ever
-// exists.  One block owns one particle: its threads stride over the R rays
-// with partial sums in registers, then reduce with warp shuffles and one
-// shared-memory step and store once.  There are no atomics, so the result is
-// the same from run to run.  The block index is the particle and the ray loop
-// is 32-bit, so P * R is never formed (it is 5e7 on the BOS path and larger
-// elsewhere).  The kernel masks its own ragged edge: no ray_mask row and no
+// operations with ten square roots and nine divisions, whose rounding the
+// image depends on (below), so the pair loop issues some four hundred
+// instructions and the kernel runs near the SMs' issue rate.  The design
+// spends little beside the pair loop.  One warp owns one particle (four a
+// block): its lanes stride over the R rays with partial sums in registers,
+// and shuffles end it, with no shared memory and no barrier; where the
+// particles are too few to fill the card that way, two or four warps share
+// a particle (fan_stats_kernel).  The sums are added in one order in every
+// case, so the result is the same from run to run, in a launch of any size,
+// and bit-equal to the kernel's first design; there are no atomics.  What
+// every ray of a particle shares is formed once (load_particle), and the four
+// divisions by a divisor that many rays share (the particle's distance to the
+// image plane, the pixel pitch) multiply by a reciprocal and correct once
+// (div_rn.cuh), with the division's bits.  The grid's index is the particle
+// and the ray loop is 32-bit, so P * R is never formed (it is 6e7 on the BOS
+// path).  The kernel masks its own ragged edge: no ray_mask row and no
 // padding.
 //
 // Reciprocal square roots are 1.0f / sqrtf(x) (correctly rounded), the same
@@ -36,63 +45,83 @@
 
 namespace {
 
+constexpr int kFanWarps = 4;     // warps a block
+
+// A particle's rays are dealt to 32 kFanWarps lanes, ray r to lane
+// r % (32 kFanWarps) (the block of 128 threads that owned a particle in the
+// first design): each lane sums its rays in order, each group of 32 lanes
+// by a shuffle tree, and the kFanWarps groups' sums are added in order.
+// That order is kept whatever carries it: `group` warps (1, 2 or 4) share a
+// particle, warp g taking the lane groups g, g + group, ...  So a particle's
+// sums have the same bits in a launch of any size, and the bits of the first
+// design.  One warp a particle needs no barrier; where the particles
+// are too few to fill the card so (a chunk of 2000 is 15 warps an SM), two
+// or four warps share one and meet once in shared memory.
 template <int LENS, bool MARCH>
-__global__ void fan_stats_kernel(
+__global__ void __launch_bounds__(32 * kFanWarps) fan_stats_kernel(
     const float* __restrict__ xs, const float* __restrict__ ys,
     const float* __restrict__ zs, const float* __restrict__ amp0,
     const float* __restrict__ dze, const float* __restrict__ dpx,
     const float* __restrict__ dpy, const float* __restrict__ ddx,
     const float* __restrict__ ddy, const float* __restrict__ ddz,
     const float* __restrict__ x_lens, const float* __restrict__ y_lens,
-    float* __restrict__ out, long long P, int R, FanConst c, int mirror_x) {
-  const long long p = blockIdx.x;
-  const float x0 = xs[p], y0 = ys[p], z0 = zs[p], a0 = amp0[p];
-  Deltas m = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (MARCH) m = {dze[p], dpx[p], dpy[p], ddx[p], ddy[p], ddz[p]};
-  const float denom = c.image_distance - z0;
+    float* __restrict__ out, long long P, int R, FanConst c, int mirror_x,
+    int group) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp % group, slot = warp / group;
+  const long long p = (long long)blockIdx.x * (kFanWarps / group) + slot;
+  const bool live = p < P;             // the same for the group's warps
+  const long long q = live ? p : 0;
+  const Particle pt = load_particle<MARCH>(c, q, xs, ys, zs, dze, dpx, dpy,
+                                           ddx, ddy, ddz);
+  const float a0 = amp0[q];
 
-  float sA = 0.0f, sAX = 0.0f, sAY = 0.0f;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const FanPath f = fan_path<LENS, MARCH>(
-        c, x0, y0, z0, denom, __ldg(x_lens + r), __ldg(y_lens + r), m,
-        mirror_x);
-    float q;
-    float cos2 = cos2_of(f.fd, q);
-    // amp, X and Y of a culled ray are zeroed under the same mask, so that
-    // 0 * inf never reaches the sums
-    float amp = f.valid ? a0 * cos2 * cos2 : 0.0f;
-    float X = f.valid ? f.d_x - 0.5f : 0.0f;
-    float Y = f.valid ? f.d_y - 0.5f : 0.0f;
-    sA += amp;
-    sAX += amp * X;
-    sAY += amp * Y;
-  }
-
-  // block reduction: shuffles inside a warp, shared memory across warps
-  for (int off = 16; off > 0; off >>= 1) {
-    sA += __shfl_down_sync(0xffffffffu, sA, off);
-    sAX += __shfl_down_sync(0xffffffffu, sAX, off);
-    sAY += __shfl_down_sync(0xffffffffu, sAY, off);
-  }
-  __shared__ float red[3][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[0][warp] = sA;
-    red[1][warp] = sAX;
-    red[2][warp] = sAY;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    float a = 0.0f, ax = 0.0f, ay = 0.0f;
-    for (int w = 0; w < nwarps; ++w) {
-      a += red[0][w];
-      ax += red[1][w];
-      ay += red[2][w];
+  __shared__ float part[kFanWarps][kFanWarps][3];
+  float tA = 0.0f, tAX = 0.0f, tAY = 0.0f;
+  for (int lg = g; lg < kFanWarps; lg += group) {
+    float sA = 0.0f, sAX = 0.0f, sAY = 0.0f;
+    for (int r = 32 * lg + lane; live && r < R; r += 32 * kFanWarps) {
+      const FanPath f = fan_path<LENS, MARCH>(c, pt, __ldg(x_lens + r),
+                                              __ldg(y_lens + r), mirror_x);
+      float qq;
+      float cos2 = cos2_of(f.fd, qq);
+      // amp, X and Y of a culled ray are zeroed under the same mask, so
+      // that 0 * inf never reaches the sums
+      float amp = f.valid ? a0 * cos2 * cos2 : 0.0f;
+      float X = f.valid ? f.d_x - 0.5f : 0.0f;
+      float Y = f.valid ? f.d_y - 0.5f : 0.0f;
+      sA += amp;
+      sAX += amp * X;
+      sAY += amp * Y;
     }
-    out[p] = a;
-    out[P + p] = ax;
-    out[2 * P + p] = ay;
+    for (int off = 16; off > 0; off >>= 1) {
+      sA += __shfl_xor_sync(0xffffffffu, sA, off);
+      sAX += __shfl_xor_sync(0xffffffffu, sAX, off);
+      sAY += __shfl_xor_sync(0xffffffffu, sAY, off);
+    }
+    if (group == 1) {
+      tA += sA;
+      tAX += sAX;
+      tAY += sAY;
+    } else if (lane == 0) {
+      part[slot][lg][0] = sA;
+      part[slot][lg][1] = sAX;
+      part[slot][lg][2] = sAY;
+    }
+  }
+  if (group > 1) {                     // the same for the whole block
+    __syncthreads();
+    if (g != 0) return;
+    for (int lg = 0; lg < kFanWarps; ++lg) {
+      tA += part[slot][lg][0];
+      tAX += part[slot][lg][1];
+      tAY += part[slot][lg][2];
+    }
+  }
+  if (lane == 0 && live) {
+    out[p] = tA;
+    out[P + p] = tAX;
+    out[2 * P + p] = tAY;
   }
 }
 
@@ -113,16 +142,19 @@ extern "C" int photon_fan_stats(
   FanConst c;
   float* cf = reinterpret_cast<float*>(&c);
   for (int i = 0; i < kFanConstFloats; ++i) cf[i] = consts[i];
-  // one block a particle; threads cover the rays in a few strides
-  int threads = 128;
-  if (R <= 32) threads = 32;
-  else if (R <= 64) threads = 64;
   cudaStream_t st = (cudaStream_t)stream;
-  unsigned blocks = (unsigned)P;
+  // warps a particle: the fewest of 1, 2, 4 that give 32 warps an SM
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int group = 1;
+  while (group < kFanWarps && P * group < 32LL * sms) group *= 2;
+  const unsigned blocks =
+      (unsigned)((P * group + kFanWarps - 1) / kFanWarps);
 #define PHOTON_FAN_LAUNCH(L, M)                                              \
-  fan_stats_kernel<L, M><<<blocks, threads, 0, st>>>(                        \
+  fan_stats_kernel<L, M><<<blocks, 32 * kFanWarps, 0, st>>>(                 \
       xs, ys, zs, amp0, dze, dpx, dpy, ddx, ddy, ddz, x_lens, y_lens, out,   \
-      P, R, c, mirror_x)
+      P, R, c, mirror_x, group)
   if (has_march) {
     if (lens_model == LENS_APPARENT) PHOTON_FAN_LAUNCH(LENS_APPARENT, true);
     else if (lens_model == LENS_THIN) PHOTON_FAN_LAUNCH(LENS_THIN, true);

@@ -136,12 +136,11 @@ __global__ void fan_stats_bwd_kernel(
     int R, FanBwdConst kc, int mirror_x) {
   const FanConst& c = kc.c;
   const long long p = blockIdx.x;
-  const float x0 = xs[p], y0 = ys[p], z0 = zs[p], a0 = amp0[p];
-  Deltas m = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (MARCH) m = {dze[p], dpx[p], dpy[p], ddx[p], ddy[p], ddz[p]};
+  const Particle pt = load_particle<MARCH>(c, p, xs, ys, zs, dze, dpx, dpy,
+                                           ddx, ddy, ddz);
+  const float a0 = amp0[p];
   const float cA = ct[p], cAX = ct[P + p], cAY = ct[2 * P + p];
-  const float denom = c.image_distance - z0;
-  const float inv_denom = 1.0f / denom;
+  const float inv_denom = pt.inv_denom;
 
   float acc[kFanCols];
 #pragma unroll
@@ -149,9 +148,8 @@ __global__ void fan_stats_bwd_kernel(
 
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     // ---- forward, as the forward kernel computes it -------------------
-    const FanPath f = fan_path<LENS, MARCH>(
-        c, x0, y0, z0, denom, __ldg(x_lens + r), __ldg(y_lens + r), m,
-        mirror_x);
+    const FanPath f = fan_path<LENS, MARCH>(c, pt, __ldg(x_lens + r),
+                                            __ldg(y_lens + r), mirror_x);
     if (!f.valid) continue;          // a culled ray contributes exactly zero
     float q;
     const float cos2 = cos2_of(f.fd, q);

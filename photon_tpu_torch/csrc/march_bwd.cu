@@ -137,10 +137,10 @@ __device__ __forceinline__ StageVjp vjp_stage(
     float4* __restrict__ dlo, float4* __restrict__ dhi, const MarchGeom& g,
     float z_plane, const State5& s, float z_at, const State5& d5, bool live,
     SlabAcc* acc) {
-  float uz_raw = (z_at - z_plane) / g.dz_slab;
+  float uz_raw = div_rn_by(z_at - z_plane, g.dz_slab, g.inv_dz);
   float uz = clampf(uz_raw, 0.0f, 1.0f);
-  float ux = 0.5f + (s.x - g.min_x) / g.sx;
-  float uy = 0.5f + (s.y - g.min_y) / g.sy;
+  float ux = 0.5f + div_rn_by(s.x - g.min_x, g.sx, g.inv_sx);
+  float uy = 0.5f + div_rn_by(s.y - g.min_y, g.sy, g.inv_sy);
   float4 f = sample<SCHEME>(lo, hi, g, ux, uy, uz);
 
   StageVjp r;

@@ -16,13 +16,17 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include "div_rn.cuh"
+
 namespace {
 
 struct MarchGeom {
   float min_x, min_y, sx, sy, z_min, z_max, dz_slab, n0;
   int W, H, D;
-  // 1 / sx, 1 / sy, 1 / dz_slab: the backward kernels scale cotangents with
-  // them (the samples divide, to pick the voxels the plain version picks)
+  // 1 / sx, 1 / sy, 1 / dz_slab, correctly rounded (make_geom): a sample's
+  // coordinates divide by sx, sy, dz_slab with them (div_rn_by, the
+  // division's bits, so the voxels the plain version picks), and the
+  // backward kernels scale cotangents with them
   float inv_sx, inv_sy, inv_dz;
 };
 
@@ -440,9 +444,10 @@ __device__ __forceinline__ State5 rhs(const float4* __restrict__ lo,
                                       const float4* __restrict__ hi,
                                       const MarchGeom& g, float z_plane,
                                       const State5& s, float z_at) {
-  float uz = clampf((z_at - z_plane) / g.dz_slab, 0.0f, 1.0f);
-  float ux = 0.5f + (s.x - g.min_x) / g.sx;
-  float uy = 0.5f + (s.y - g.min_y) / g.sy;
+  float uz = clampf(div_rn_by(z_at - z_plane, g.dz_slab, g.inv_dz), 0.0f,
+                    1.0f);
+  float ux = 0.5f + div_rn_by(s.x - g.min_x, g.sx, g.inv_sx);
+  float uy = 0.5f + div_rn_by(s.y - g.min_y, g.sy, g.inv_sy);
   float4 f = sample<SCHEME>(lo, hi, g, ux, uy, uz);
   float inv_tz = 1.0f / s.tz;
   float gn = (1.0f + f.w) * inv_tz;
@@ -503,6 +508,7 @@ __device__ __forceinline__ State5 load_state5(const float* t, long long P) {
   return {t[0], t[P], t[2 * P], t[3 * P], t[4 * P]};
 }
 
+// host side: the reciprocals are IEEE f32 divisions, so correctly rounded
 inline MarchGeom make_geom(const float* geom, int W, int H, int D) {
   return {geom[0], geom[1], geom[2],        geom[3],
           geom[4], geom[5], geom[6],        geom[7],

@@ -14,8 +14,13 @@ weighs by cos^4; per particle it returns
 which is all the per-particle erf splat consumes.  Bound on the card: f32
 operations (a few hundred per pair, with square roots and divisions)
 against 40 bytes a particle and 8 bytes a ray of input; no (P, R) array
-exists.  One block owns a particle, threads stride over its rays and
+exists.  One warp owns a particle (two or four share one where the
+particles are too few to fill the card), its lanes stride over its rays and
 reduce with shuffles: no atomics, so the sums are the same from run to run.
+Both kernels divide by the pixel pitch, the focal length and a particle's
+distance to the image plane with a correctly rounded reciprocal and one
+correction, which returns the division's bits (``csrc/div_rn.cuh``):
+:func:`f32_reciprocal` forms the first two.
 
 The plain version is the (P, R) structure-of-arrays chain of the JAX
 package's ``models/render_fast.py::render_chunk`` with its lens stages
@@ -39,6 +44,7 @@ launches.
 """
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -94,6 +100,26 @@ class FanConstants(NamedTuple):
     nx_f: float
     ny_f: float
     nx_m1: float
+    inv_pixel_pitch: float       # f32_reciprocal(pixel_pitch)
+    inv_focal_length: float      # f32_reciprocal(focal_length)
+
+
+def f32_reciprocal(x: float) -> float:
+    """The float32 nearest to 1 / float32(x), the reciprocal with which
+    the kernels divide by ``x`` (``csrc/div_rn.cuh`` needs it correctly
+    rounded); IEEE division gives it, exact arithmetic checks it."""
+    b = np.float32(x)
+    with np.errstate(divide="ignore", over="ignore"):
+        r = np.float32(1.0) / b
+    if not (np.isfinite(b) and np.isfinite(r) and b != 0):
+        return float(r)          # no quotient of the kernels can use it
+    exact = 1 / Fraction(float(b))
+    miss = abs(Fraction(float(r)) - exact)
+    for nb in (np.nextafter(r, np.float32(-np.inf)),
+               np.nextafter(r, np.float32(np.inf))):
+        if abs(Fraction(float(nb)) - exact) < miss:
+            raise ArithmeticError(f"1 / {b} rounded to {r}, not to {nb}")
+    return float(r)
 
 
 def fan_constants(sc: FanScalars) -> FanConstants:
@@ -109,7 +135,9 @@ def fan_constants(sc: FanScalars) -> FanConstants:
         z_sensor=sc.z_sensor, pixel_pitch=sc.pixel_pitch,
         pixel_1_x=-sc.pixel_pitch * (sc.nx - 1) / 2.0,
         pixel_1_y=-sc.pixel_pitch * (sc.ny - 1) / 2.0,
-        nx_f=float(sc.nx), ny_f=float(sc.ny), nx_m1=float(sc.nx - 1))
+        nx_f=float(sc.nx), ny_f=float(sc.ny), nx_m1=float(sc.nx - 1),
+        inv_pixel_pitch=f32_reciprocal(sc.pixel_pitch),
+        inv_focal_length=f32_reciprocal(sc.focal_length))
 
 
 def fan_backward_constants(sc: FanScalars) -> np.ndarray:

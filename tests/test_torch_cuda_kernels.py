@@ -1,9 +1,12 @@
-"""The port's backward kernels against their plain versions on the card, at
-a small size: the march's stage and re-march backward (K4, K5) against
-autograd through the plain march, both schemes, rays in bunches that share
-voxels (the merged scatter) and scattered rays (the direct one); the fan's
-backward (K6) against autograd through the plain fan, three lens models;
-the sampler's backward (K9), which shares K4's scatter.
+"""The port's kernels against their plain versions on the card, at a small
+size: the march (K1, both heads, both schemes, two rays a thread under the
+trilinear one) against the plain march, rays in input order and shuffled;
+the fan statistics (K2) against the plain fan, three lens models; the
+march's stage and re-march backward (K4, K5) against autograd through the
+plain march, both schemes, rays in bunches that share voxels (the merged
+scatter) and scattered rays (the direct one); the fan's backward (K6)
+against autograd through the plain fan, three lens models; the sampler's
+backward (K9), which shares K4's scatter.
 
 Each test skips without a CUDA device.  This file imports no jax, so it runs
 where the JAX package is not installed:
@@ -14,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from photon_tpu_torch.ops.fan import fan_stats
-from photon_tpu_torch.ops.march_dense import march_chief_dense
-from photon_tpu_torch.ops.march_dense_fused import march_chief_fused
+from photon_tpu_torch.ops.fan import fan_stats, fan_stats_plain
+from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
+                                              march_chief_dense,
+                                              march_geometry)
+from photon_tpu_torch.ops.march_dense_fused import (march_chief_fused,
+                                                    march_forward_residual)
 from photon_tpu_torch.ops.march_dense_sampler import (slab_sample_backward,
                                                       slab_sample_plain)
 from photon_tpu_torch.volume import build_density_volume
@@ -75,6 +81,64 @@ def _grads(march, vol, rays, cts, algorithm, scheme):
     return g[0], torch.stack(g[1:])
 
 
+@pytest.mark.parametrize("algorithm,substeps,scheme", [
+    (2, None, 1), (1, None, 1), (3, 2, 1), (2, None, 2), (3, 2, 2)])
+def test_march_kernel_matches_the_plain_march(algorithm, substeps, scheme):
+    """K1 against the plain march: positions to 5e-6 of the volume's largest
+    coordinate and directions to 5e-6 (chip_smoke's K1_TOL).  The same rays
+    shuffled give each ray the same bits (two rays share a thread under the
+    trilinear scheme, so a ray's neighbour must not move it), and the
+    gradient route's head gives the plain head's bits.  The scene's rays
+    come in bunches and scattered, some start inside or below the volume or
+    travel up, and their count is no multiple of 64."""
+    dev = _card()
+    vol, rays, _ = _march_scene(dev, p=3001)
+    g = march_geometry(vol)
+    scale = max(abs(float(v)) for v in (g.min_x, g.min_y, g.z_min, g.z_max))
+    kw = dict(algorithm=algorithm, substeps=substeps,
+              interpolation_scheme=scheme)
+    got = torch.stack(march_chief_fused(vol, *rays, **kw))
+    ref = torch.stack(march_chief_dense(vol, *rays, **kw))
+    assert bool(torch.isfinite(got).all())
+    assert float((got[:3] - ref[:3]).abs().max()) / scale <= 5e-6
+    assert float((got[3:] - ref[3:]).abs().max()) <= 5e-6
+    perm = torch.randperm(rays[0].shape[0], device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    shuffled = torch.stack(march_chief_fused(
+        vol, *(r[perm].contiguous() for r in rays), **kw))
+    assert torch.equal(shuffled, got[:, perm])
+    if substeps is None:
+        field = vol.field if scheme == 1 else bspline_prefilter(vol.field)
+        out, _, _ = march_forward_residual(
+            field, torch.stack(rays).contiguous(),
+            np.asarray(g, dtype=np.float32), algorithm, True, scheme)
+        assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("lens_model", ["general", "thin-lens", "apparent"])
+@pytest.mark.parametrize("with_deltas", [True, False])
+def test_fan_kernel_matches_the_plain_fan(lens_model, with_deltas):
+    """K2 against the plain fan: A, AX, AY to 1e-5 of each column's maximum
+    and the centroids AX / A, AY / A to 1e-3 px (chip_smoke's K2_TOL and
+    centroid limit); the same bits from run to run."""
+    dev = _card()
+    sc, cols, deltas, x_lens, y_lens = fan_inputs(lens_model, p=1000, r=500)
+    t = [torch.tensor(a, device=dev) for a in cols + deltas]
+    d6 = tuple(t[4:]) if with_deltas else None
+    xl, yl = torch.tensor(x_lens, device=dev), torch.tensor(y_lens,
+                                                            device=dev)
+    kw = dict(sc=sc, lens_model=lens_model)
+    got = torch.stack(fan_stats(*t[:4], d6, xl, yl, **kw))
+    ref = torch.stack(fan_stats_plain(*t[:4], d6, xl, yl, **kw))
+    assert max(_nerr(a, b) for a, b in zip(got, ref)) <= 1e-5
+    on = ref[0] > 0
+    assert int(on.sum()) > 0 and bool((got[0][~on] == 0).all())
+    cen = max(float((got[i][on] / got[0][on] - ref[i][on] / ref[0][on])
+                    .abs().max()) for i in (1, 2))
+    assert cen <= 1e-3
+    assert torch.equal(torch.stack(fan_stats(*t[:4], d6, xl, yl, **kw)), got)
+
+
 @pytest.mark.parametrize("algorithm,scheme", [(2, 1), (1, 1), (2, 2)])
 def test_march_backward_kernels_match_autograd(algorithm, scheme,
                                                monkeypatch):
@@ -117,7 +181,6 @@ def test_fan_backward_kernel_matches_autograd(lens_model, with_deltas):
     coef = torch.randn(3, p, generator=gen, device=dev)
     xl = torch.tensor(x_lens, device=dev)
     yl = torch.tensor(y_lens, device=dev)
-    from photon_tpu_torch.ops.fan import fan_stats_plain
     got, ref = [], []
     for fn, out in ((fan_stats, got), (fan_stats_plain, ref)):
         leaves = [torch.tensor(a, device=dev).requires_grad_(True)
