@@ -362,49 +362,107 @@ def sass_loops(ins):
     return loops
 
 
+def sass_path(ins, head, loads):
+    """The fewest instructions on a path through one iteration of the loop
+    whose head is at address `head` (from the head to a branch back to it)
+    that issues exactly `loads` global loads and enters no loop nested in
+    it, or None.  A forward branch is taken or not, a path that leaves the
+    loop is dropped; the fewest instructions leave out the slow paths of the
+    IEEE divisions and square roots, as sass_loops's common path does."""
+    target = re.compile(r"\bBRA\b.*?0x([0-9a-f]+)")
+    ends = [a for a, t in ins if (m := target.search(t))
+            and int(m.group(1), 16) == head and a >= head]
+    if not ends:
+        return None
+    last = max(ends)
+    nested = [(int(m.group(1), 16), a) for a, t in ins
+              if (m := target.search(t)) and head < int(m.group(1), 16) <= a
+              and a <= last]
+    best, done = {head: {0: 0}}, {}
+    for i, (a, t) in enumerate(ins):
+        cur = best.pop(a, None)
+        if cur is None or any(lo <= a <= hi for lo, hi in nested):
+            continue
+        ld = 1 if re.match(r"(@!?U?P\w+ )?LDG\b", t) else 0
+        cur = {k + ld: v + 1 for k, v in cur.items()}
+        br = re.match(r"(@(!?)U?P(\w+) )?(BRA|EXIT|RET|BRX|JMP)\b", t)
+        always = br is not None and ".DIV" not in t and (
+            br.group(1) is None or (br.group(3) == "T" and not br.group(2)))
+        succ = [] if always else [ins[i + 1][0]] if i + 1 < len(ins) else []
+        m = target.search(t) if br else None
+        if m and int(m.group(1), 16) == head:
+            for k, v in cur.items():
+                done[k] = min(done.get(k, v), v)
+        elif m and a < int(m.group(1), 16) <= last:
+            succ.append(int(m.group(1), 16))
+        for nxt in succ:
+            d = best.setdefault(nxt, {})
+            for k, v in cur.items():
+                d[k] = min(d.get(k, v), v)
+    return done.get(loads)
+
+
+def sass_step(ins, loads):
+    """(instructions, head address) of sass_path in the widest loop of one
+    kernel's SASS that has such a path of `loads` loads (the slab loop, not
+    the substep loop nested in it), or None."""
+    heads = {}
+    for a, t in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) <= a:
+            heads[int(m.group(1), 16)] = max(heads.get(int(m.group(1), 16), a),
+                                             a)
+    found = [(heads[h] - h, n, h) for h in heads
+             if (n := sass_path(ins, h, loads)) is not None]
+    return max(found)[1:] if found else None
+
+
 def sass_issue(cubin_dir, nvcc):
     """Phase 1's count of what K1 and K2 issue, from ``cuobjdump -sass`` of
     the cubins ptxas_start compiled: {"fan_stats": instructions a (particle,
-    ray) pair, "march_dense": instructions a ray's RK4 stage (trilinear; the
-    two-ray kernel, or the one-ray kernel of a checkout that has no other),
-    "march_dense_cubic": the same under scheme 2}, each on the common path
-    of its loop (sass_loops); printed with the loops' own counts.  K2's is
-    its pair loop (the least loop that loads the ray's lens sample); K1's
-    the loop that holds one ray's RK4 step and nothing else (4 stages of
-    `taps` loads: the substep loop of the two-ray kernel, the unswitched
-    slab loop of the one-ray kernel), over 4.  None where the loop is not
-    found."""
+    ray) pair, "march_dense": instructions a ray's RK4 stage in the trilinear
+    plain head, "march_dense_cubic": the same under scheme 2}.  K2's is the
+    common path of its pair loop (sass_loops; the least loop that loads the
+    ray's lens sample).  K1's is the path of the slab loop that the main
+    path runs, one RK4 step a slab and no substeps (sass_path: the widest
+    loop with a path of `rays` x 4 stages x `taps` loads outside its nested
+    substep loop), over `rays` x 4; it includes the slab step's own work
+    (its band test, landing plane and bases).  None where the loop is not
+    found.  A model's input, not a reading of the card."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     out = {}
-    for key, src, kernel, taps, what in (
-            ("fan_stats", "fan_stats", ("fan_stats_kernelILi2ELb1E",), None,
+    for key, src, kernel, rays, taps, what in (
+            ("fan_stats", "fan_stats", "fan_stats_kernelILi2ELb1E", 1, None,
              "the pair loop of fan_stats_kernel<2, true> (thick lens, march "
              "deltas)"),
-            ("march_dense", "march_dense",
-             ("march_dense_kernel_raysILb0E", "march_dense_kernelILb0ELi1E"),
-             8, "a ray's RK4 step in the trilinear plain head"),
-            ("march_dense_cubic", "march_dense",
-             ("march_dense_kernelILb0ELi2E",), 32,
-             "a ray's RK4 step in the tricubic plain head")):
+            ("march_dense", "march_dense", "march_dense_kernel_raysILb0E", 2,
+             8, "the RK4 slab loop of march_dense_kernel_rays<false> "
+             "(trilinear plain head, two rays a thread)"),
+            ("march_dense_cubic", "march_dense", "march_dense_kernelILb0EE", 1,
+             32, "the RK4 slab loop of march_dense_kernel<false> (tricubic "
+             "plain head)")):
         res = subprocess.run([cuobjdump, "-sass",
                               os.path.join(cubin_dir, src + ".cubin")],
                              capture_output=True, text=True)
         fns = sass_functions(res.stdout)
-        named = [(k, n) for k in kernel for n in fns if k in n][:1]
-        loops = [lp for _, n in named for lp in sass_loops(fns[n])]
-        what = f"{what} ({named[0][0] if named else kernel[0]})"
+        ins = next((v for n, v in fns.items() if kernel in n), [])
+        out[key] = None
         if taps is None:          # the fan: the inner loop that loads its
-            per = [(lp[1], lp) for lp in loops if lp[2] >= 2]    # ray, a pair
-        else:                     # one ray's RK4 step: 4 x `taps` loads
-            per = [(lp[1] / 4, lp) for lp in loops if lp[2] == 4 * taps]
-        if not per:
+            per = [lp for lp in sass_loops(ins) if lp[2] >= 2]   # ray
+            if per:
+                n_all, n_common, n_loads = min(per, key=lambda lp: lp[1])
+                out[key] = float(n_common)
+                print(f"    SASS, {src}: {what}: {n_all} instructions, "
+                      f"{n_common} on the common path, {n_loads} global "
+                      f"loads: {out[key]:.1f} a pair")
+        elif (step := sass_step(ins, rays * 4 * taps)) is not None:
+            n, h = step
+            out[key] = n / (rays * 4)
+            print(f"    SASS, {src}: {what}: {n} instructions on the path of "
+                  f"one slab step with {rays * 4 * taps} global loads (loop "
+                  f"at {h:#x}): {out[key]:.2f} a ray and stage")
+        if out[key] is None:
             print(f"    SASS, {src}: {what}: not found")
-            out[key] = None
-            continue
-        out[key], (n_all, n_common, n_loads) = min(per)
-        print(f"    SASS, {src}: {what}: {n_all} instructions, {n_common} on "
-              f"the common path, {n_loads} global loads: {out[key]:.1f} a "
-              f"{'pair' if taps is None else 'ray and stage'}")
     return out
 
 
@@ -596,203 +654,6 @@ def cuda_event_ms(fn, reps=7, warm=2, inner=1):
     return statistics.median(ts)
 
 
-def fingerprint(t):
-    """Two int64 sums of the float32 bits of t, plain and weighted by
-    position (mod 65521): what --against compares where a tensor is too
-    large to bring to the host."""
-    import torch
-    flat, a, b = t.reshape(-1), 0, 0
-    for s0 in range(0, flat.numel(), 1 << 26):
-        x = flat[s0:s0 + (1 << 26)].view(torch.int32).to(torch.int64)
-        pos = torch.arange(s0, s0 + x.numel(), device=x.device) % 65521 + 1
-        a += int(x.sum())
-        b += int((x * pos).sum())
-    return a, b
-
-
-def kernel_readings(out_path):
-    """--kernel-readings: K1 (both heads, both schemes; 64^3, and 512^3 in
-    the four ray orders of phase 2j) and K2 (the three lenses, at a chunk
-    and at the whole image) of the photon_tpu_torch first on sys.path, on the
-    bench scene's inputs, through the wrappers a user calls: their outputs
-    (K1's stage residual as a fingerprint), CUDA-event times a call and, for
-    the plain head and K2, device times a launch from a trace, saved with
-    torch.save for --against."""
-    import numpy as np
-    import torch
-
-    from photon_tpu_torch.ops.fan import fan_stats
-    from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
-                                                  march_chief_dense,
-                                                  march_geometry)
-    from photon_tpu_torch.ops.march_dense_fused import (
-        march_chief_fused, march_forward_noresidual, march_forward_residual)
-    from torch.profiler import ProfilerActivity, profile
-    import warnings
-    warnings.filterwarnings("ignore", message=".*Profiler clears events")
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-
-    def device_ms(call, tag, wrapper, n):
-        """The device time a launch of n calls of call() in one trace, held
-        to the wrapper's launch counter (held_to_counters)."""
-        wrapper.launches = 0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                call()
-            torch.cuda.synchronize()
-        got = held_to_counters(device_events(prof),
-                               {tag: int(wrapper.launches)})[tag]
-        return got if got == NOT_MEASURED else got[0] / got[1]
-
-    b = bench_inputs(dev)
-    P, n5 = b.xs.shape[0], 512
-    vol5, _ = bench_volume_512(b.setup, dev, n5)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(12)
-    rays6 = torch.stack(b.chief).contiguous()
-    perm = torch.randperm(P, generator=gen, device=dev)
-    spread6, spread_sorted6 = spread_rays(march_geometry(vol5), n5, P, gen,
-                                          dev)
-    g64 = np.asarray(march_geometry(b.vol), dtype=np.float32)
-    g5 = np.asarray(march_geometry(vol5), dtype=np.float32)
-    res = {}
-    for label, fld, gnp, r6, scheme, reps in (
-            ("64^3, trilinear", b.vol.field, g64, rays6, 1, 21),
-            ("64^3, tricubic", bspline_prefilter(b.vol.field), g64, rays6, 2,
-             11),
-            ("512^3, input order", vol5.field, g5, rays6, 1, 9),
-            ("512^3, shuffled", vol5.field, g5, rays6[:, perm].contiguous(),
-             1, 5),
-            ("512^3, spread, sorted by voxel column", vol5.field, g5,
-             spread_sorted6, 1, 5),
-            ("512^3, spread", vol5.field, g5, spread6, 1, 5)):
-        rays = list(r6.unbind(0))
-        out = march_forward_noresidual(fld, rays, gnp, 2, 1, scheme)
-
-        def march():
-            return march_forward_noresidual(fld, rays, gnp, 2, 1, scheme)
-        res["K1 " + label] = dict(
-            out=out.cpu(), ms=cuda_event_ms(march, reps),
-            device_ms=device_ms(march, "march_dense_kernel",
-                                march_chief_fused, 3))
-        out, texit, traj = march_forward_residual(fld, r6, gnp, 2, True,
-                                                  scheme)
-        res["K1 residual head " + label] = dict(
-            out=torch.cat([out.flatten(), texit.flatten()]).cpu(),
-            traj=fingerprint(traj), ms=cuda_event_ms(
-                lambda: march_forward_residual(fld, r6, gnp, 2, True,
-                                               scheme), max(3, reps // 3),
-                warm=1))
-        del out, texit, traj
-    # K2 on deltas from the plain march, the same in every checkout
-    ch = b.chief
-    x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(b.vol, *ch, algorithm=2)
-    t_exit = (z1 - ch[2]) / ch[5]
-    d6 = (z1, x1 - (ch[0] + ch[3] * t_exit), y1 - (ch[1] + ch[4] * t_exit),
-          dx1 - ch[3], dy1 - ch[4], dz1 - ch[5])
-    chunk = 2000
-    for label, lens, n_p, march in (
-            ("general + deltas, 120000 x 500", "general", P, True),
-            ("general + deltas, 2000 x 500", "general", chunk, True),
-            ("general, no deltas, 2000 x 500", "general", chunk, False),
-            ("apparent + deltas, 2000 x 500", "apparent", chunk, True),
-            ("thin-lens + deltas, 2000 x 500", "thin-lens", chunk, True)):
-        cols = [a[:n_p].contiguous() for a in (b.xs, b.ys, b.zs, b.amp0)]
-        dd = tuple(d[:n_p].contiguous() for d in d6) if march else None
-
-        def call():
-            return fan_stats(*cols, dd, b.x_lens, b.y_lens, sc=b.sc,
-                             lens_model=lens, mirror_x=True)
-        res["K2 " + label] = dict(
-            out=torch.stack(call()).cpu(), ms=cuda_event_ms(call, 11),
-            device_ms=device_ms(call, "fan_stats_kernel", fan_stats, 20))
-    torch.save(res, out_path)
-    return 0
-
-
-def compare_checkouts(others, card):
-    """--against: K1 and K2 of each other checkout (a root that holds a
-    photon_tpu_torch, as git archive unpacks one) and of this one, read by
-    kernel_readings in a process each, in turns (the others, this, this, the
-    others in reverse), on one card: every time, and how far each output
-    lies from this checkout's first reading (K1: values that differ,
-    residual fingerprints; K2: largest difference of A, AX, AY relative to
-    the column's maximum, of the centroids in px, and the share of values
-    that are equal); before them each checkout's SASS counts (sass_issue)."""
-    import torch
-    here = os.path.dirname(os.path.abspath(__file__))
-    roots = [os.path.abspath(d) for d in others]
-    for r in roots:
-        require(os.path.isdir(os.path.join(r, "photon_tpu_torch")),
-                f"--against {r}: no photon_tpu_torch there")
-    # each checkout's two libraries, one process each, all at once
-    builds = [(r, subprocess.Popen(
-        [sys.executable, "-c", "from photon_tpu_torch import kernels; "
-         "kernels.build(['march_dense', 'fan_stats'])"], cwd=r,
-        env=dict(os.environ, PYTHONPATH=r), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)) for r in roots + [here]]
-    for r, proc in builds:
-        log, _ = proc.communicate()
-        require(proc.returncode == 0, f"the build in {r} failed: {log[-2000:]}")
-    # what each checkout's K1 and K2 issue, by phase 1's count
-    import importlib.util
-    for r in roots + [here]:
-        spec = importlib.util.spec_from_file_location(
-            "kernels_of_checkout", os.path.join(r, "photon_tpu_torch",
-                                                "kernels.py"))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        print(f"SASS of {os.path.relpath(r, here)}:")
-        with tempfile.TemporaryDirectory() as cubins:
-            ptxas_lines(ptxas_start(mod, cubins), mod.nvcc_path())
-            sass_issue(cubins, mod.nvcc_path())
-    order = roots + [here, here] + roots[::-1]
-    readings = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for i, r in enumerate(order):
-            path = os.path.join(tmp, f"{i}.pt")
-            subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--kernel-readings", path, "--package-root", r],
-                           check=True)
-            readings.append((r, torch.load(path)))
-    base = readings[len(roots)][1]
-
-    def name(r):
-        return "this checkout" if r == here else os.path.relpath(r, here)
-    for key, ref in base.items():
-        print(f"{key}  [{card}]")
-        for r in dict.fromkeys(order):
-            got = [rd[key] for rr, rd in readings if rr == r]
-            ms = " / ".join(f"{g['ms']:.4f}" for g in got)
-            if "device_ms" in ref:
-                ms += " (device " + " / ".join(
-                    ms_or_not(g["device_ms"], 4).removesuffix(" ms")
-                    for g in got) + ")"
-            g = got[0]
-            if key.startswith("K1"):
-                diff = int((g["out"] != ref["out"]).sum())
-                same = diff == 0 and g.get("traj") == ref.get("traj")
-                print(f"    {name(r)}: {ms} ms; outputs that differ from this "
-                      f"checkout's: {diff} of {ref['out'].numel()}"
-                      + ("" if "traj" not in ref else
-                         f", stage residual {'equal' if same else 'DIFFERS'}"
-                         " (fingerprint)"))
-            else:
-                rel = max(float((g["out"][i] - ref["out"][i]).abs().max()
-                                / ref["out"][i].abs().max()) for i in range(3))
-                on = ref["out"][0] > 0
-                cen = max(float((g["out"][i][on] / g["out"][0][on]
-                                 - ref["out"][i][on] / ref["out"][0][on])
-                                .abs().max()) for i in (1, 2))
-                eq = float((g["out"] == ref["out"]).float().mean())
-                print(f"    {name(r)}: {ms} ms; against this checkout's: "
-                      f"{rel:.3e} of the column maximum, centroids {cen:.3e}"
-                      f" px, {eq:.1%} of the values equal")
-    return 0
-
-
 def main(argv=None) -> int:
     import argparse
 
@@ -801,30 +662,16 @@ def main(argv=None) -> int:
     ap.add_argument("--large-only", action="store_true",
                     help="after the build, run the large-volume phases (2j, "
                     "7, 8) alone; the kernels line then lists their rows only")
-    ap.add_argument("--against", action="append", metavar="CHECKOUT",
-                    help="instead of the phases: hold K1 and K2 of this "
-                    "checkout against those of CHECKOUT (a directory that "
-                    "holds a photon_tpu_torch, such as an unpacked git "
-                    "archive of another commit) on the card, outputs and "
-                    "times, in turns; may be given more than once")
-    ap.add_argument("--kernel-readings", metavar="FILE",
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--package-root", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA device", file=sys.stderr)
         return 2
-    if args.kernel_readings:
-        sys.path.insert(0, args.package_root)
-        return kernel_readings(args.kernel_readings)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0].strip()
     print(card)
-    if args.against:
-        return compare_checkouts(args.against, card)
 
     import numpy as np
 
@@ -884,16 +731,17 @@ def main(argv=None) -> int:
         check=True).stdout.split()[0])
 
     def issue_floor(units, key, unit):
-        """(ms, text): the least time the SMs take to issue what phase 1's
-        SASS count gives a unit, `units` times: 128 thread instructions a
-        clock on each of 132 SMs (four schedulers, a warp's instruction a
-        clock each) at the card's highest SM clock; (None, "issue floor not
-        measured") without the count."""
+        """A model, printed beside the bound and kept out of the kernels
+        line: the least time the SMs take to issue what phase 1's SASS count
+        gives a unit, `units` times, at 128 thread instructions a clock on
+        each of 132 SMs (four schedulers, a warp's instruction a clock each)
+        at the card's highest SM clock."""
         if issue.get(key) is None:
-            return None, f"issue floor {NOT_MEASURED}"
+            return f"issue floor (model) {NOT_MEASURED}"
         ms = units * issue[key] / (128 * 132 * clock_mhz * 1e6) * 1e3
-        return ms, (f"issue floor {ms:.4f} ms ({issue[key]:.1f} SASS "
-                    f"instructions {unit}, {clock_mhz:.0f} MHz)")
+        return (f"issue floor (model, not a reading) {ms:.4f} ms "
+                f"({issue[key]:.2f} SASS instructions {unit}, 128 a clock "
+                f"an SM, {clock_mhz:.0f} MHz)")
 
     def sync():
         torch.cuda.synchronize(dev)
@@ -906,7 +754,8 @@ def main(argv=None) -> int:
         "march_bwd_remarch_kernel": march_backward_remarch,
         "slab_sample_kernel": slab_sample_forward,
         "slab_sample_bwd_kernel": slab_sample_backward,
-        "fan_stats_kernel": fan_stats, "fan_stats_bwd_kernel": fan_stats_backward,
+        "fan_stats_kernel": fan_stats,
+        "fan_stats_bwd_kernel": fan_stats_backward,
         "splat_kernel": splat_particles, "splat_bwd_kernel": splat_backward}
 
     def traced(run, others=None):
@@ -1559,8 +1408,9 @@ def main(argv=None) -> int:
                 "the spread rays do not touch half of the field")
 
         bd = order_bounds["input"]
-        k1l_floor = issue_floor(steps5 * 4, "march_dense", "a ray's stage")
-        print(f"    K1 on the input order, {n5}^3: {k1l_floor[1]}  [{card}]")
+        print(f"    K1 on the input order, {n5}^3: "
+              f"{issue_floor(steps5 * 4, 'march_dense', 'a ray stage')}"
+              f"  [{card}]")
         (k1l_bound, k1l_by), (k1tl_bound, k1tl_by) = bd["k1"], bd["k1t"]
         (k4l_bound, k4l_by), (k5l_bound, k5l_by) = bd["k4"], bd["k5"]
         print(f"    the plain march forward {k1l_plain_ms:.0f} ms  [{card}]")
@@ -1586,7 +1436,6 @@ def main(argv=None) -> int:
             max_abs_err=k1l_err, tolerance=K1_TOL, ms=tin["k1"],
             ms_shuffled_rays=tsh["k1"], plain_ms=k1l_plain_ms,
             bound_ms=k1l_bound, bound_by=k1l_by, library_ms=None,
-            issue_floor_ms=k1l_floor[0],
             peak_gb=tin["k1_gb"], touched_bytes=tin["touched"] * 16,
             spread_rays=beyond_l2("k1"),
             residual_head=dict(
@@ -2176,18 +2025,16 @@ def main(argv=None) -> int:
     k1_ops = steps * (4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE)
     k1_bytes = 12 * P * 4 + vol.field.numel() * 4
     k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
-    k1_floor = issue_floor(steps * 4, "march_dense", "a ray's stage")
     print(f"    time {k1_ms:.4f} ms  plain {k1_plain_ms:.2f} ms  bound "
           f"{k1_bound:.4f} ms ({k1_by}; {steps} ray-slab steps); "
-          f"{k1_floor[1]}  [{card}]")
+          f"{issue_floor(steps * 4, 'march_dense', 'a ray stage')}  [{card}]")
     kernel_rows.append(dict(
         name="march_dense", route="cuda",
         source="photon_tpu_torch/csrc/march_dense.cu",
         replaces="photon_tpu/ops/march_dense_fused.py:174",
         shape=f"{P} rays, 64^3 field, RK4",
         max_abs_err=k1_err, tolerance=K1_TOL, ms=k1_ms, plain_ms=k1_plain_ms,
-        bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
-        issue_floor_ms=k1_floor[0]))
+        bound_ms=k1_bound, bound_by=k1_by, library_ms=None))
 
     # ------------------------------------------------------------------
     # phase 2b: K2, the fan statistics
@@ -2265,13 +2112,12 @@ def main(argv=None) -> int:
 
     k2_bound, k2_by = fan_bound(chunk)
     k2_bound_whole, _ = fan_bound(P)
-    k2_floor = issue_floor(chunk * R, "fan_stats", "a pair")
-    k2_floor_whole = issue_floor(P * R, "fan_stats", "a pair")
     print(f"    {chunk} x {R}: time {k2_ms:.4f} ms  plain {k2_plain_ms:.2f} ms"
-          f"  bound {k2_bound:.4f} ms ({k2_by}); {k2_floor[1]}  [{card}]")
+          f"  bound {k2_bound:.4f} ms ({k2_by}); "
+          f"{issue_floor(chunk * R, 'fan_stats', 'a pair')}  [{card}]")
     print(f"    {P} x {R}: time {k2_ms_whole:.4f} ms  plain "
           f"{k2_plain_ms_whole:.2f} ms  bound {k2_bound_whole:.4f} ms "
-          f"({k2_by}); {k2_floor_whole[1]}  [{card}]")
+          f"({k2_by}); {issue_floor(P * R, 'fan_stats', 'a pair')}  [{card}]")
     kernel_rows.append(dict(
         name="fan_stats", route="cuda",
         source="photon_tpu_torch/csrc/fan_stats.cu",
@@ -2279,11 +2125,9 @@ def main(argv=None) -> int:
         shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
         max_abs_err=k2_err, tolerance=K2_TOL, ms=k2_ms, plain_ms=k2_plain_ms,
         bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
-        issue_floor_ms=k2_floor[0],
         whole_image=dict(shape=f"{P} x {R}", max_abs_err=k2_err_whole,
                          ms=k2_ms_whole, plain_ms=k2_plain_ms_whole,
-                         bound_ms=k2_bound_whole,
-                         issue_floor_ms=k2_floor_whole[0])))
+                         bound_ms=k2_bound_whole)))
 
     # ------------------------------------------------------------------
     # phase 2c: K3, the splat

@@ -18,18 +18,16 @@
 // instructions and the kernel runs near the SMs' issue rate.  The design
 // spends little beside the pair loop.  One warp owns one particle (four a
 // block): its lanes stride over the R rays with partial sums in registers,
-// and shuffles end it, with no shared memory and no barrier; where the
-// particles are too few to fill the card that way, two or four warps share
-// a particle (fan_stats_kernel).  The sums are added in one order in every
-// case, so the result is the same from run to run, in a launch of any size,
-// and bit-equal to the kernel's first design; there are no atomics.  What
-// every ray of a particle shares is formed once (load_particle), and the four
-// divisions by a divisor that many rays share (the particle's distance to the
-// image plane, the pixel pitch) multiply by a reciprocal and correct once
-// (div_rn.cuh), with the division's bits.  The grid's index is the particle
-// and the ray loop is 32-bit, so P * R is never formed (it is 6e7 on the BOS
-// path).  The kernel masks its own ragged edge: no ray_mask row and no
-// padding.
+// and shuffles end it, with no shared memory and no barrier.  The sums are
+// added in one order, so the result is the same from run to run, in a
+// launch of any size, and bit-equal to the kernel's first design; there are
+// no atomics.  What every ray of a particle shares is formed once
+// (load_particle), and the four divisions by a divisor that many rays share
+// (the particle's distance to the image plane, the pixel pitch) multiply by
+// a reciprocal and correct once (div_rn.cuh), with the division's bits.  The
+// grid's index is the particle and the ray loop is 32-bit, so P * R is never
+// formed (it is 6e7 on the BOS path).  The kernel masks its own ragged edge:
+// no ray_mask row and no padding.
 //
 // Reciprocal square roots are 1.0f / sqrtf(x) (correctly rounded), the same
 // as the plain PyTorch version beside the wrapper.  Build this file with
@@ -45,18 +43,15 @@
 
 namespace {
 
-constexpr int kFanWarps = 4;     // warps a block
+constexpr int kFanWarps = 4;     // warps (particles) a block
+constexpr int kFanGroups = 4;    // lane groups of a particle's order
 
-// A particle's rays are dealt to 32 kFanWarps lanes, ray r to lane
-// r % (32 kFanWarps) (the block of 128 threads that owned a particle in the
-// first design): each lane sums its rays in order, each group of 32 lanes
-// by a shuffle tree, and the kFanWarps groups' sums are added in order.
-// That order is kept whatever carries it: `group` warps (1, 2 or 4) share a
-// particle, warp g taking the lane groups g, g + group, ...  So a particle's
-// sums have the same bits in a launch of any size, and the bits of the first
-// design.  One warp a particle needs no barrier; where the particles
-// are too few to fill the card so (a chunk of 2000 is 15 warps an SM), two
-// or four warps share one and meet once in shared memory.
+// A particle's rays are summed in the order of the kernel's first design, a
+// block of 32 x kFanGroups threads a particle: ray r belongs to lane r % 32 of
+// group (r / 32) % kFanGroups, each lane sums its rays in order, each group
+// by a shuffle tree, and the groups' sums are added in order.  One warp
+// carries that order, a group after another, so a particle's sums have the
+// same bits in a launch of any size.
 template <int LENS, bool MARCH>
 __global__ void __launch_bounds__(32 * kFanWarps) fan_stats_kernel(
     const float* __restrict__ xs, const float* __restrict__ ys,
@@ -65,22 +60,18 @@ __global__ void __launch_bounds__(32 * kFanWarps) fan_stats_kernel(
     const float* __restrict__ dpy, const float* __restrict__ ddx,
     const float* __restrict__ ddy, const float* __restrict__ ddz,
     const float* __restrict__ x_lens, const float* __restrict__ y_lens,
-    float* __restrict__ out, long long P, int R, FanConst c, int mirror_x,
-    int group) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = warp % group, slot = warp / group;
-  const long long p = (long long)blockIdx.x * (kFanWarps / group) + slot;
-  const bool live = p < P;             // the same for the group's warps
-  const long long q = live ? p : 0;
-  const Particle pt = load_particle<MARCH>(c, q, xs, ys, zs, dze, dpx, dpy,
+    float* __restrict__ out, long long P, int R, FanConst c, int mirror_x) {
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kFanWarps + (threadIdx.x >> 5);
+  if (p >= P) return;                  // a whole warp
+  const Particle pt = load_particle<MARCH>(c, p, xs, ys, zs, dze, dpx, dpy,
                                            ddx, ddy, ddz);
-  const float a0 = amp0[q];
+  const float a0 = amp0[p];
 
-  __shared__ float part[kFanWarps][kFanWarps][3];
   float tA = 0.0f, tAX = 0.0f, tAY = 0.0f;
-  for (int lg = g; lg < kFanWarps; lg += group) {
+  for (int lg = 0; lg < kFanGroups; ++lg) {
     float sA = 0.0f, sAX = 0.0f, sAY = 0.0f;
-    for (int r = 32 * lg + lane; live && r < R; r += 32 * kFanWarps) {
+    for (int r = 32 * lg + lane; r < R; r += 32 * kFanGroups) {
       const FanPath f = fan_path<LENS, MARCH>(c, pt, __ldg(x_lens + r),
                                               __ldg(y_lens + r), mirror_x);
       float qq;
@@ -99,26 +90,11 @@ __global__ void __launch_bounds__(32 * kFanWarps) fan_stats_kernel(
       sAX += __shfl_xor_sync(0xffffffffu, sAX, off);
       sAY += __shfl_xor_sync(0xffffffffu, sAY, off);
     }
-    if (group == 1) {
-      tA += sA;
-      tAX += sAX;
-      tAY += sAY;
-    } else if (lane == 0) {
-      part[slot][lg][0] = sA;
-      part[slot][lg][1] = sAX;
-      part[slot][lg][2] = sAY;
-    }
+    tA += sA;
+    tAX += sAX;
+    tAY += sAY;
   }
-  if (group > 1) {                     // the same for the whole block
-    __syncthreads();
-    if (g != 0) return;
-    for (int lg = 0; lg < kFanWarps; ++lg) {
-      tA += part[slot][lg][0];
-      tAX += part[slot][lg][1];
-      tAY += part[slot][lg][2];
-    }
-  }
-  if (lane == 0 && live) {
+  if (lane == 0) {
     out[p] = tA;
     out[P + p] = tAX;
     out[2 * P + p] = tAY;
@@ -143,18 +119,11 @@ extern "C" int photon_fan_stats(
   float* cf = reinterpret_cast<float*>(&c);
   for (int i = 0; i < kFanConstFloats; ++i) cf[i] = consts[i];
   cudaStream_t st = (cudaStream_t)stream;
-  // warps a particle: the fewest of 1, 2, 4 that give 32 warps an SM
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int group = 1;
-  while (group < kFanWarps && P * group < 32LL * sms) group *= 2;
-  const unsigned blocks =
-      (unsigned)((P * group + kFanWarps - 1) / kFanWarps);
+  const unsigned blocks = (unsigned)((P + kFanWarps - 1) / kFanWarps);
 #define PHOTON_FAN_LAUNCH(L, M)                                              \
   fan_stats_kernel<L, M><<<blocks, 32 * kFanWarps, 0, st>>>(                 \
       xs, ys, zs, amp0, dze, dpx, dpy, ddx, ddy, ddz, x_lens, y_lens, out,   \
-      P, R, c, mirror_x, group)
+      P, R, c, mirror_x)
   if (has_march) {
     if (lens_model == LENS_APPARENT) PHOTON_FAN_LAUNCH(LENS_APPARENT, true);
     else if (lens_model == LENS_THIN) PHOTON_FAN_LAUNCH(LENS_THIN, true);

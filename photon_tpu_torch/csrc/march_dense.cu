@@ -59,10 +59,10 @@
 
 namespace {
 
-// One ray a thread; launched for SCHEME 2.  out: (6, P) rows x, y, z, dirx,
-// diry, dirz after traversal; texit: (3, P) rows Tx, Ty, Tz before the
-// normalisation (GRAD only; rays that never entered leave theirs unwritten)
-template <bool GRAD, int SCHEME>
+// Scheme 2: one ray a thread.  out: (6, P) rows x, y, z, dirx, diry, dirz
+// after traversal; texit: (3, P) rows Tx, Ty, Tz before the normalisation
+// (GRAD only; rays that never entered leave theirs unwritten)
+template <bool GRAD>
 __global__ void march_dense_kernel(const float* __restrict__ xs,
                                    const float* __restrict__ ys,
                                    const float* __restrict__ zs,
@@ -97,22 +97,22 @@ __global__ void march_dense_kernel(const float* __restrict__ xs,
                       ? traj + (long long)s * rows * P + p : nullptr;
       if (algorithm == 1) {
         if (tr != nullptr) store_state5(tr, P, st);
-        st = axpy(st, hstep, rhs<SCHEME>(lo, hi, g, z_plane, st, z));
+        st = axpy(st, hstep, rhs<2>(lo, hi, g, z_plane, st, z));
       } else if (substeps == 1) {
         if (tr != nullptr) {
           Stages sg;
-          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hstep, z, &sg);
+          st = rk4<2>(lo, hi, g, z_plane, st, hstep, z, &sg);
           store_state5(tr, P, sg.s1);
           store_state5(tr + 5 * P, P, sg.s2);
           store_state5(tr + 10 * P, P, sg.s3);
           store_state5(tr + 15 * P, P, sg.s4);
         } else {
-          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hstep, z);
+          st = rk4<2>(lo, hi, g, z_plane, st, hstep, z);
         }
       } else {
         float hs = hstep / (float)substeps;
         for (int si = 0; si < substeps; ++si)
-          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hs, z + (float)si * hs);
+          st = rk4<2>(lo, hi, g, z_plane, st, hs, z + (float)si * hs);
       }
       z = z_plane;
     }
@@ -295,7 +295,7 @@ int launch_march(const float* rays[6], const float* field, float* out,
             rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], f4, out,
             texit, traj, P, g, algorithm, substeps);
   } else {
-    march_dense_kernel<GRAD, 2>
+    march_dense_kernel<GRAD>
         <<<(unsigned)((P + threads - 1) / threads), threads, 0, st>>>(
             rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], f4, out,
             texit, traj, P, g, algorithm, substeps);

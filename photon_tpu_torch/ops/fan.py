@@ -14,12 +14,12 @@ weighs by cos^4; per particle it returns
 which is all the per-particle erf splat consumes.  Bound on the card: f32
 operations (a few hundred per pair, with square roots and divisions)
 against 40 bytes a particle and 8 bytes a ray of input; no (P, R) array
-exists.  One warp owns a particle (two or four share one where the
-particles are too few to fill the card), its lanes stride over its rays and
+exists.  One warp owns a particle, its lanes stride over its rays and
 reduce with shuffles: no atomics, so the sums are the same from run to run.
 Both kernels divide by the pixel pitch, the focal length and a particle's
 distance to the image plane with a correctly rounded reciprocal and one
-correction, which returns the division's bits (``csrc/div_rn.cuh``):
+correction (``csrc/div_rn.cuh``; the division's bits on every divisor of
+the bench scene, for every numerator: ``tests/test_torch_division.py``);
 :func:`f32_reciprocal` forms the first two.
 
 The plain version is the (P, R) structure-of-arrays chain of the JAX
@@ -44,6 +44,7 @@ launches.
 """
 from __future__ import annotations
 
+import functools
 from fractions import Fraction
 from typing import NamedTuple, Optional
 
@@ -104,10 +105,12 @@ class FanConstants(NamedTuple):
     inv_focal_length: float      # f32_reciprocal(focal_length)
 
 
+@functools.lru_cache(maxsize=64)
 def f32_reciprocal(x: float) -> float:
     """The float32 nearest to 1 / float32(x), the reciprocal with which
     the kernels divide by ``x`` (``csrc/div_rn.cuh`` needs it correctly
-    rounded); IEEE division gives it, exact arithmetic checks it."""
+    rounded); IEEE division gives it, exact arithmetic checks it.  Cached:
+    the check takes tens of microseconds and every launch asks."""
     b = np.float32(x)
     with np.errstate(divide="ignore", over="ignore"):
         r = np.float32(1.0) / b
