@@ -58,7 +58,9 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
 9. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
-``--large-only`` runs the build and items 7 and 8 alone.
+``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
+runs the build, the splat's two kernels of item 2 (with the same spots also
+scattered over the sensor), and items 3 and 4.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -84,8 +86,13 @@ MARCH_OPS_PER_RHS = 100       # coordinates 15, weights 10, 8-voxel blend 68, rh
 MARCH_OPS_PER_RK4_COMBINE = 65
 FAN_OPS_PER_PAIR = {"general": 200, "thin-lens": 90, "apparent": 70}
 FAN_OPS_MARCH = 25
+# the splat's weights are separable: a spot's K x K patch needs one erff
+# (~20) a row and a column edge, K + 1 of each, beside the edge's offset and
+# scale (3) and its weight's difference (1); a deposit is a product and an
+# add
 SPLAT_OPS_PER_PATCH_PIXEL = 10    # index arithmetic and the circle test
-SPLAT_OPS_PER_DEPOSIT = 90        # four erff (~20 each) and the products
+SPLAT_OPS_PER_EDGE = 24
+SPLAT_OPS_PER_DEPOSIT = 2
 # backward kernels: one stage's sample recompute and VJP (coordinates 15,
 # weights 10, blend 68, rhs 7, cotangents 20, scatter products 40, tap dots
 # 56, coordinate cotangents 45) and the per-slab combine
@@ -103,7 +110,10 @@ MARCH_VJP_OPS_PER_STAGE_CUBIC = (MARCH_OPS_PER_RHS_CUBIC + 20
 # fan backward sweep per pair, on top of the forward recompute
 FAN_BWD_OPS_PER_PAIR = {"general": 420, "thin-lens": 150, "apparent": 110}
 FAN_BWD_OPS_MARCH = 35
-SPLAT_BWD_OPS_PER_DEPOSIT = 165   # four erff, four expf (~15 each), products
+# the transpose: an edge also takes an expf (~15), its square and sign, and
+# the derivative's difference and scale; a deposit five products, three sums
+SPLAT_BWD_OPS_PER_EDGE = 43
+SPLAT_BWD_OPS_PER_DEPOSIT = 8
 
 
 def bound_ms(nbytes, ops):
@@ -659,9 +669,15 @@ def main(argv=None) -> int:
 
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--large-only", action="store_true",
-                    help="after the build, run the large-volume phases (2j, "
-                    "7, 8) alone; the kernels line then lists their rows only")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--large-only", action="store_true",
+                      help="after the build, run the large-volume phases "
+                      "(2j, 7, 8) alone; the kernels line then lists their "
+                      "rows only")
+    only.add_argument("--splat-only", action="store_true",
+                      help="after the build, run the splat's phases alone: "
+                      "2c, 2g, the pair of phase 3 and the step of phase 4; "
+                      "the kernels line then lists K3 and K7 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1980,154 +1996,161 @@ def main(argv=None) -> int:
     if args.large_only:
         return finish(large_tier())
 
-    # ------------------------------------------------------------------
-    # phase 2a: K1, the dense march
-    # ------------------------------------------------------------------
-    print("K1 march_dense (csrc/march_dense.cu) against its plain version")
-    got = march_chief_fused(vol, *chief, algorithm=2)
-    sync()
-    ref = march_chief_dense(vol, *chief, algorithm=2)
-    pos_e, dir_e = march_err(got, ref)
-    k1_err = max(pos_e / scale, dir_e)
-    print(f"    RK4, {P} rays: position error {pos_e:.3e} um, "
-          f"direction error {dir_e:.3e}")
-    hold(f"K1 RK4 {P} rays (normalised)", k1_err, K1_TOL)
-    bent = float((got[3] - chief[3]).abs().max())
-    if not bent > 1e-5:
-        failures.append("K1 does not bend the rays")
-    sub = tuple(c[:4096].contiguous() for c in chief)
-    for alg, ss, label in ((1, None, "Euler"), (3, 2, "RK4 x 2 substeps")):
-        g = march_chief_fused(vol, *sub, algorithm=alg, substeps=ss)
-        r = march_chief_dense(vol, *sub, algorithm=alg, substeps=ss)
-        pe, de = march_err(g, r)
-        hold(f"K1 {label} 4096 rays (normalised)", max(pe / scale, de), K1_TOL)
-    # rays above, inside, below the volume and travelling upward
-    odd = [c[:4096].clone() for c in chief]
-    odd[2][1000:2000] = float(geom.z_min) + 0.3 * float(geom.z_max - geom.z_min)
-    odd[2][2000:3000] = float(geom.z_min) - 1e4
-    odd[5][3000:] = -odd[5][3000:]
-    g = march_chief_fused(vol, *odd, algorithm=2)
-    r = march_chief_dense(vol, *odd, algorithm=2)
-    pe, de = march_err(g, r)
-    hold("K1 RK4 entry cases (normalised)", max(pe / scale, de), K1_TOL)
-
-    k1_ms = time_ms(lambda: march_chief_fused(vol, *chief, algorithm=2))
-    k1_plain_ms = time_ms(lambda: march_chief_dense(vol, *chief, algorithm=2),
-                          reps=5, warm=1)
-    # work of this run's data: steps actually taken by rays that enter
-    z_entry = torch.where(chief[2] >= float(geom.z_max),
-                          torch.full_like(chief[2], float(geom.z_max)),
-                          chief[2])
-    inside = (z_entry >= float(geom.z_min)) & (chief[5] < 0)
-    planes = f32(geom.z_planes(n))
-    steps = int(((z_entry[:, None] > planes[None, :])
-                 & inside[:, None]).sum())
-    k1_ops = steps * (4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE)
-    k1_bytes = 12 * P * 4 + vol.field.numel() * 4
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
-    print(f"    time {k1_ms:.4f} ms  plain {k1_plain_ms:.2f} ms  bound "
-          f"{k1_bound:.4f} ms ({k1_by}; {steps} ray-slab steps); "
-          f"{issue_floor(steps * 4, 'march_dense', 'a ray stage')}  [{card}]")
-    kernel_rows.append(dict(
-        name="march_dense", route="cuda",
-        source="photon_tpu_torch/csrc/march_dense.cu",
-        replaces="photon_tpu/ops/march_dense_fused.py:174",
-        shape=f"{P} rays, 64^3 field, RK4",
-        max_abs_err=k1_err, tolerance=K1_TOL, ms=k1_ms, plain_ms=k1_plain_ms,
-        bound_ms=k1_bound, bound_by=k1_by, library_ms=None))
-
-    # ------------------------------------------------------------------
-    # phase 2b: K2, the fan statistics
-    # ------------------------------------------------------------------
-    print("K2 fan_stats (csrc/fan_stats.cu) against its plain version")
-    deltas6 = chief_deltas_dense(vol, *chief, algorithm=2)
-
-    # tolerances: kernel and plain version evaluate the same f32 formulas
-    # without FMA contraction and differ by the order of the sum over the
-    # fan, so the sums agree to a few roundings (1e-5 of the largest value
-    # is about 50 times what is seen) and the centroids AX/A, AY/A, which
-    # place the spots, to 1e-3 px (some 15 roundings of a 1024 px
-    # coordinate).  The thick lens forms beta^2 - 4 gamma from coordinates
-    # of 1e5..1e8 um in f32: a build that rounds it differently moves the
-    # centroids by hundredths of a pixel and fails the second check.
-    K2_TOL = 1e-5
-    K2_CENTROID_TOL = 1e-3
-
-    def fan_err(got, ref):
-        return max(float((g - r).abs().max() / r.abs().max())
-                   for g, r in zip(got, ref))
-
-    def fan_case(lens_model, d6, sl, label):
-        cols = [a[sl].contiguous() for a in (xs, ys, zs, amp0)]
-        dd = None if d6 is None else tuple(d[sl].contiguous() for d in d6)
-        kw = dict(sc=sc, lens_model=lens_model, mirror_x=True)
-        got = fan_stats(*cols, dd, x_lens, y_lens, **kw)
-        sync()
-        ref = fan_stats_plain(*cols, dd, x_lens, y_lens,
-                              particles_per_chunk=10000, **kw)
-        err = fan_err(got, ref)
-        okp = ref[0] > 0
-        cen = max(float((got[i][okp] / got[0][okp]
-                         - ref[i][okp] / ref[0][okp]).abs().max())
-                  for i in (1, 2))
-        print(f"    {label}: {int(okp.sum())} of {okp.numel()} particles "
-              f"on the sensor")
-        hold(f"K2 {label} (relative)", err, K2_TOL)
-        hold(f"K2 {label} (centroid, px)", cen, K2_CENTROID_TOL)
-        return got, err
-
     whole = slice(0, P)
     first = slice(0, chunk)
-    (A, AX, AY), k2_err_whole = fan_case(
-        "general", deltas6, whole, f"general + deltas, {P} x {R}")
-    _, k2_err = fan_case("general", deltas6, first,
-                         f"general + deltas, {chunk} x {R}")
-    fan_case("general", None, first, f"general, no deltas, {chunk} x {R}")
-    fan_case("apparent", deltas6, first, f"apparent + deltas, {chunk} x {R}")
-    fan_case("thin-lens", deltas6, first, f"thin-lens + deltas, {chunk} x {R}")
-    # a particle far off the sensor keeps its zero and poisons nothing
-    far = [a[first].clone() for a in (xs, ys, zs, amp0)]
-    far[0][:7] = 5e5
-    gfar = fan_stats(*far, None, x_lens, y_lens, sc=sc, lens_model="general")
-    if not (float(gfar[0][:7].abs().max()) == 0.0
-            and bool(torch.isfinite(torch.stack(gfar)).all())):
-        failures.append("K2 off-sensor particles")
+    if not args.splat_only:
+        # ------------------------------------------------------------------
+        # phase 2a: K1, the dense march
+        # ------------------------------------------------------------------
+        print("K1 march_dense (csrc/march_dense.cu) against its plain version")
+        got = march_chief_fused(vol, *chief, algorithm=2)
+        sync()
+        ref = march_chief_dense(vol, *chief, algorithm=2)
+        pos_e, dir_e = march_err(got, ref)
+        k1_err = max(pos_e / scale, dir_e)
+        print(f"    RK4, {P} rays: position error {pos_e:.3e} um, "
+              f"direction error {dir_e:.3e}")
+        hold(f"K1 RK4 {P} rays (normalised)", k1_err, K1_TOL)
+        bent = float((got[3] - chief[3]).abs().max())
+        if not bent > 1e-5:
+            failures.append("K1 does not bend the rays")
+        sub = tuple(c[:4096].contiguous() for c in chief)
+        for alg, ss, label in ((1, None, "Euler"), (3, 2, "RK4 x 2 substeps")):
+            g = march_chief_fused(vol, *sub, algorithm=alg, substeps=ss)
+            r = march_chief_dense(vol, *sub, algorithm=alg, substeps=ss)
+            pe, de = march_err(g, r)
+            hold(f"K1 {label} 4096 rays (normalised)", max(pe / scale, de), K1_TOL)
+        # rays above, inside, below the volume and travelling upward
+        odd = [c[:4096].clone() for c in chief]
+        odd[2][1000:2000] = float(geom.z_min) + 0.3 * float(geom.z_max - geom.z_min)
+        odd[2][2000:3000] = float(geom.z_min) - 1e4
+        odd[5][3000:] = -odd[5][3000:]
+        g = march_chief_fused(vol, *odd, algorithm=2)
+        r = march_chief_dense(vol, *odd, algorithm=2)
+        pe, de = march_err(g, r)
+        hold("K1 RK4 entry cases (normalised)", max(pe / scale, de), K1_TOL)
 
-    def fan_time(sl, plain, **kw):
-        cols = [a[sl].contiguous() for a in (xs, ys, zs, amp0)]
-        dd = tuple(d[sl].contiguous() for d in deltas6)
-        fn = fan_stats_plain if plain else fan_stats
-        extra = dict(particles_per_chunk=10000) if plain else {}
-        return time_ms(lambda: fn(*cols, dd, x_lens, y_lens, sc=sc,
-                                  lens_model="general", **extra), **kw)
+        k1_ms = time_ms(lambda: march_chief_fused(vol, *chief, algorithm=2))
+        k1_plain_ms = time_ms(lambda: march_chief_dense(vol, *chief, algorithm=2),
+                              reps=5, warm=1)
+        # work of this run's data: steps actually taken by rays that enter
+        z_entry = torch.where(chief[2] >= float(geom.z_max),
+                              torch.full_like(chief[2], float(geom.z_max)),
+                              chief[2])
+        inside = (z_entry >= float(geom.z_min)) & (chief[5] < 0)
+        planes = f32(geom.z_planes(n))
+        steps = int(((z_entry[:, None] > planes[None, :])
+                     & inside[:, None]).sum())
+        k1_ops = steps * (4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE)
+        k1_bytes = 12 * P * 4 + vol.field.numel() * 4
+        k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
+        print(f"    time {k1_ms:.4f} ms  plain {k1_plain_ms:.2f} ms  bound "
+              f"{k1_bound:.4f} ms ({k1_by}; {steps} ray-slab steps); "
+              f"{issue_floor(steps * 4, 'march_dense', 'a ray stage')}  [{card}]")
+        kernel_rows.append(dict(
+            name="march_dense", route="cuda",
+            source="photon_tpu_torch/csrc/march_dense.cu",
+            replaces="photon_tpu/ops/march_dense_fused.py:174",
+            shape=f"{P} rays, 64^3 field, RK4",
+            max_abs_err=k1_err, tolerance=K1_TOL, ms=k1_ms, plain_ms=k1_plain_ms,
+            bound_ms=k1_bound, bound_by=k1_by, library_ms=None))
 
-    k2_ms = fan_time(first, False, inner=20)
-    k2_plain_ms = fan_time(first, True, reps=5, warm=1)
-    k2_ms_whole = fan_time(whole, False)
-    k2_plain_ms_whole = fan_time(whole, True, reps=5, warm=1)
-    pair_ops = FAN_OPS_PER_PAIR["general"] + FAN_OPS_MARCH
+        # ------------------------------------------------------------------
+        # phase 2b: K2, the fan statistics
+        # ------------------------------------------------------------------
+        print("K2 fan_stats (csrc/fan_stats.cu) against its plain version")
+        deltas6 = chief_deltas_dense(vol, *chief, algorithm=2)
 
-    def fan_bound(p):
-        return bound_ms(13 * p * 4 + 2 * R * 4, p * R * pair_ops)
+        # tolerances: kernel and plain version evaluate the same f32 formulas
+        # without FMA contraction and differ by the order of the sum over the
+        # fan, so the sums agree to a few roundings (1e-5 of the largest value
+        # is about 50 times what is seen) and the centroids AX/A, AY/A, which
+        # place the spots, to 1e-3 px (some 15 roundings of a 1024 px
+        # coordinate).  The thick lens forms beta^2 - 4 gamma from coordinates
+        # of 1e5..1e8 um in f32: a build that rounds it differently moves the
+        # centroids by hundredths of a pixel and fails the second check.
+        K2_TOL = 1e-5
+        K2_CENTROID_TOL = 1e-3
 
-    k2_bound, k2_by = fan_bound(chunk)
-    k2_bound_whole, _ = fan_bound(P)
-    print(f"    {chunk} x {R}: time {k2_ms:.4f} ms  plain {k2_plain_ms:.2f} ms"
-          f"  bound {k2_bound:.4f} ms ({k2_by}); "
-          f"{issue_floor(chunk * R, 'fan_stats', 'a pair')}  [{card}]")
-    print(f"    {P} x {R}: time {k2_ms_whole:.4f} ms  plain "
-          f"{k2_plain_ms_whole:.2f} ms  bound {k2_bound_whole:.4f} ms "
-          f"({k2_by}); {issue_floor(P * R, 'fan_stats', 'a pair')}  [{card}]")
-    kernel_rows.append(dict(
-        name="fan_stats", route="cuda",
-        source="photon_tpu_torch/csrc/fan_stats.cu",
-        replaces="photon_tpu/ops/fan_pallas.py:216",
-        shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
-        max_abs_err=k2_err, tolerance=K2_TOL, ms=k2_ms, plain_ms=k2_plain_ms,
-        bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
-        whole_image=dict(shape=f"{P} x {R}", max_abs_err=k2_err_whole,
-                         ms=k2_ms_whole, plain_ms=k2_plain_ms_whole,
-                         bound_ms=k2_bound_whole)))
+        def fan_err(got, ref):
+            return max(float((g - r).abs().max() / r.abs().max())
+                       for g, r in zip(got, ref))
+
+        def fan_case(lens_model, d6, sl, label):
+            cols = [a[sl].contiguous() for a in (xs, ys, zs, amp0)]
+            dd = None if d6 is None else tuple(d[sl].contiguous() for d in d6)
+            kw = dict(sc=sc, lens_model=lens_model, mirror_x=True)
+            got = fan_stats(*cols, dd, x_lens, y_lens, **kw)
+            sync()
+            ref = fan_stats_plain(*cols, dd, x_lens, y_lens,
+                                  particles_per_chunk=10000, **kw)
+            err = fan_err(got, ref)
+            okp = ref[0] > 0
+            cen = max(float((got[i][okp] / got[0][okp]
+                             - ref[i][okp] / ref[0][okp]).abs().max())
+                      for i in (1, 2))
+            print(f"    {label}: {int(okp.sum())} of {okp.numel()} particles "
+                  f"on the sensor")
+            hold(f"K2 {label} (relative)", err, K2_TOL)
+            hold(f"K2 {label} (centroid, px)", cen, K2_CENTROID_TOL)
+            return got, err
+
+        (A, AX, AY), k2_err_whole = fan_case(
+            "general", deltas6, whole, f"general + deltas, {P} x {R}")
+        _, k2_err = fan_case("general", deltas6, first,
+                             f"general + deltas, {chunk} x {R}")
+        fan_case("general", None, first, f"general, no deltas, {chunk} x {R}")
+        fan_case("apparent", deltas6, first, f"apparent + deltas, {chunk} x {R}")
+        fan_case("thin-lens", deltas6, first, f"thin-lens + deltas, {chunk} x {R}")
+        # a particle far off the sensor keeps its zero and poisons nothing
+        far = [a[first].clone() for a in (xs, ys, zs, amp0)]
+        far[0][:7] = 5e5
+        gfar = fan_stats(*far, None, x_lens, y_lens, sc=sc, lens_model="general")
+        if not (float(gfar[0][:7].abs().max()) == 0.0
+                and bool(torch.isfinite(torch.stack(gfar)).all())):
+            failures.append("K2 off-sensor particles")
+
+        def fan_time(sl, plain, **kw):
+            cols = [a[sl].contiguous() for a in (xs, ys, zs, amp0)]
+            dd = tuple(d[sl].contiguous() for d in deltas6)
+            fn = fan_stats_plain if plain else fan_stats
+            extra = dict(particles_per_chunk=10000) if plain else {}
+            return time_ms(lambda: fn(*cols, dd, x_lens, y_lens, sc=sc,
+                                      lens_model="general", **extra), **kw)
+
+        k2_ms = fan_time(first, False, inner=20)
+        k2_plain_ms = fan_time(first, True, reps=5, warm=1)
+        k2_ms_whole = fan_time(whole, False)
+        k2_plain_ms_whole = fan_time(whole, True, reps=5, warm=1)
+        pair_ops = FAN_OPS_PER_PAIR["general"] + FAN_OPS_MARCH
+
+        def fan_bound(p):
+            return bound_ms(13 * p * 4 + 2 * R * 4, p * R * pair_ops)
+
+        k2_bound, k2_by = fan_bound(chunk)
+        k2_bound_whole, _ = fan_bound(P)
+        print(f"    {chunk} x {R}: time {k2_ms:.4f} ms  plain {k2_plain_ms:.2f} ms"
+              f"  bound {k2_bound:.4f} ms ({k2_by}); "
+              f"{issue_floor(chunk * R, 'fan_stats', 'a pair')}  [{card}]")
+        print(f"    {P} x {R}: time {k2_ms_whole:.4f} ms  plain "
+              f"{k2_plain_ms_whole:.2f} ms  bound {k2_bound_whole:.4f} ms "
+              f"({k2_by}); {issue_floor(P * R, 'fan_stats', 'a pair')}  [{card}]")
+        kernel_rows.append(dict(
+            name="fan_stats", route="cuda",
+            source="photon_tpu_torch/csrc/fan_stats.cu",
+            replaces="photon_tpu/ops/fan_pallas.py:216",
+            shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
+            max_abs_err=k2_err, tolerance=K2_TOL, ms=k2_ms, plain_ms=k2_plain_ms,
+            bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
+            whole_image=dict(shape=f"{P} x {R}", max_abs_err=k2_err_whole,
+                             ms=k2_ms_whole, plain_ms=k2_plain_ms_whole,
+                             bound_ms=k2_bound_whole)))
+    else:
+        # the fan's sums that phase 2c splats, from K2 without its checks
+        A, AX, AY = fan_stats(
+            *(a.contiguous() for a in (xs, ys, zs, amp0)),
+            chief_deltas_dense(vol, *chief, algorithm=2), x_lens, y_lens,
+            sc=sc, lens_model="general", mirror_x=True)
 
     # ------------------------------------------------------------------
     # phase 2c: K3, the splat
@@ -2144,13 +2167,29 @@ def main(argv=None) -> int:
     Xbar[:50] = -1e6
     col0[:50] = 0
 
-    # tolerance: 1e-5 of the image maximum.  Kernel and plain version use the
-    # same erff; about a hundred spots of a dot overlap on a pixel and float
-    # atomics add them in an order that changes from run to run.
+    # tolerance: 1e-5 of the image maximum.  Kernel and plain version take
+    # erff of the same edges, whose arguments may round an ulp apart (the
+    # kernel forms each of a patch's K + 1 edges once, s (edge - centre) with
+    # s = sqrt(8) / D, the plain version each pixel's f +/- 0.5 over D);
+    # about a hundred spots of a dot overlap on a pixel and float atomics add
+    # them in an order that changes from run to run.
     K3_TOL = 1e-5
+    # the same spots at uniform random positions over the sensor: the
+    # scattered case (a PIV image's particles), where neighbours in the
+    # input share no pixels
+    gen_sc = torch.Generator(device=dev)
+    gen_sc.manual_seed(13)
+    Xsc, Ysc = (torch.where(okp, torch.rand(P, generator=gen_sc, device=dev)
+                            * (sensor - 1), Xbar) for _ in range(2))
+    bench_cols = (Xbar, Ybar, Asc, col0, row0)
+    scat_cols = (Xsc, Ysc, Asc,
+                 (torch.round(Xsc).to(torch.int32) - K // 2).clamp(
+                     0, sensor - K),
+                 (torch.round(Ysc).to(torch.int32) - K // 2).clamp(
+                     0, sensor - K))
 
-    def splat_case(sl, label):
-        args = [a[sl].contiguous() for a in (Xbar, Ybar, Asc, col0, row0)]
+    def splat_case(cols, sl, label):
+        args = [a[sl].contiguous() for a in cols]
         got = splat_particles(*args, **skw)
         sync()
         ref = splat_particles_plain(*args, **skw)
@@ -2158,309 +2197,346 @@ def main(argv=None) -> int:
         hold(f"K3 {label} (of the image maximum)", err, K3_TOL)
         return got, err
 
-    img_whole, k3_err_whole = splat_case(whole, f"{P} spots, K={K}, {sensor}^2")
-    _, k3_err = splat_case(first, f"{chunk} spots, K={K}, {sensor}^2")
+    img_whole, k3_err_whole = splat_case(bench_cols, whole,
+                                         f"{P} spots, K={K}, {sensor}^2")
+    _, k3_err = splat_case(bench_cols, first,
+                           f"{chunk} spots, K={K}, {sensor}^2")
+    _, k3_err_sc = splat_case(scat_cols, whole,
+                              f"{P} scattered spots, K={K}, {sensor}^2")
     # a large patch on a small frame with spots on its edge
-    e = dict(K=40, ny=96, nx=72, diameter=20.0, render_fraction=0.75)
+    k40 = dict(K=40, ny=96, nx=72, diameter=20.0, render_fraction=0.75)
     ex = f32([-0.4, 71.4, 3.0, 36.0, 70.0])
     ey = f32([-0.4, 95.4, 95.0, 0.2, 50.0])
     ea = f32([1.0, 2.0, 0.5, 1.5, 0.0])
     ec = (torch.round(ex).to(torch.int32) - 20).clamp(0, 72 - 40)
     er = (torch.round(ey).to(torch.int32) - 20).clamp(0, 96 - 40)
-    ge = splat_particles(ex, ey, ea, ec, er, **e)
-    re_ = splat_particles_plain(ex, ey, ea, ec, er, **e)
+    ge = splat_particles(ex, ey, ea, ec, er, **k40)
+    re_ = splat_particles_plain(ex, ey, ea, ec, er, **k40)
     hold("K3 K=40 on a 72x96 frame (of the image maximum)",
          float((ge - re_).abs().max() / re_.max()), K3_TOL)
 
-    def splat_time(sl, plain, **kw):
-        args = [a[sl].contiguous() for a in (Xbar, Ybar, Asc, col0, row0)]
+    def splat_time(cols, sl, plain, **kw):
+        args = [a[sl].contiguous() for a in cols]
         fn = splat_particles_plain if plain else splat_particles
         return time_ms(lambda: fn(*args, **skw), **kw)
 
-    k3_ms = splat_time(first, False, inner=20)
-    k3_plain_ms = splat_time(first, True, reps=5, warm=1)
-    k3_ms_whole = splat_time(whole, False)
-    k3_plain_ms_whole = splat_time(whole, True, reps=5, warm=1)
+    def device_ms_a_launch(run, tag):
+        """run()'s device time a launch of the kernel `tag`, from a trace
+        held to the launch counters (traced), else NOT_MEASURED."""
+        got_h = traced(run)[1].get(tag, NOT_MEASURED)
+        return got_h if got_h == NOT_MEASURED else got_h[0] / got_h[1]
 
-    def splat_bound(sl):
-        live = int((Asc[sl] > 0).sum())
+    k3_ms = splat_time(bench_cols, first, False, inner=20)
+    k3_plain_ms = splat_time(bench_cols, first, True, reps=5, warm=1)
+    k3_ms_whole = splat_time(bench_cols, whole, False)
+    k3_plain_ms_whole = splat_time(bench_cols, whole, True, reps=5, warm=1)
+    k3_ms_sc = splat_time(scat_cols, whole, False)
+    k3_dev, k3_dev_whole, k3_dev_sc = (device_ms_a_launch(
+        lambda: splat_particles(*(a[sl].contiguous() for a in cols), **skw),
+        "splat_kernel") for cols, sl in ((bench_cols, first),
+                                         (bench_cols, whole),
+                                         (scat_cols, whole)))
+
+    def splat_bound(cols, sl):
+        """K3's bound: (ms, by, deposits, spots that deposit).  Every patch
+        pixel of a spot that deposits pays its index arithmetic and the
+        circle test, each of its 2 (K + 1) edges one erff, and each deposit
+        its product and add."""
+        Xs_, Ys_, A_, c0_, r0_ = (a[sl] for a in cols)
         ar = torch.arange(K, device=dev, dtype=torch.float32)
-        fc = (col0[sl, None].float() + ar[None]) - Xbar[sl, None]
-        fr = (row0[sl, None].float() + ar[None]) - Ybar[sl, None]
+        fc = (c0_[:, None].float() + ar[None]) - Xs_[:, None]
+        fr = (r0_[:, None].float() + ar[None]) - Ys_[:, None]
         inc = (fc[:, None, :] ** 2 + fr[:, :, None] ** 2) <= (0.75 * D) ** 2
-        deposits = int((inc & (Asc[sl] > 0)[:, None, None]).sum())
-        n_p = Asc[sl].numel()
-        ops = live * K * K * SPLAT_OPS_PER_PATCH_PIXEL \
+        dep = inc & (A_ > 0)[:, None, None]
+        deposits = int(dep.sum())
+        spots = int(dep.flatten(1).any(1).sum())
+        ops = spots * (K * K * SPLAT_OPS_PER_PATCH_PIXEL
+                       + 2 * (K + 1) * SPLAT_OPS_PER_EDGE) \
             + deposits * SPLAT_OPS_PER_DEPOSIT
-        return bound_ms(20 * n_p + sensor * sensor * 4, ops) + (deposits,)
+        return bound_ms(20 * A_.numel() + sensor * sensor * 4, ops) + (
+            deposits, spots)
 
-    k3_bound, k3_by, k3_dep = splat_bound(first)
-    k3_bound_whole, k3_by_whole, k3_dep_whole = splat_bound(whole)
-    print(f"    {chunk} spots: time {k3_ms:.4f} ms  plain {k3_plain_ms:.2f} ms"
-          f"  bound {k3_bound:.4f} ms ({k3_by}; {k3_dep} deposits)  [{card}]")
-    print(f"    {P} spots: time {k3_ms_whole:.4f} ms  plain "
-          f"{k3_plain_ms_whole:.2f} ms  bound {k3_bound_whole:.4f} ms "
-          f"({k3_by_whole}; {k3_dep_whole} deposits)  [{card}]")
+    k3_bound, k3_by, k3_dep, k3_spots = splat_bound(bench_cols, first)
+    (k3_bound_whole, k3_by_whole, k3_dep_whole,
+     k3_spots_whole) = splat_bound(bench_cols, whole)
+    k3_bound_sc, k3_by_sc, k3_dep_sc, k3_spots_sc = splat_bound(scat_cols,
+                                                                whole)
+    print(f"    {chunk} spots: time {k3_ms:.4f} ms (device "
+          f"{ms_or_not(k3_dev, 4)})  plain {k3_plain_ms:.2f} ms  bound "
+          f"{k3_bound:.4f} ms ({k3_by}; {k3_dep} deposits)  [{card}]")
+    print(f"    {P} spots: time {k3_ms_whole:.4f} ms (device "
+          f"{ms_or_not(k3_dev_whole, 4)})  plain {k3_plain_ms_whole:.2f} ms  "
+          f"bound {k3_bound_whole:.4f} ms ({k3_by_whole}; {k3_dep_whole} "
+          f"deposits)  [{card}]")
+    print(f"    {P} scattered spots: time {k3_ms_sc:.4f} ms (device "
+          f"{ms_or_not(k3_dev_sc, 4)})  bound {k3_bound_sc:.4f} ms "
+          f"({k3_by_sc}; {k3_dep_sc} deposits)  [{card}]")
     kernel_rows.append(dict(
         name="splat", route="cuda", source="photon_tpu_torch/csrc/splat.cu",
         replaces="photon_tpu/ops/splat_pallas.py:59",
         also_replaces="photon_tpu/ops/splat_pallas.py:186",
         shape=f"{chunk} spots, K={K}, {sensor}x{sensor} image",
-        max_abs_err=k3_err, tolerance=K3_TOL, ms=k3_ms, plain_ms=k3_plain_ms,
-        bound_ms=k3_bound, bound_by=k3_by, library_ms=None,
+        max_abs_err=k3_err, tolerance=K3_TOL, ms=k3_ms, device_ms=k3_dev,
+        plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by=k3_by,
+        library_ms=None,
         whole_image=dict(shape=f"{P} spots", max_abs_err=k3_err_whole,
-                         ms=k3_ms_whole, plain_ms=k3_plain_ms_whole,
-                         bound_ms=k3_bound_whole)))
-    # ------------------------------------------------------------------
-    # phase 2d: K1's stage-residual head (the forward of the gradient route)
-    # ------------------------------------------------------------------
-    print("K1 stage-residual head (csrc/march_dense.cu) against the plain head")
-    gnp = np.asarray(geom, dtype=np.float32)
-    field_bytes = vol.field.numel() * 4
-    rays6 = torch.stack(chief).contiguous()
-    out_t, texit, traj = march_forward_residual(vol.field, rays6, gnp, 2, True)
-    out_n, texit_n, _ = march_forward_residual(vol.field, rays6, gnp, 2, False)
-    plain_head = torch.stack(march_chief_fused(vol, *chief, algorithm=2))
-    sync()
-    k1t_err = float((out_t - plain_head).abs().max())
-    # bit-equal: the two heads are instantiations of one kernel that differ
-    # only in what they store
-    hold(f"K1 residual head, {P} rays: values that differ from the plain "
-         f"head", float((out_t != plain_head).sum()), 0.0)
-    hold("K1 gradient-route head without the residual: values that differ",
-         float((out_t != out_n).sum()
-               + (texit[:, inside] != texit_n[:, inside]).sum()), 0.0)
-    k1t_ms = time_ms(lambda: march_forward_residual(vol.field, rays6, gnp, 2,
-                                                    True))
-    traj_bytes = steps * 20 * 4
-    k1t_bound, k1t_by = bound_ms(15 * P * 4 + field_bytes + traj_bytes, k1_ops)
-    print(f"    time {k1t_ms:.4f} ms  (plain head {k1_ms:.4f} ms)  bound "
-          f"{k1t_bound:.4f} ms ({k1t_by}; residual {traj_bytes / 1e6:.1f} MB "
-          f"written, {traj.numel() * 4 / 1e6:.1f} MB allocated)  [{card}]")
-    kernel_rows.append(dict(
-        name="march_dense_residual", route="cuda",
-        source="photon_tpu_torch/csrc/march_dense.cu",
-        replaces="photon_tpu/ops/march_dense_fused.py:164",
-        shape=f"{P} rays, 64^3 field, RK4, (63, 20, {P}) residual",
-        max_abs_err=k1t_err, tolerance=0.0, ms=k1t_ms, plain_ms=k1_plain_ms,
-        bound_ms=k1t_bound, bound_by=k1t_by, library_ms=None))
-
-    # ------------------------------------------------------------------
-    # phase 2e: K4 and K5, the march's backward kernels
-    # ------------------------------------------------------------------
-    print("K4 / K5 march backward (csrc/march_bwd.cu) against autograd "
-          "through the plain march")
-    # the random-density volume of the JAX package's fused-march tests
-    rgen = np.random.default_rng(3)
-    rx = np.linspace(-6e4, 6e4, 12)
-    rz = np.linspace(4.0e5, 9.0e5, 12)
-    vol_rand = build_density_volume(
-        1.2 + 0.8 * rgen.random((12, 12, 12)),
-        [rx[1] - rx[0], rx[1] - rx[0], rz[1] - rz[0]], [rx[0], rx[0], rz[0]],
-        device=dev)
-    rtx, rty = rgen.uniform(-0.08, 0.08, P), rgen.uniform(-0.08, 0.08, P)
-    rinv = 1.0 / np.sqrt(rtx * rtx + rty * rty + 1.0)
-    rand_rays = [f32(a) for a in (rgen.uniform(-4e4, 4e4, P),
-                                  rgen.uniform(-4e4, 4e4, P),
-                                  np.full(P, 1.0e6), rtx * rinv, rty * rinv,
-                                  -rinv)]
-    # some rays start inside the volume, below it, or travel upward
-    rand_rays[2][:3000] = f32(rgen.uniform(4.5e5, 8.5e5, 3000))
-    rand_rays[2][3000:4000] = 3.0e5
-    rand_rays[5][4000:5000] = -rand_rays[5][4000:5000]
-    iters_bench = mdf.defect_iterations(
-        geom, mdf.remarch_contraction(vol.field, geom))
-    print(f"    defect corrections of K5 on the bench volume: {iters_bench}")
-    march_errs = {}
-    for alg, alg_name in ((2, "RK4"), (1, "Euler")):
-        march_errs[alg_name] = march_bwd_case(
-            vol, chief, alg, f"{alg_name}, {P} rays, bench 64^3")
-        march_bwd_case(vol_rand, rand_rays, alg,
-                       f"{alg_name}, {P} rays, random 12^3")
-
-    ct6 = torch.randn(6, P, generator=gen, device=dev)
-
-    def run_k4():
-        return march_backward_stage(vol.field, rays6, texit, traj, ct6, gnp,
-                                    2)
-
-    def run_k5():
-        return march_backward_remarch(vol.field, rays6, texit, out_t, ct6,
-                                      gnp, 2, iters_bench)
-
-    d_a, d_b = run_k4()[0], run_k4()[0]
-    sync()
-    k4_rr = nerr(d_a, d_b)
-    print(f"    two K4 launches differ in d_field by {k4_rr:.3e} of its "
-          f"maximum (float atomics)")
-    require(k4_rr <= 1e-4, f"two K4 launches differ by {k4_rr}")
-    k4_ms = time_ms(run_k4, reps=5, warm=1)
-    k5_ms = time_ms(run_k5, reps=5, warm=1)
-    fld_p = vol.field.detach().clone().requires_grad_(True)
-    outs_p = march_chief_dense(vol._replace(field=fld_p), *chief, algorithm=2)
-    # (the exit z is a landing plane and carries no gradient)
-    diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
-    march_plain_bwd_ms = time_ms(
-        lambda: torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
-                                    grad_outputs=[ct6[i] for i in diff_p],
-                                    retain_graph=True), reps=3, warm=1)
-    del outs_p, fld_p
-    k4_ops = steps * (4 * MARCH_VJP_OPS_PER_STAGE + MARCH_VJP_OPS_PER_COMBINE)
-    k4_bound, k4_by = bound_ms(traj_bytes + 21 * P * 4 + 2 * field_bytes,
-                               k4_ops)
-    k5_ops = k4_ops + steps * (
-        (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS
-        + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
-    k5_bound, k5_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5_ops)
-    k4_atomics = scatter_atomics(traj, rays6, gnp, vol.field.shape, 1, 2)
-    k5_atomics = scatter_atomics(traj, rays6, gnp, vol.field.shape, 1, 2,
-                                 step_sums=False)
-    print(f"    K4 time {k4_ms:.4f} ms  bound {k4_bound:.4f} ms ({k4_by})  "
-          f"K5 time {k5_ms:.4f} ms  bound {k5_bound:.4f} ms ({k5_by})  "
-          f"autograd through the plain march {march_plain_bwd_ms:.2f} ms  "
-          f"[{card}]")
-    print(f"    16-byte atomics into d_field, modelled from the stage "
-          f"residual (scatter_atomics, not counted on the card): K4 "
-          f"{k4_atomics[0]}, K5 {k5_atomics[0]} merged across the warp, "
-          f"{k4_atomics[1]} one a lane "
-          f"({k4_atomics[1] / max(k4_atomics[0], 1):.1f} and "
-          f"{k4_atomics[1] / max(k5_atomics[0], 1):.1f} times as many)")
-    for nm, line, ms_, bnd, by in (
-            ("march_bwd_stage", 656, k4_ms, k4_bound, k4_by),
-            ("march_bwd_remarch", 348, k5_ms, k5_bound, k5_by)):
-        e = march_errs["RK4"]["K4" if nm == "march_bwd_stage" else "K5"]
-        kernel_rows.append(dict(
-            name=nm, route="cuda",
-            source="photon_tpu_torch/csrc/march_bwd.cu",
-            replaces=f"photon_tpu/ops/march_dense_fused.py:{line}",
-            shape=f"{P} rays, 64^3 field, RK4",
-            max_abs_err=e[0], state_err=e[1], tolerance=MARCH_FIELD_TOL,
-            ms=ms_, plain_ms=march_plain_bwd_ms, bound_ms=bnd, bound_by=by,
-            library_ms=None))
-    del traj, texit, d_a, d_b
-
-    # ------------------------------------------------------------------
-    # phase 2f: K6, the fan's backward
-    # ------------------------------------------------------------------
-    print("K6 fan backward (csrc/fan_stats_bwd.cu) against autograd through "
-          "the plain fan")
-    # limit: four times the largest error seen on the card (2.5e-4, when
-    # the kernel was built without FMA contraction), of each column's
-    # largest cotangent.  Kernel and autograd differ by the order of the sum
-    # over the 500 rays, by the kernel's contraction everywhere but the thick
-    # lens's discriminant and its cotangent (formed as autograd forms them),
-    # and by its reciprocals in place of divisions.  The error was the same
-    # for the three lens models, so it is not the discriminant's cotangent
-    # that sets it but the centroid loss: ct_A + ct_AX X + ct_AY Y nearly
-    # cancels for every ray, since scaling a particle's amplitude moves no
-    # centroid.
-    K6_TOL = 1e-3
-    a_mean = float(A[A > 0].mean())
-
-    def fan_grads(fn, cols, dd, lens_model, coef, **extra):
-        cc = [c.detach().clone().requires_grad_(True) for c in cols]
-        d6 = None if dd is None else tuple(
-            d.detach().clone().requires_grad_(True) for d in dd)
-        fa, fax, fay = fn(*cc, d6, x_lens, y_lens, sc=sc,
-                          lens_model=lens_model, mirror_x=True, **extra)
-        den = fa.clamp_min(1e-30)
-        loss = (coef[0] * fa / a_mean + coef[1] * fax / den
-                + coef[2] * fay / den).sum()
-        return torch.autograd.grad(loss, cc + list(d6 or ()))
-
-    def fan_bwd_case(lens_model, d6, sel, label, plain_slice=None):
-        """One launch of the kernel route against autograd through the plain
-        fan.  The loss is a sum over particles of terms of one particle each,
-        so the plain side may be taken `plain_slice` particles at a time (its
-        graph holds dozens of (particles, rays) arrays) and concatenated."""
-        cols = [a[sel].contiguous() for a in (xs, ys, zs, amp0)]
-        dd = None if d6 is None else tuple(d[sel].contiguous() for d in d6)
-        n_p = cols[0].shape[0]
-        coef = torch.randn(3, n_p, generator=gen, device=dev)
-        before = int(fan_stats_backward.launches)
-        gk = fan_grads(fan_stats, cols, dd, lens_model, coef)
+                         ms=k3_ms_whole, device_ms=k3_dev_whole,
+                         plain_ms=k3_plain_ms_whole,
+                         bound_ms=k3_bound_whole),
+        scattered=dict(shape=f"{P} spots at uniform random positions",
+                       max_abs_err=k3_err_sc, ms=k3_ms_sc,
+                       device_ms=k3_dev_sc, bound_ms=k3_bound_sc)))
+    if not args.splat_only:
+        # ------------------------------------------------------------------
+        # phase 2d: K1's stage-residual head (the forward of the gradient route)
+        # ------------------------------------------------------------------
+        print("K1 stage-residual head (csrc/march_dense.cu) against the plain head")
+        gnp = np.asarray(geom, dtype=np.float32)
+        field_bytes = vol.field.numel() * 4
+        rays6 = torch.stack(chief).contiguous()
+        out_t, texit, traj = march_forward_residual(vol.field, rays6, gnp, 2, True)
+        out_n, texit_n, _ = march_forward_residual(vol.field, rays6, gnp, 2, False)
+        plain_head = torch.stack(march_chief_fused(vol, *chief, algorithm=2))
         sync()
-        require(int(fan_stats_backward.launches) == before + 1,
-                f"K6 {label}: the kernel route took "
-                f"{int(fan_stats_backward.launches) - before} launches, not 1")
-        parts = []
-        for s0 in range(0, n_p, plain_slice or n_p):
-            sl = slice(s0, min(s0 + (plain_slice or n_p), n_p))
-            parts.append(fan_grads(
-                fan_stats_plain, [c[sl] for c in cols],
-                None if dd is None else tuple(d[sl] for d in dd),
-                lens_model, coef[:, sl]))
-        gp = [torch.cat(g) for g in zip(*parts)]
-        err = max(nerr(a, b) for a, b in zip(gk, gp))
-        live = int(sum(int((b != 0).any()) for b in gp))
-        hold(f"K6 {label}: {len(gp)} column cotangents, {live} not zero "
-             f"(each of its maximum)", err, K6_TOL)
-        if not all(bool(torch.isfinite(g).all()) for g in gk):
-            failures.append(f"K6 {label}: not finite")
-        return err
+        k1t_err = float((out_t - plain_head).abs().max())
+        # bit-equal: the two heads are instantiations of one kernel that differ
+        # only in what they store
+        hold(f"K1 residual head, {P} rays: values that differ from the plain "
+             f"head", float((out_t != plain_head).sum()), 0.0)
+        hold("K1 gradient-route head without the residual: values that differ",
+             float((out_t != out_n).sum()
+                   + (texit[:, inside] != texit_n[:, inside]).sum()), 0.0)
+        k1t_ms = time_ms(lambda: march_forward_residual(vol.field, rays6, gnp, 2,
+                                                        True))
+        traj_bytes = steps * 20 * 4
+        k1t_bound, k1t_by = bound_ms(15 * P * 4 + field_bytes + traj_bytes, k1_ops)
+        print(f"    time {k1t_ms:.4f} ms  (plain head {k1_ms:.4f} ms)  bound "
+              f"{k1t_bound:.4f} ms ({k1t_by}; residual {traj_bytes / 1e6:.1f} MB "
+              f"written, {traj.numel() * 4 / 1e6:.1f} MB allocated)  [{card}]")
+        kernel_rows.append(dict(
+            name="march_dense_residual", route="cuda",
+            source="photon_tpu_torch/csrc/march_dense.cu",
+            replaces="photon_tpu/ops/march_dense_fused.py:164",
+            shape=f"{P} rays, 64^3 field, RK4, (63, 20, {P}) residual",
+            max_abs_err=k1t_err, tolerance=0.0, ms=k1t_ms, plain_ms=k1_plain_ms,
+            bound_ms=k1t_bound, bound_by=k1t_by, library_ms=None))
 
-    k6_err = fan_bwd_case("general", deltas6, first,
-                          f"general + deltas, {chunk} x {R}")
-    fan_bwd_case("general", None, first, f"general, no deltas, {chunk} x {R}")
-    for lm in ("apparent", "thin-lens"):
-        fan_bwd_case(lm, deltas6, first, f"{lm} + deltas, {chunk} x {R}")
-        fan_bwd_case(lm, None, first, f"{lm}, no deltas, {chunk} x {R}")
-    # the shape the inversion path gives it: one launch over every particle
-    k6_err_whole = fan_bwd_case(
-        "general", deltas6, whole,
-        f"general + deltas, {P} x {R} (the plain side 4000 particles at a "
-        f"time)", plain_slice=4000)
-    # off-sensor particles get exactly zero
-    gfar_b = fan_grads(fan_stats, far, None, "general",
-                       torch.ones(3, chunk, device=dev))
-    if not all(float(g[:7].abs().max()) == 0.0 for g in gfar_b):
-        failures.append("K6 off-sensor particles")
+        # ------------------------------------------------------------------
+        # phase 2e: K4 and K5, the march's backward kernels
+        # ------------------------------------------------------------------
+        print("K4 / K5 march backward (csrc/march_bwd.cu) against autograd "
+              "through the plain march")
+        # the random-density volume of the JAX package's fused-march tests
+        rgen = np.random.default_rng(3)
+        rx = np.linspace(-6e4, 6e4, 12)
+        rz = np.linspace(4.0e5, 9.0e5, 12)
+        vol_rand = build_density_volume(
+            1.2 + 0.8 * rgen.random((12, 12, 12)),
+            [rx[1] - rx[0], rx[1] - rx[0], rz[1] - rz[0]], [rx[0], rx[0], rz[0]],
+            device=dev)
+        rtx, rty = rgen.uniform(-0.08, 0.08, P), rgen.uniform(-0.08, 0.08, P)
+        rinv = 1.0 / np.sqrt(rtx * rtx + rty * rty + 1.0)
+        rand_rays = [f32(a) for a in (rgen.uniform(-4e4, 4e4, P),
+                                      rgen.uniform(-4e4, 4e4, P),
+                                      np.full(P, 1.0e6), rtx * rinv, rty * rinv,
+                                      -rinv)]
+        # some rays start inside the volume, below it, or travel upward
+        rand_rays[2][:3000] = f32(rgen.uniform(4.5e5, 8.5e5, 3000))
+        rand_rays[2][3000:4000] = 3.0e5
+        rand_rays[5][4000:5000] = -rand_rays[5][4000:5000]
+        iters_bench = mdf.defect_iterations(
+            geom, mdf.remarch_contraction(vol.field, geom))
+        print(f"    defect corrections of K5 on the bench volume: {iters_bench}")
+        march_errs = {}
+        for alg, alg_name in ((2, "RK4"), (1, "Euler")):
+            march_errs[alg_name] = march_bwd_case(
+                vol, chief, alg, f"{alg_name}, {P} rays, bench 64^3")
+            march_bwd_case(vol_rand, rand_rays, alg,
+                           f"{alg_name}, {P} rays, random 12^3")
 
-    consts = fan_backward_constants(sc)
+        ct6 = torch.randn(6, P, generator=gen, device=dev)
 
-    def fan_bwd_time(sel, **kw):
-        cols = [a[sel].contiguous() for a in (xs, ys, zs, amp0)] \
-            + [d[sel].contiguous() for d in deltas6]
-        ct3 = torch.randn(3, cols[0].shape[0], generator=gen, device=dev)
-        return time_ms(lambda: fan_stats_backward(
-            cols, x_lens, y_lens, ct3, consts, "general", True), **kw)
+        def run_k4():
+            return march_backward_stage(vol.field, rays6, texit, traj, ct6, gnp,
+                                        2)
 
-    k6_ms = fan_bwd_time(first, inner=20)
-    k6_ms_whole = fan_bwd_time(whole)
-    cc_p = [a[first].detach().clone().requires_grad_(True)
-            for a in (xs, ys, zs, amp0)]
-    dd_p = tuple(d[first].detach().clone().requires_grad_(True)
-                 for d in deltas6)
-    outs_p = fan_stats_plain(*cc_p, dd_p, x_lens, y_lens, sc=sc,
-                             lens_model="general", mirror_x=True)
-    ct3_p = list(torch.randn(3, chunk, generator=gen, device=dev).unbind(0))
-    k6_plain_ms = time_ms(
-        lambda: torch.autograd.grad(outs_p, cc_p + list(dd_p),
-                                    grad_outputs=ct3_p, retain_graph=True),
-        reps=5, warm=1)
-    del outs_p, cc_p, dd_p
-    bwd_pair_ops = pair_ops + FAN_BWD_OPS_PER_PAIR["general"] \
-        + FAN_BWD_OPS_MARCH
+        def run_k5():
+            return march_backward_remarch(vol.field, rays6, texit, out_t, ct6,
+                                          gnp, 2, iters_bench)
 
-    def fan_bwd_bound(n_p):
-        return bound_ms(23 * n_p * 4 + 2 * R * 4, n_p * R * bwd_pair_ops)
+        d_a, d_b = run_k4()[0], run_k4()[0]
+        sync()
+        k4_rr = nerr(d_a, d_b)
+        print(f"    two K4 launches differ in d_field by {k4_rr:.3e} of its "
+              f"maximum (float atomics)")
+        require(k4_rr <= 1e-4, f"two K4 launches differ by {k4_rr}")
+        k4_ms = time_ms(run_k4, reps=5, warm=1)
+        k5_ms = time_ms(run_k5, reps=5, warm=1)
+        fld_p = vol.field.detach().clone().requires_grad_(True)
+        outs_p = march_chief_dense(vol._replace(field=fld_p), *chief, algorithm=2)
+        # (the exit z is a landing plane and carries no gradient)
+        diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
+        march_plain_bwd_ms = time_ms(
+            lambda: torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
+                                        grad_outputs=[ct6[i] for i in diff_p],
+                                        retain_graph=True), reps=3, warm=1)
+        del outs_p, fld_p
+        k4_ops = steps * (4 * MARCH_VJP_OPS_PER_STAGE + MARCH_VJP_OPS_PER_COMBINE)
+        k4_bound, k4_by = bound_ms(traj_bytes + 21 * P * 4 + 2 * field_bytes,
+                                   k4_ops)
+        k5_ops = k4_ops + steps * (
+            (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS
+            + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
+        k5_bound, k5_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5_ops)
+        k4_atomics = scatter_atomics(traj, rays6, gnp, vol.field.shape, 1, 2)
+        k5_atomics = scatter_atomics(traj, rays6, gnp, vol.field.shape, 1, 2,
+                                     step_sums=False)
+        print(f"    K4 time {k4_ms:.4f} ms  bound {k4_bound:.4f} ms ({k4_by})  "
+              f"K5 time {k5_ms:.4f} ms  bound {k5_bound:.4f} ms ({k5_by})  "
+              f"autograd through the plain march {march_plain_bwd_ms:.2f} ms  "
+              f"[{card}]")
+        print(f"    16-byte atomics into d_field, modelled from the stage "
+              f"residual (scatter_atomics, not counted on the card): K4 "
+              f"{k4_atomics[0]}, K5 {k5_atomics[0]} merged across the warp, "
+              f"{k4_atomics[1]} one a lane "
+              f"({k4_atomics[1] / max(k4_atomics[0], 1):.1f} and "
+              f"{k4_atomics[1] / max(k5_atomics[0], 1):.1f} times as many)")
+        for nm, line, ms_, bnd, by in (
+                ("march_bwd_stage", 656, k4_ms, k4_bound, k4_by),
+                ("march_bwd_remarch", 348, k5_ms, k5_bound, k5_by)):
+            e = march_errs["RK4"]["K4" if nm == "march_bwd_stage" else "K5"]
+            kernel_rows.append(dict(
+                name=nm, route="cuda",
+                source="photon_tpu_torch/csrc/march_bwd.cu",
+                replaces=f"photon_tpu/ops/march_dense_fused.py:{line}",
+                shape=f"{P} rays, 64^3 field, RK4",
+                max_abs_err=e[0], state_err=e[1], tolerance=MARCH_FIELD_TOL,
+                ms=ms_, plain_ms=march_plain_bwd_ms, bound_ms=bnd, bound_by=by,
+                library_ms=None))
+        del traj, texit, d_a, d_b
 
-    k6_bound, k6_by = fan_bwd_bound(chunk)
-    k6_bound_whole, _ = fan_bwd_bound(P)
-    print(f"    {chunk} x {R}: time {k6_ms:.4f} ms  autograd through the "
-          f"plain fan {k6_plain_ms:.2f} ms  bound {k6_bound:.4f} ms "
-          f"({k6_by})  [{card}]")
-    print(f"    {P} x {R}: time {k6_ms_whole:.4f} ms  bound "
-          f"{k6_bound_whole:.4f} ms ({k6_by})  [{card}]")
-    kernel_rows.append(dict(
-        name="fan_stats_bwd", route="cuda",
-        source="photon_tpu_torch/csrc/fan_stats_bwd.cu",
-        replaces="photon_tpu/ops/fan_pallas.py:230",
-        shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
-        max_abs_err=k6_err, tolerance=K6_TOL, ms=k6_ms, plain_ms=k6_plain_ms,
-        bound_ms=k6_bound, bound_by=k6_by, library_ms=None,
-        whole_image=dict(shape=f"{P} x {R}", max_abs_err=k6_err_whole,
-                         ms=k6_ms_whole, bound_ms=k6_bound_whole)))
+        # ------------------------------------------------------------------
+        # phase 2f: K6, the fan's backward
+        # ------------------------------------------------------------------
+        print("K6 fan backward (csrc/fan_stats_bwd.cu) against autograd through "
+              "the plain fan")
+        # limit: four times the largest error seen on the card (2.5e-4, when
+        # the kernel was built without FMA contraction), of each column's
+        # largest cotangent.  Kernel and autograd differ by the order of the sum
+        # over the 500 rays, by the kernel's contraction everywhere but the thick
+        # lens's discriminant and its cotangent (formed as autograd forms them),
+        # and by its reciprocals in place of divisions.  The error was the same
+        # for the three lens models, so it is not the discriminant's cotangent
+        # that sets it but the centroid loss: ct_A + ct_AX X + ct_AY Y nearly
+        # cancels for every ray, since scaling a particle's amplitude moves no
+        # centroid.
+        K6_TOL = 1e-3
+        a_mean = float(A[A > 0].mean())
+
+        def fan_grads(fn, cols, dd, lens_model, coef, **extra):
+            cc = [c.detach().clone().requires_grad_(True) for c in cols]
+            d6 = None if dd is None else tuple(
+                d.detach().clone().requires_grad_(True) for d in dd)
+            fa, fax, fay = fn(*cc, d6, x_lens, y_lens, sc=sc,
+                              lens_model=lens_model, mirror_x=True, **extra)
+            den = fa.clamp_min(1e-30)
+            loss = (coef[0] * fa / a_mean + coef[1] * fax / den
+                    + coef[2] * fay / den).sum()
+            return torch.autograd.grad(loss, cc + list(d6 or ()))
+
+        def fan_bwd_case(lens_model, d6, sel, label, plain_slice=None):
+            """One launch of the kernel route against autograd through the plain
+            fan.  The loss is a sum over particles of terms of one particle each,
+            so the plain side may be taken `plain_slice` particles at a time (its
+            graph holds dozens of (particles, rays) arrays) and concatenated."""
+            cols = [a[sel].contiguous() for a in (xs, ys, zs, amp0)]
+            dd = None if d6 is None else tuple(d[sel].contiguous() for d in d6)
+            n_p = cols[0].shape[0]
+            coef = torch.randn(3, n_p, generator=gen, device=dev)
+            before = int(fan_stats_backward.launches)
+            gk = fan_grads(fan_stats, cols, dd, lens_model, coef)
+            sync()
+            require(int(fan_stats_backward.launches) == before + 1,
+                    f"K6 {label}: the kernel route took "
+                    f"{int(fan_stats_backward.launches) - before} launches, not 1")
+            parts = []
+            for s0 in range(0, n_p, plain_slice or n_p):
+                sl = slice(s0, min(s0 + (plain_slice or n_p), n_p))
+                parts.append(fan_grads(
+                    fan_stats_plain, [c[sl] for c in cols],
+                    None if dd is None else tuple(d[sl] for d in dd),
+                    lens_model, coef[:, sl]))
+            gp = [torch.cat(g) for g in zip(*parts)]
+            err = max(nerr(a, b) for a, b in zip(gk, gp))
+            live = int(sum(int((b != 0).any()) for b in gp))
+            hold(f"K6 {label}: {len(gp)} column cotangents, {live} not zero "
+                 f"(each of its maximum)", err, K6_TOL)
+            if not all(bool(torch.isfinite(g).all()) for g in gk):
+                failures.append(f"K6 {label}: not finite")
+            return err
+
+        k6_err = fan_bwd_case("general", deltas6, first,
+                              f"general + deltas, {chunk} x {R}")
+        fan_bwd_case("general", None, first, f"general, no deltas, {chunk} x {R}")
+        for lm in ("apparent", "thin-lens"):
+            fan_bwd_case(lm, deltas6, first, f"{lm} + deltas, {chunk} x {R}")
+            fan_bwd_case(lm, None, first, f"{lm}, no deltas, {chunk} x {R}")
+        # the shape the inversion path gives it: one launch over every particle
+        k6_err_whole = fan_bwd_case(
+            "general", deltas6, whole,
+            f"general + deltas, {P} x {R} (the plain side 4000 particles at a "
+            f"time)", plain_slice=4000)
+        # off-sensor particles get exactly zero
+        gfar_b = fan_grads(fan_stats, far, None, "general",
+                           torch.ones(3, chunk, device=dev))
+        if not all(float(g[:7].abs().max()) == 0.0 for g in gfar_b):
+            failures.append("K6 off-sensor particles")
+
+        consts = fan_backward_constants(sc)
+
+        def fan_bwd_time(sel, **kw):
+            cols = [a[sel].contiguous() for a in (xs, ys, zs, amp0)] \
+                + [d[sel].contiguous() for d in deltas6]
+            ct3 = torch.randn(3, cols[0].shape[0], generator=gen, device=dev)
+            return time_ms(lambda: fan_stats_backward(
+                cols, x_lens, y_lens, ct3, consts, "general", True), **kw)
+
+        k6_ms = fan_bwd_time(first, inner=20)
+        k6_ms_whole = fan_bwd_time(whole)
+        cc_p = [a[first].detach().clone().requires_grad_(True)
+                for a in (xs, ys, zs, amp0)]
+        dd_p = tuple(d[first].detach().clone().requires_grad_(True)
+                     for d in deltas6)
+        outs_p = fan_stats_plain(*cc_p, dd_p, x_lens, y_lens, sc=sc,
+                                 lens_model="general", mirror_x=True)
+        ct3_p = list(torch.randn(3, chunk, generator=gen, device=dev).unbind(0))
+        k6_plain_ms = time_ms(
+            lambda: torch.autograd.grad(outs_p, cc_p + list(dd_p),
+                                        grad_outputs=ct3_p, retain_graph=True),
+            reps=5, warm=1)
+        del outs_p, cc_p, dd_p
+        bwd_pair_ops = pair_ops + FAN_BWD_OPS_PER_PAIR["general"] \
+            + FAN_BWD_OPS_MARCH
+
+        def fan_bwd_bound(n_p):
+            return bound_ms(23 * n_p * 4 + 2 * R * 4, n_p * R * bwd_pair_ops)
+
+        k6_bound, k6_by = fan_bwd_bound(chunk)
+        k6_bound_whole, _ = fan_bwd_bound(P)
+        print(f"    {chunk} x {R}: time {k6_ms:.4f} ms  autograd through the "
+              f"plain fan {k6_plain_ms:.2f} ms  bound {k6_bound:.4f} ms "
+              f"({k6_by})  [{card}]")
+        print(f"    {P} x {R}: time {k6_ms_whole:.4f} ms  bound "
+              f"{k6_bound_whole:.4f} ms ({k6_by})  [{card}]")
+        kernel_rows.append(dict(
+            name="fan_stats_bwd", route="cuda",
+            source="photon_tpu_torch/csrc/fan_stats_bwd.cu",
+            replaces="photon_tpu/ops/fan_pallas.py:230",
+            shape=f"{chunk} particles x {R} rays, thick lens, march deltas",
+            max_abs_err=k6_err, tolerance=K6_TOL, ms=k6_ms, plain_ms=k6_plain_ms,
+            bound_ms=k6_bound, bound_by=k6_by, library_ms=None,
+            whole_image=dict(shape=f"{P} x {R}", max_abs_err=k6_err_whole,
+                             ms=k6_ms_whole, bound_ms=k6_bound_whole)))
 
     # ------------------------------------------------------------------
     # phase 2g: K7, the splat's transpose
@@ -2468,41 +2544,55 @@ def main(argv=None) -> int:
     print("K7 splat transpose (csrc/splat.cu) against autograd through the "
           "plain splat")
     # limit: 30 times the largest error seen on the card (3.5e-7), of each
-    # output's largest value; both sides use erff / expf of the same
-    # arguments and differ by the order of the sum over the patch
+    # output's largest value; both sides use erff / expf of the same edges
+    # (their arguments may round an ulp apart, as in K3) and differ by the
+    # order of the sum over the patch
     K7_TOL = 1e-5
     ct_img = torch.randn(sensor, sensor, generator=gen, device=dev)
 
-    def splat_args(sel, K_):
-        c0 = (torch.round(Xbar).to(torch.int32) - K_ // 2).clamp(0, sensor - K_)
-        r0 = (torch.round(Ybar).to(torch.int32) - K_ // 2).clamp(0, sensor - K_)
-        return [a[sel].contiguous() for a in (Xbar, Ybar, Asc, c0, r0)]
+    def splat_args(sel, K_, X=Xbar, Y=Ybar):
+        c0 = (torch.round(X).to(torch.int32) - K_ // 2).clamp(0, sensor - K_)
+        r0 = (torch.round(Y).to(torch.int32) - K_ // 2).clamp(0, sensor - K_)
+        return [a[sel].contiguous() for a in (X, Y, Asc, c0, r0)]
 
-    def splat_grads(fn, args, K_):
+    def splat_grads(fn, args, ct, **kw):
         leaves = [a.detach().clone().requires_grad_(True) for a in args[:3]]
-        img = fn(*leaves, args[3], args[4], **{**skw, "K": K_})
-        return torch.autograd.grad(img, leaves, grad_outputs=ct_img)
+        img = fn(*leaves, args[3], args[4], **kw)
+        return torch.autograd.grad(img, leaves, grad_outputs=ct)
 
-    def splat_bwd_case(sel, K_, label):
-        args = splat_args(sel, K_)
-        gk = splat_grads(splat_particles, args, K_)
+    def splat_bwd_case(args, label, ct=ct_img, **kw):
+        kw = {**skw, **kw}
+        gk = splat_grads(splat_particles, args, ct, **kw)
         sync()
-        gp = splat_grads(splat_particles_plain, args, K_)
+        gp = splat_grads(splat_particles_plain, args, ct, **kw)
         err = max(nerr(a, b) for a, b in zip(gk, gp))
         hold(f"K7 {label}: d(Xs, Ys, A) (each of its maximum)", err, K7_TOL)
         return err
 
-    k7_err = splat_bwd_case(first, K, f"{chunk} spots, K={K}")
-    splat_bwd_case(first, 12, f"{chunk} spots, K=12")
-    k7_err_whole = splat_bwd_case(whole, K, f"{P} spots, K={K}")
+    k7_err = splat_bwd_case(splat_args(first, K), f"{chunk} spots, K={K}")
+    splat_bwd_case(splat_args(first, 12), f"{chunk} spots, K=12", K=12)
+    k7_err_whole = splat_bwd_case(splat_args(whole, K), f"{P} spots, K={K}")
+    scat_args = splat_args(whole, K, Xsc, Ysc)
+    k7_err_sc = splat_bwd_case(scat_args, f"{P} scattered spots, K={K}")
+    splat_bwd_case([ex, ey, ea, ec, er], "K=40 on a 72x96 frame",
+                   ct=torch.randn(96, 72, generator=gen_sc, device=dev),
+                   **k40)
 
-    def splat_bwd_time(sel, **kw):
-        args = splat_args(sel, K)
+    def splat_bwd_time(args, **kw):
         return time_ms(lambda: splat_backward(
             *args, ct_img, K=K, diameter=D, render_fraction=0.75), **kw)
 
-    k7_ms = splat_bwd_time(first, inner=20)
-    k7_ms_whole = splat_bwd_time(whole)
+    def splat_bwd_device(args):
+        return device_ms_a_launch(lambda: splat_backward(
+            *args, ct_img, K=K, diameter=D, render_fraction=0.75),
+            "splat_bwd_kernel")
+
+    k7_ms = splat_bwd_time(splat_args(first, K), inner=20)
+    k7_dev = splat_bwd_device(splat_args(first, K))
+    k7_ms_whole = splat_bwd_time(splat_args(whole, K))
+    k7_ms_sc = splat_bwd_time(scat_args)
+    k7_dev_whole = splat_bwd_device(splat_args(whole, K))
+    k7_dev_sc = splat_bwd_device(scat_args)
     args_p = splat_args(first, K)
     leaves_p = [a.detach().clone().requires_grad_(True) for a in args_p[:3]]
     img_p = splat_particles_plain(*leaves_p, args_p[3], args_p[4], **skw)
@@ -2511,385 +2601,401 @@ def main(argv=None) -> int:
                                     retain_graph=True), reps=5, warm=1)
     del img_p, leaves_p
 
-    def splat_bwd_bound(sl, deposits):
-        n_p = Asc[sl].numel()
-        ops = n_p * K * K * SPLAT_OPS_PER_PATCH_PIXEL \
+    def splat_bwd_bound(n_p, deposits, spots):
+        """K7's bound: every patch pixel of a spot that deposits pays its
+        index arithmetic and the circle test, each of its 2 (K + 1) edges
+        one erff and one expf, each deposit its gather's products and
+        sums."""
+        ops = spots * (K * K * SPLAT_OPS_PER_PATCH_PIXEL
+                       + 2 * (K + 1) * SPLAT_BWD_OPS_PER_EDGE) \
             + deposits * SPLAT_BWD_OPS_PER_DEPOSIT
         return bound_ms(32 * n_p + min(sensor * sensor, n_p * K * K) * 4, ops)
 
-    k7_bound, k7_by = splat_bwd_bound(first, k3_dep)
-    k7_bound_whole, k7_by_whole = splat_bwd_bound(whole, k3_dep_whole)
-    print(f"    {chunk} spots: time {k7_ms:.4f} ms  autograd through the "
-          f"plain splat {k7_plain_ms:.2f} ms  bound {k7_bound:.4f} ms "
-          f"({k7_by})  [{card}]")
-    print(f"    {P} spots: time {k7_ms_whole:.4f} ms  bound "
-          f"{k7_bound_whole:.4f} ms ({k7_by_whole})  [{card}]")
+    k7_bound, k7_by = splat_bwd_bound(chunk, k3_dep, k3_spots)
+    k7_bound_whole, k7_by_whole = splat_bwd_bound(P, k3_dep_whole,
+                                                  k3_spots_whole)
+    k7_bound_sc, k7_by_sc = splat_bwd_bound(P, k3_dep_sc, k3_spots_sc)
+    print(f"    {chunk} spots: time {k7_ms:.4f} ms (device "
+          f"{ms_or_not(k7_dev, 4)})  autograd through the plain splat "
+          f"{k7_plain_ms:.2f} ms  bound {k7_bound:.4f} ms ({k7_by})  [{card}]")
+    print(f"    {P} spots: time {k7_ms_whole:.4f} ms (device "
+          f"{ms_or_not(k7_dev_whole, 4)})  bound {k7_bound_whole:.4f} ms "
+          f"({k7_by_whole})  [{card}]")
+    print(f"    {P} scattered spots: time {k7_ms_sc:.4f} ms (device "
+          f"{ms_or_not(k7_dev_sc, 4)})  bound {k7_bound_sc:.4f} ms "
+          f"({k7_by_sc})  [{card}]")
     kernel_rows.append(dict(
         name="splat_bwd", route="cuda",
         source="photon_tpu_torch/csrc/splat.cu",
         replaces="photon_tpu/ops/sensor_fast.py:181",
         shape=f"{chunk} spots, K={K}, {sensor}x{sensor} cotangent",
-        max_abs_err=k7_err, tolerance=K7_TOL, ms=k7_ms, plain_ms=k7_plain_ms,
-        bound_ms=k7_bound, bound_by=k7_by, library_ms=None,
+        max_abs_err=k7_err, tolerance=K7_TOL, ms=k7_ms, device_ms=k7_dev,
+        plain_ms=k7_plain_ms, bound_ms=k7_bound, bound_by=k7_by,
+        library_ms=None,
         whole_image=dict(shape=f"{P} spots", max_abs_err=k7_err_whole,
-                         ms=k7_ms_whole, bound_ms=k7_bound_whole)))
+                         ms=k7_ms_whole, device_ms=k7_dev_whole,
+                         bound_ms=k7_bound_whole),
+        scattered=dict(shape=f"{P} spots at uniform random positions",
+                       max_abs_err=k7_err_sc, ms=k7_ms_sc,
+                       device_ms=k7_dev_sc, bound_ms=k7_bound_sc)))
 
-    # ------------------------------------------------------------------
-    # phase 2h: K1, K4 and K5 under the cubic scheme
-    # ------------------------------------------------------------------
-    print("K1 / K4 / K5 with tricubic interpolation (scheme 2) against the "
-          "plain march and autograd through it")
+    if not args.splat_only:
+        # ------------------------------------------------------------------
+        # phase 2h: K1, K4 and K5 under the cubic scheme
+        # ------------------------------------------------------------------
+        print("K1 / K4 / K5 with tricubic interpolation (scheme 2) against the "
+              "plain march and autograd through it")
 
-    def with_side_rays(rays, v):
-        """The rays with 8000 of them moved sideways: beyond both cubic
-        clamps (ux = -3, ux = W + 2) and across them, where taps fold onto
-        the border voxels and the weights' derivatives are masked."""
-        gg, wv = march_geometry(v), int(v.sizes[0])
-        x_at = lambda ux: float(gg.min_x) + (ux - 0.5) * float(gg.sx)  # noqa: E731
-        out_ = [r.clone() for r in rays]
-        out_[0][:2000] = x_at(-3.0)
-        out_[0][2000:4000] = x_at(wv + 2.0)
-        out_[0][4000:6000] = torch.linspace(x_at(-2.5), x_at(1.0), 2000,
-                                            device=dev)
-        out_[0][6000:8000] = torch.linspace(x_at(wv - 2.0), x_at(wv + 1.5),
-                                            2000, device=dev)
-        return out_
+        def with_side_rays(rays, v):
+            """The rays with 8000 of them moved sideways: beyond both cubic
+            clamps (ux = -3, ux = W + 2) and across them, where taps fold onto
+            the border voxels and the weights' derivatives are masked."""
+            gg, wv = march_geometry(v), int(v.sizes[0])
+            x_at = lambda ux: float(gg.min_x) + (ux - 0.5) * float(gg.sx)  # noqa: E731
+            out_ = [r.clone() for r in rays]
+            out_[0][:2000] = x_at(-3.0)
+            out_[0][2000:4000] = x_at(wv + 2.0)
+            out_[0][4000:6000] = torch.linspace(x_at(-2.5), x_at(1.0), 2000,
+                                                device=dev)
+            out_[0][6000:8000] = torch.linspace(x_at(wv - 2.0), x_at(wv + 1.5),
+                                                2000, device=dev)
+            return out_
 
-    chief_c = with_side_rays(chief, vol)
-    rand_c = with_side_rays(rand_rays, vol_rand)
-    geom_r = march_geometry(vol_rand)
-    scale_r = float(max(abs(float(v)) for v in
-                        (geom_r.min_x, geom_r.min_y, geom_r.z_min,
-                         geom_r.z_max)))
-    k1c_err = {}
-    for v, rays_, sc_v, vname in ((vol, chief_c, scale, "bench 64^3"),
-                                  (vol_rand, rand_c, scale_r, "random 12^3")):
-        for alg, ss, label in ((2, None, "RK4"), (1, None, "Euler"),
-                               (3, 2, "RK4 x 2 substeps")):
-            g = march_chief_fused(v, *rays_, algorithm=alg, substeps=ss,
-                                  interpolation_scheme=2)
-            sync()
-            r = march_chief_dense(v, *rays_, algorithm=alg, substeps=ss,
-                                  interpolation_scheme=2)
-            pe, de = march_err(g, r)
-            err = max(pe / sc_v, de)
-            if v is vol:
-                k1c_err[alg] = err
-            hold(f"K1 tricubic {label}, {P} rays, {vname} (normalised)", err,
-                 K1_TOL)
-    coeff = bspline_prefilter(vol.field)
-    rays6c = torch.stack(chief_c).contiguous()
-    out_c, texit_c, traj_c = march_forward_residual(coeff, rays6c, gnp, 2,
-                                                    True, 2)
-    plain_c = mdf.march_forward_noresidual(coeff, chief_c, gnp, 2, 1, 2)
-    whole_c = torch.stack(march_chief_fused(vol, *chief_c, algorithm=2,
-                                            interpolation_scheme=2))
-    sync()
-    hold(f"K1 tricubic residual head, {P} rays: values that differ from the "
-         f"plain head", float((out_c != plain_c).sum()), 0.0)
-    hold("K1 tricubic through march_chief_fused (its own prefilter): values "
-         "that differ", float((whole_c != plain_c).sum()), 0.0)
-    del out_c, texit_c, traj_c, plain_c, whole_c, rays6c
-
-    # the plain cubic march keeps some 150 bytes of graph a ray, stage and
-    # tap pair, so autograd through it goes 30,000 rays at a time
-    cubic_errs = {}
-    for alg, alg_name in ((2, "RK4"), (1, "Euler")):
-        cubic_errs[alg_name] = march_bwd_case(
-            vol, chief_c, alg, f"tricubic {alg_name}, {P} rays, bench 64^3",
-            scheme=2, ray_slice=30000)
-        march_bwd_case(vol_rand, rand_c, alg,
-                       f"tricubic {alg_name}, {P} rays, random 12^3", scheme=2)
-
-    # times at the shape the main path gives: the chief rays as they are
-    out_c, texit_c, traj_c = march_forward_residual(coeff, rays6, gnp, 2, True,
-                                                    2)
-    prefilter_ms = time_ms(lambda: bspline_prefilter(vol.field), reps=5,
-                           warm=1)
-    k1c_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
-                                                          2, 1, 2))
-    # the shapes of the pair with algorithm 3 and no substeps given: the
-    # march at 2 substeps (what choose_substeps picks on this scene) and its
-    # two probes on 1024 rays at 2 and 4 substeps
-    k1c2_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
-                                                           3, 2, 2))
-    k1c2_plain_ms = time_ms(lambda: march_chief_dense(
-        vol, *chief, algorithm=3, substeps=2, interpolation_scheme=2), reps=3,
-        warm=1)
-    probe_idx = torch.as_tensor(
-        np.linspace(0, P - 1, 1024).astype(np.int64), device=dev)
-    probe = [c[probe_idx].contiguous() for c in chief]
-    probe_ms, probe_err = {}, 0.0
-    for ss in (2, 4):
-        g = mdf.march_forward_noresidual(coeff, probe, gnp, 3, ss, 2)
+        chief_c = with_side_rays(chief, vol)
+        rand_c = with_side_rays(rand_rays, vol_rand)
+        geom_r = march_geometry(vol_rand)
+        scale_r = float(max(abs(float(v)) for v in
+                            (geom_r.min_x, geom_r.min_y, geom_r.z_min,
+                             geom_r.z_max)))
+        k1c_err = {}
+        for v, rays_, sc_v, vname in ((vol, chief_c, scale, "bench 64^3"),
+                                      (vol_rand, rand_c, scale_r, "random 12^3")):
+            for alg, ss, label in ((2, None, "RK4"), (1, None, "Euler"),
+                                   (3, 2, "RK4 x 2 substeps")):
+                g = march_chief_fused(v, *rays_, algorithm=alg, substeps=ss,
+                                      interpolation_scheme=2)
+                sync()
+                r = march_chief_dense(v, *rays_, algorithm=alg, substeps=ss,
+                                      interpolation_scheme=2)
+                pe, de = march_err(g, r)
+                err = max(pe / sc_v, de)
+                if v is vol:
+                    k1c_err[alg] = err
+                hold(f"K1 tricubic {label}, {P} rays, {vname} (normalised)", err,
+                     K1_TOL)
+        coeff = bspline_prefilter(vol.field)
+        rays6c = torch.stack(chief_c).contiguous()
+        out_c, texit_c, traj_c = march_forward_residual(coeff, rays6c, gnp, 2,
+                                                        True, 2)
+        plain_c = mdf.march_forward_noresidual(coeff, chief_c, gnp, 2, 1, 2)
+        whole_c = torch.stack(march_chief_fused(vol, *chief_c, algorithm=2,
+                                                interpolation_scheme=2))
         sync()
-        r = march_chief_dense(vol, *probe, algorithm=3, substeps=ss,
-                              interpolation_scheme=2)
-        pe, de = march_err(tuple(g), r)
-        probe_err = max(probe_err, pe / scale, de)
-        probe_ms[ss] = time_ms(lambda: mdf.march_forward_noresidual(
-            coeff, probe, gnp, 3, ss, 2))
-    hold("K1 tricubic, the 1024 probe rays of choose_substeps at 2 and 4 "
-         "substeps (normalised)", probe_err, K1_TOL)
-    k1c_call_ms = time_ms(lambda: march_chief_fused(
-        vol, *chief, algorithm=2, interpolation_scheme=2), reps=5, warm=1)
-    k1c_plain_ms = time_ms(lambda: march_chief_dense(
-        vol, *chief, algorithm=2, interpolation_scheme=2), reps=3, warm=1)
-    k1tc_ms = time_ms(lambda: march_forward_residual(coeff, rays6, gnp, 2,
-                                                     True, 2))
-    k4c_ms = time_ms(lambda: march_backward_stage(
-        coeff, rays6, texit_c, traj_c, ct6, gnp, 2, 2), reps=5, warm=1)
-    k5c_ms = time_ms(lambda: march_backward_remarch(
-        coeff, rays6, texit_c, out_c, ct6, gnp, 2, iters_bench, 2), reps=5,
-        warm=1)
-    # autograd through the plain cubic march, the backward half only, summed
-    # over slices of 30,000 rays
-    cubic_plain_bwd_ms = 0.0
-    for s0 in range(0, P, 30000):
-        sl = slice(s0, min(s0 + 30000, P))
-        fld_p = vol.field.detach().clone().requires_grad_(True)
-        outs_p = march_chief_dense(vol._replace(field=fld_p),
-                                   *(c[sl] for c in chief), algorithm=2,
-                                   interpolation_scheme=2)
-        diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
-        sync()
-        t0 = time.perf_counter()
-        torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
-                            grad_outputs=[ct6[i, sl] for i in diff_p])
-        sync()
-        cubic_plain_bwd_ms += (time.perf_counter() - t0) * 1e3
-        del outs_p, fld_p
-    k1c_ops = steps * (4 * MARCH_OPS_PER_RHS_CUBIC + MARCH_OPS_PER_RK4_COMBINE)
-    k1c_bound, k1c_by = bound_ms(k1_bytes, k1c_ops)
-    k1c2_bound, k1c2_by = bound_ms(k1_bytes, 2 * k1c_ops)
-    k1tc_bound, k1tc_by = bound_ms(15 * P * 4 + field_bytes + traj_bytes,
-                                   k1c_ops)
-    k4c_ops = steps * (4 * MARCH_VJP_OPS_PER_STAGE_CUBIC
-                       + MARCH_VJP_OPS_PER_COMBINE)
-    k4c_bound, k4c_by = bound_ms(traj_bytes + 21 * P * 4 + 2 * field_bytes,
-                                 k4c_ops)
-    k5c_ops = k4c_ops + steps * (
-        (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS_CUBIC
-        + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
-    k5c_bound, k5c_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5c_ops)
-    print(f"    prefilter of the 64^3 field (PyTorch, no kernel of this "
-          f"package) {prefilter_ms:.3f} ms; march_chief_fused with it "
-          f"{k1c_call_ms:.3f} ms  [{card}]")
-    print(f"    K1 tricubic time {k1c_ms:.4f} ms  plain {k1c_plain_ms:.2f} ms "
-          f"(with its prefilter)  bound {k1c_bound:.4f} ms ({k1c_by})  "
-          f"residual head {k1tc_ms:.4f} ms  bound {k1tc_bound:.4f} ms "
-          f"({k1tc_by})  [{card}]")
-    print(f"    K1 tricubic with 2 substeps: time {k1c2_ms:.4f} ms  plain "
-          f"{k1c2_plain_ms:.2f} ms  bound {k1c2_bound:.4f} ms ({k1c2_by}); on "
-          f"the 1024 probe rays {probe_ms[2]:.4f} ms at 2 substeps, "
-          f"{probe_ms[4]:.4f} ms at 4  [{card}]")
-    k4c_atomics = scatter_atomics(traj_c, rays6, gnp, coeff.shape, 2, 2)
-    print(f"    K4 tricubic time {k4c_ms:.4f} ms  bound {k4c_bound:.4f} ms "
-          f"({k4c_by})  K5 tricubic time {k5c_ms:.4f} ms  bound "
-          f"{k5c_bound:.4f} ms ({k5c_by})  autograd through the plain cubic "
-          f"march {cubic_plain_bwd_ms:.2f} ms  (trilinear: K4 {k4_ms:.4f} ms, "
-          f"K5 {k5_ms:.4f} ms)  [{card}]")
-    print(f"    tricubic 16-byte atomics into d_field, modelled "
-          f"(scatter_atomics, not counted on the card): {k4c_atomics[0]} "
-          f"merged, {k4c_atomics[1]} one a lane "
-          f"({k4c_atomics[1] / max(k4c_atomics[0], 1):.1f} times as many)")
-    cubic_shape = f"{P} rays, 64^3 coefficients, RK4, tricubic"
-    kernel_rows.append(dict(
-        name="march_dense_cubic", route="cuda",
-        source="photon_tpu_torch/csrc/march_dense.cu",
-        replaces="photon_tpu/ops/march_dense_fused.py:174",
-        shape=cubic_shape + " with 2 substeps (the march of the pair that "
-        "launches it)",
-        max_abs_err=k1c_err[3], tolerance=K1_TOL, ms=k1c2_ms,
-        plain_ms=k1c2_plain_ms, bound_ms=k1c2_bound, bound_by=k1c2_by,
-        library_ms=None, prefilter_ms=prefilter_ms,
-        one_substep=dict(shape=cubic_shape, max_abs_err=k1c_err[2],
-                         ms=k1c_ms, plain_ms=k1c_plain_ms,
-                         bound_ms=k1c_bound, ms_with_prefilter=k1c_call_ms),
-        probes=dict(shape="1024 rays, 2 and 4 substeps",
-                    max_abs_err=probe_err, ms=[probe_ms[2], probe_ms[4]])))
-    kernel_rows.append(dict(
-        name="march_dense_residual_cubic", route="cuda",
-        source="photon_tpu_torch/csrc/march_dense.cu",
-        replaces="photon_tpu/ops/march_dense_fused.py:164", shape=cubic_shape,
-        max_abs_err=0.0, tolerance=0.0, ms=k1tc_ms, plain_ms=k1c_plain_ms,
-        bound_ms=k1tc_bound, bound_by=k1tc_by, library_ms=None))
-    for nm, line, ms_, bnd, by in (
-            ("march_bwd_stage_cubic", 656, k4c_ms, k4c_bound, k4c_by),
-            ("march_bwd_remarch_cubic", 348, k5c_ms, k5c_bound, k5c_by)):
-        e = cubic_errs["RK4"]["K4" if "stage" in nm else "K5"]
-        kernel_rows.append(dict(
-            name=nm, route="cuda",
-            source="photon_tpu_torch/csrc/march_bwd.cu",
-            replaces=f"photon_tpu/ops/march_dense_fused.py:{line}",
-            shape=cubic_shape, max_abs_err=e[0], state_err=e[1],
-            tolerance=MARCH_FIELD_TOL, ms=ms_, plain_ms=cubic_plain_bwd_ms,
-            bound_ms=bnd, bound_by=by, library_ms=None))
-    del out_c, texit_c, traj_c
+        hold(f"K1 tricubic residual head, {P} rays: values that differ from the "
+             f"plain head", float((out_c != plain_c).sum()), 0.0)
+        hold("K1 tricubic through march_chief_fused (its own prefilter): values "
+             "that differ", float((whole_c != plain_c).sum()), 0.0)
+        del out_c, texit_c, traj_c, plain_c, whole_c, rays6c
 
-    # ------------------------------------------------------------------
-    # phase 2i: K8 and K9, the per-stage slab sampler and its backward
-    # ------------------------------------------------------------------
-    print("K8 / K9 slab sampler (csrc/slab_sample.cu) against its plain "
-          "version and autograd through it")
-    # limits: the kernel and the plain version run the same f32 formulas and
-    # differ by FMA contraction (values: 5e-6 of each channel's maximum) and,
-    # for the slabs' cotangent, by the order in which some hundreds of rays
-    # add into a voxel (atomics against index_add: 5e-5 of the maximum).  The
-    # coordinate cotangents are sums of differences of neighbouring taps,
-    # which cancel, so contraction shows at 1e-5 (seen: 9e-6): 5e-5 of the
-    # largest of the three rows.  One scale for the three on the bench
-    # field only: it varies along x alone, so d_uy and d_uz are zero in exact
-    # arithmetic and hold nothing but rounding (held each at its own maximum
-    # they read 1.08 and 0.82).  On the noise slabs all three rows are live
-    # and each is held at its own maximum, to 5e-6 (seen: 2.4e-7).
-    K8_TOL, K9_SLAB_TOL, K9_COORD_TOL, K9_COORD_ROW_TOL = 5e-6, 5e-5, 5e-5, 5e-6
-    w_v, h_v = int(vol.sizes[0]), int(vol.sizes[1])
-    ks_mid = n // 2
-    on_slab = (0.5 + (chief[0] - float(geom.min_x)) / float(geom.sx),
-               0.5 + (chief[1] - float(geom.min_y)) / float(geom.sy))
+        # the plain cubic march keeps some 150 bytes of graph a ray, stage and
+        # tap pair, so autograd through it goes 30,000 rays at a time
+        cubic_errs = {}
+        for alg, alg_name in ((2, "RK4"), (1, "Euler")):
+            cubic_errs[alg_name] = march_bwd_case(
+                vol, chief_c, alg, f"tricubic {alg_name}, {P} rays, bench 64^3",
+                scheme=2, ray_slice=30000)
+            march_bwd_case(vol_rand, rand_c, alg,
+                           f"tricubic {alg_name}, {P} rays, random 12^3", scheme=2)
 
-    def uniform(lo_, hi_):
-        return lo_ + (hi_ - lo_) * torch.rand(P, generator=gen, device=dev)
-
-    def rows_err(a, b):
-        return max(nerr(x_, y_) for x_, y_ in zip(a, b))
-
-    sampler = {}
-    noise = [torch.randn(h_v, w_v, 4, generator=gen, device=dev)
-             for _ in range(2)]
-    for scheme in (1, 2):
-        fld = coeff if scheme == 2 else vol.field
-        cases = (("the chief rays on a slab pair of the bench volume",
-                  fld[ks_mid], fld[ks_mid + 1],
-                  on_slab + (uniform(0.0, 1.0),)),
-                 ("random slabs, coordinates beyond both clamps", *noise,
-                  (uniform(-4.0, w_v + 3.0), uniform(-4.0, h_v + 3.0),
-                   uniform(0.0, 1.0))))
-        for label, lo_s, hi_s, uu in cases:
-            uu = tuple(u.contiguous() for u in uu)
-            got = slab_sample_forward(lo_s, hi_s, *uu, scheme)
-            sync()
-            ref = torch.stack(slab_sample_plain(lo_s, hi_s, *uu, scheme))
-            e8 = rows_err(got, ref)
-            hold(f"K8 scheme {scheme}, {P} rays, {label} (each channel of its "
-                 f"maximum)", e8, K8_TOL)
-            ct4 = torch.randn(4, P, generator=gen, device=dev)
-            d_lo, d_hi, d_u = slab_sample_backward(lo_s, hi_s, *uu, ct4,
-                                                   scheme)
-            sync()
-            leaves = [t.detach().clone().requires_grad_(True)
-                      for t in (lo_s, hi_s) + uu]
-            gp = torch.autograd.grad(
-                torch.stack(slab_sample_plain(*leaves, scheme)), leaves,
-                grad_outputs=ct4)
-            e9s = max(nerr(d_lo, gp[0]), nerr(d_hi, gp[1]))
-            on_bench = label.startswith("the chief")
-            if on_bench:
-                e9u = float(max((a_ - b_).abs().max()
-                                for a_, b_ in zip(d_u, gp[2:]))
-                            / max(b_.abs().max() for b_ in gp[2:]))
-            else:
-                e9u = rows_err(d_u, gp[2:])
-            hold(f"K9 scheme {scheme}, {label}: d_lo, d_hi (of their maxima)",
-                 e9s, K9_SLAB_TOL)
-            hold(f"K9 scheme {scheme}, {label}: d_ux, d_uy, d_uz "
-                 f"({'of the largest' if on_bench else 'each of its maximum'})",
-                 e9u, K9_COORD_TOL if on_bench else K9_COORD_ROW_TOL)
-            if on_bench:
-                sampler[scheme] = dict(uu=uu, ct=ct4, lo=lo_s, hi=hi_s,
-                                       e8=e8, e9=max(e9s, e9u))
-    slab_bytes = w_v * h_v * 16
-    for scheme in (1, 2):
-        c = sampler[scheme]
-        c["k8_ms"] = time_ms(lambda: slab_sample_forward(
-            c["lo"], c["hi"], *c["uu"], scheme), inner=20)
-        c["k9_ms"] = time_ms(lambda: slab_sample_backward(
-            c["lo"], c["hi"], *c["uu"], c["ct"], scheme), inner=20)
-        c["k8_plain_ms"] = time_ms(lambda: slab_sample_plain(
-            c["lo"], c["hi"], *c["uu"], scheme), reps=5, warm=1)
-        leaves = [t.detach().clone().requires_grad_(True)
-                  for t in (c["lo"], c["hi"]) + c["uu"]]
-        out_p = torch.stack(slab_sample_plain(*leaves, scheme))
-        c["k9_plain_ms"] = time_ms(lambda: torch.autograd.grad(
-            out_p, leaves, grad_outputs=c["ct"], retain_graph=True), reps=5,
+        # times at the shape the main path gives: the chief rays as they are
+        out_c, texit_c, traj_c = march_forward_residual(coeff, rays6, gnp, 2, True,
+                                                        2)
+        prefilter_ms = time_ms(lambda: bspline_prefilter(vol.field), reps=5,
+                               warm=1)
+        k1c_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
+                                                              2, 1, 2))
+        # the shapes of the pair with algorithm 3 and no substeps given: the
+        # march at 2 substeps (what choose_substeps picks on this scene) and its
+        # two probes on 1024 rays at 2 and 4 substeps
+        k1c2_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
+                                                               3, 2, 2))
+        k1c2_plain_ms = time_ms(lambda: march_chief_dense(
+            vol, *chief, algorithm=3, substeps=2, interpolation_scheme=2), reps=3,
             warm=1)
-        del out_p, leaves
-        c["k8_bound"], c["k8_by"] = bound_ms(
-            7 * P * 4 + 2 * slab_bytes, P * SAMPLE_OPS[scheme])
-        c["k9_bound"], c["k9_by"] = bound_ms(
-            10 * P * 4 + 4 * slab_bytes,
-            P * (SAMPLE_OPS[scheme] + SAMPLE_VJP_OPS[scheme]))
-    # the one PyTorch call that computes the trilinear sample: grid_sample
-    # over the two slabs as a depth-2 volume, border padding (the cubic one
-    # has none: grid_sample's bicubic is another kernel, and 2-D only)
-    c1 = sampler[1]
-    gs_in = torch.stack([c1["lo"], c1["hi"]]).permute(3, 0, 1, 2)[None]
-    gs_in = gs_in.contiguous().requires_grad_(True)
-    gs_grid = torch.stack([2.0 * c1["uu"][0] / (w_v - 1.0) - 1.0,
-                           2.0 * c1["uu"][1] / (h_v - 1.0) - 1.0,
-                           2.0 * c1["uu"][2] - 1.0], -1)
-    gs_grid = gs_grid.reshape(1, 1, 1, P, 3).requires_grad_(True)
-    gs_kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
-    with torch.no_grad():
-        gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
-        k8_lib_err = rows_err(gs_out.reshape(4, P), slab_sample_forward(
-            c1["lo"], c1["hi"], *c1["uu"], 1))
-        k8_lib_ms = time_ms(lambda: torch.nn.functional.grid_sample(
-            gs_in, gs_grid, **gs_kw), inner=20)
-    gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
-    k9_lib_ms = time_ms(lambda: torch.autograd.grad(
-        gs_out, [gs_in, gs_grid], grad_outputs=c1["ct"].reshape(gs_out.shape),
-        retain_graph=True), inner=20)
-    del gs_out
-    # like for like: the device time of one K8 launch and of one grid_sample
-    # call on the same inputs, from one trace (K8's event time is mostly its
-    # wrapper's Python)
-    with torch.no_grad():
-        _, held8 = traced(lambda: (
-            slab_sample_forward(c1["lo"], c1["hi"], *c1["uu"], 1),
-            torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)),
-            others={"grid_sampler": 1})
-    k8_dev, gs_dev = (held8.get(k, NOT_MEASURED) for k in
-                      ("slab_sample_kernel", "grid_sampler"))
-    print(f"    one trace: K8 "
-          f"{ms_or_not(k8_dev if k8_dev == NOT_MEASURED else k8_dev[0], 5)}"
-          f", grid_sample "
-          f"{ms_or_not(gs_dev if gs_dev == NOT_MEASURED else gs_dev[0], 5)}"
-          f" on the device (one launch each)  [{card}]")
-    print(f"    grid_sample on the same inputs differs from K8 by "
-          f"{k8_lib_err:.3e} of each channel's maximum")
-    require(k8_lib_err <= 1e-4, "grid_sample does not compute K8's function")
-    for scheme in (1, 2):
-        c = sampler[scheme]
-        print(f"    scheme {scheme}: K8 time {c['k8_ms']:.4f} ms  plain "
-              f"{c['k8_plain_ms']:.3f} ms  bound {c['k8_bound']:.5f} ms "
-              f"({c['k8_by']})  K9 time {c['k9_ms']:.4f} ms  autograd through "
-              f"the plain sampler {c['k9_plain_ms']:.3f} ms  bound "
-              f"{c['k9_bound']:.5f} ms ({c['k9_by']})  [{card}]")
-    print(f"    grid_sample {k8_lib_ms:.4f} ms, its backward {k9_lib_ms:.4f} "
-          f"ms (trilinear only)  [{card}]")
-    c2 = sampler[2]
-    for nm, line, key, lib_ms in (("slab_sample", 166, "k8", k8_lib_ms),
-                                  ("slab_sample_bwd", 181, "k9", k9_lib_ms)):
-        err_key = "e8" if key == "k8" else "e9"
+        probe_idx = torch.as_tensor(
+            np.linspace(0, P - 1, 1024).astype(np.int64), device=dev)
+        probe = [c[probe_idx].contiguous() for c in chief]
+        probe_ms, probe_err = {}, 0.0
+        for ss in (2, 4):
+            g = mdf.march_forward_noresidual(coeff, probe, gnp, 3, ss, 2)
+            sync()
+            r = march_chief_dense(vol, *probe, algorithm=3, substeps=ss,
+                                  interpolation_scheme=2)
+            pe, de = march_err(tuple(g), r)
+            probe_err = max(probe_err, pe / scale, de)
+            probe_ms[ss] = time_ms(lambda: mdf.march_forward_noresidual(
+                coeff, probe, gnp, 3, ss, 2))
+        hold("K1 tricubic, the 1024 probe rays of choose_substeps at 2 and 4 "
+             "substeps (normalised)", probe_err, K1_TOL)
+        k1c_call_ms = time_ms(lambda: march_chief_fused(
+            vol, *chief, algorithm=2, interpolation_scheme=2), reps=5, warm=1)
+        k1c_plain_ms = time_ms(lambda: march_chief_dense(
+            vol, *chief, algorithm=2, interpolation_scheme=2), reps=3, warm=1)
+        k1tc_ms = time_ms(lambda: march_forward_residual(coeff, rays6, gnp, 2,
+                                                         True, 2))
+        k4c_ms = time_ms(lambda: march_backward_stage(
+            coeff, rays6, texit_c, traj_c, ct6, gnp, 2, 2), reps=5, warm=1)
+        k5c_ms = time_ms(lambda: march_backward_remarch(
+            coeff, rays6, texit_c, out_c, ct6, gnp, 2, iters_bench, 2), reps=5,
+            warm=1)
+        # autograd through the plain cubic march, the backward half only, summed
+        # over slices of 30,000 rays
+        cubic_plain_bwd_ms = 0.0
+        for s0 in range(0, P, 30000):
+            sl = slice(s0, min(s0 + 30000, P))
+            fld_p = vol.field.detach().clone().requires_grad_(True)
+            outs_p = march_chief_dense(vol._replace(field=fld_p),
+                                       *(c[sl] for c in chief), algorithm=2,
+                                       interpolation_scheme=2)
+            diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
+            sync()
+            t0 = time.perf_counter()
+            torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
+                                grad_outputs=[ct6[i, sl] for i in diff_p])
+            sync()
+            cubic_plain_bwd_ms += (time.perf_counter() - t0) * 1e3
+            del outs_p, fld_p
+        k1c_ops = steps * (4 * MARCH_OPS_PER_RHS_CUBIC + MARCH_OPS_PER_RK4_COMBINE)
+        k1c_bound, k1c_by = bound_ms(k1_bytes, k1c_ops)
+        k1c2_bound, k1c2_by = bound_ms(k1_bytes, 2 * k1c_ops)
+        k1tc_bound, k1tc_by = bound_ms(15 * P * 4 + field_bytes + traj_bytes,
+                                       k1c_ops)
+        k4c_ops = steps * (4 * MARCH_VJP_OPS_PER_STAGE_CUBIC
+                           + MARCH_VJP_OPS_PER_COMBINE)
+        k4c_bound, k4c_by = bound_ms(traj_bytes + 21 * P * 4 + 2 * field_bytes,
+                                     k4c_ops)
+        k5c_ops = k4c_ops + steps * (
+            (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS_CUBIC
+            + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
+        k5c_bound, k5c_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5c_ops)
+        print(f"    prefilter of the 64^3 field (PyTorch, no kernel of this "
+              f"package) {prefilter_ms:.3f} ms; march_chief_fused with it "
+              f"{k1c_call_ms:.3f} ms  [{card}]")
+        print(f"    K1 tricubic time {k1c_ms:.4f} ms  plain {k1c_plain_ms:.2f} ms "
+              f"(with its prefilter)  bound {k1c_bound:.4f} ms ({k1c_by})  "
+              f"residual head {k1tc_ms:.4f} ms  bound {k1tc_bound:.4f} ms "
+              f"({k1tc_by})  [{card}]")
+        print(f"    K1 tricubic with 2 substeps: time {k1c2_ms:.4f} ms  plain "
+              f"{k1c2_plain_ms:.2f} ms  bound {k1c2_bound:.4f} ms ({k1c2_by}); on "
+              f"the 1024 probe rays {probe_ms[2]:.4f} ms at 2 substeps, "
+              f"{probe_ms[4]:.4f} ms at 4  [{card}]")
+        k4c_atomics = scatter_atomics(traj_c, rays6, gnp, coeff.shape, 2, 2)
+        print(f"    K4 tricubic time {k4c_ms:.4f} ms  bound {k4c_bound:.4f} ms "
+              f"({k4c_by})  K5 tricubic time {k5c_ms:.4f} ms  bound "
+              f"{k5c_bound:.4f} ms ({k5c_by})  autograd through the plain cubic "
+              f"march {cubic_plain_bwd_ms:.2f} ms  (trilinear: K4 {k4_ms:.4f} ms, "
+              f"K5 {k5_ms:.4f} ms)  [{card}]")
+        print(f"    tricubic 16-byte atomics into d_field, modelled "
+              f"(scatter_atomics, not counted on the card): {k4c_atomics[0]} "
+              f"merged, {k4c_atomics[1]} one a lane "
+              f"({k4c_atomics[1] / max(k4c_atomics[0], 1):.1f} times as many)")
+        cubic_shape = f"{P} rays, 64^3 coefficients, RK4, tricubic"
         kernel_rows.append(dict(
-            name=nm, route="cuda",
-            source="photon_tpu_torch/csrc/slab_sample.cu",
-            replaces=f"photon_tpu/ops/march_dense_pallas.py:{line}",
-            shape=f"{P} rays, one 64 x 64 slab pair, trilinear",
-            max_abs_err=c1[err_key],
-            tolerance=K8_TOL if key == "k8" else K9_SLAB_TOL,
-            ms=c1[key + "_ms"], plain_ms=c1[key + "_plain_ms"],
-            bound_ms=c1[key + "_bound"], bound_by=c1[key + "_by"],
-            library_ms=lib_ms,
-            **({} if key == "k9" or NOT_MEASURED in (k8_dev, gs_dev) else
-               dict(device_ms=k8_dev[0], library_device_ms=gs_dev[0])),
-            cubic=dict(shape=f"{P} rays, one 64 x 64 slab pair, tricubic",
-                       max_abs_err=c2[err_key], ms=c2[key + "_ms"],
-                       plain_ms=c2[key + "_plain_ms"],
-                       bound_ms=c2[key + "_bound"], library_ms=None)))
-    del sampler, c1, c2, coeff
+            name="march_dense_cubic", route="cuda",
+            source="photon_tpu_torch/csrc/march_dense.cu",
+            replaces="photon_tpu/ops/march_dense_fused.py:174",
+            shape=cubic_shape + " with 2 substeps (the march of the pair that "
+            "launches it)",
+            max_abs_err=k1c_err[3], tolerance=K1_TOL, ms=k1c2_ms,
+            plain_ms=k1c2_plain_ms, bound_ms=k1c2_bound, bound_by=k1c2_by,
+            library_ms=None, prefilter_ms=prefilter_ms,
+            one_substep=dict(shape=cubic_shape, max_abs_err=k1c_err[2],
+                             ms=k1c_ms, plain_ms=k1c_plain_ms,
+                             bound_ms=k1c_bound, ms_with_prefilter=k1c_call_ms),
+            probes=dict(shape="1024 rays, 2 and 4 substeps",
+                        max_abs_err=probe_err, ms=[probe_ms[2], probe_ms[4]])))
+        kernel_rows.append(dict(
+            name="march_dense_residual_cubic", route="cuda",
+            source="photon_tpu_torch/csrc/march_dense.cu",
+            replaces="photon_tpu/ops/march_dense_fused.py:164", shape=cubic_shape,
+            max_abs_err=0.0, tolerance=0.0, ms=k1tc_ms, plain_ms=k1c_plain_ms,
+            bound_ms=k1tc_bound, bound_by=k1tc_by, library_ms=None))
+        for nm, line, ms_, bnd, by in (
+                ("march_bwd_stage_cubic", 656, k4c_ms, k4c_bound, k4c_by),
+                ("march_bwd_remarch_cubic", 348, k5c_ms, k5c_bound, k5c_by)):
+            e = cubic_errs["RK4"]["K4" if "stage" in nm else "K5"]
+            kernel_rows.append(dict(
+                name=nm, route="cuda",
+                source="photon_tpu_torch/csrc/march_bwd.cu",
+                replaces=f"photon_tpu/ops/march_dense_fused.py:{line}",
+                shape=cubic_shape, max_abs_err=e[0], state_err=e[1],
+                tolerance=MARCH_FIELD_TOL, ms=ms_, plain_ms=cubic_plain_bwd_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None))
+        del out_c, texit_c, traj_c
+
+        # ------------------------------------------------------------------
+        # phase 2i: K8 and K9, the per-stage slab sampler and its backward
+        # ------------------------------------------------------------------
+        print("K8 / K9 slab sampler (csrc/slab_sample.cu) against its plain "
+              "version and autograd through it")
+        # limits: the kernel and the plain version run the same f32 formulas and
+        # differ by FMA contraction (values: 5e-6 of each channel's maximum) and,
+        # for the slabs' cotangent, by the order in which some hundreds of rays
+        # add into a voxel (atomics against index_add: 5e-5 of the maximum).  The
+        # coordinate cotangents are sums of differences of neighbouring taps,
+        # which cancel, so contraction shows at 1e-5 (seen: 9e-6): 5e-5 of the
+        # largest of the three rows.  One scale for the three on the bench
+        # field only: it varies along x alone, so d_uy and d_uz are zero in exact
+        # arithmetic and hold nothing but rounding (held each at its own maximum
+        # they read 1.08 and 0.82).  On the noise slabs all three rows are live
+        # and each is held at its own maximum, to 5e-6 (seen: 2.4e-7).
+        K8_TOL, K9_SLAB_TOL, K9_COORD_TOL, K9_COORD_ROW_TOL = 5e-6, 5e-5, 5e-5, 5e-6
+        w_v, h_v = int(vol.sizes[0]), int(vol.sizes[1])
+        ks_mid = n // 2
+        on_slab = (0.5 + (chief[0] - float(geom.min_x)) / float(geom.sx),
+                   0.5 + (chief[1] - float(geom.min_y)) / float(geom.sy))
+
+        def uniform(lo_, hi_):
+            return lo_ + (hi_ - lo_) * torch.rand(P, generator=gen, device=dev)
+
+        def rows_err(a, b):
+            return max(nerr(x_, y_) for x_, y_ in zip(a, b))
+
+        sampler = {}
+        noise = [torch.randn(h_v, w_v, 4, generator=gen, device=dev)
+                 for _ in range(2)]
+        for scheme in (1, 2):
+            fld = coeff if scheme == 2 else vol.field
+            cases = (("the chief rays on a slab pair of the bench volume",
+                      fld[ks_mid], fld[ks_mid + 1],
+                      on_slab + (uniform(0.0, 1.0),)),
+                     ("random slabs, coordinates beyond both clamps", *noise,
+                      (uniform(-4.0, w_v + 3.0), uniform(-4.0, h_v + 3.0),
+                       uniform(0.0, 1.0))))
+            for label, lo_s, hi_s, uu in cases:
+                uu = tuple(u.contiguous() for u in uu)
+                got = slab_sample_forward(lo_s, hi_s, *uu, scheme)
+                sync()
+                ref = torch.stack(slab_sample_plain(lo_s, hi_s, *uu, scheme))
+                e8 = rows_err(got, ref)
+                hold(f"K8 scheme {scheme}, {P} rays, {label} (each channel of its "
+                     f"maximum)", e8, K8_TOL)
+                ct4 = torch.randn(4, P, generator=gen, device=dev)
+                d_lo, d_hi, d_u = slab_sample_backward(lo_s, hi_s, *uu, ct4,
+                                                       scheme)
+                sync()
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (lo_s, hi_s) + uu]
+                gp = torch.autograd.grad(
+                    torch.stack(slab_sample_plain(*leaves, scheme)), leaves,
+                    grad_outputs=ct4)
+                e9s = max(nerr(d_lo, gp[0]), nerr(d_hi, gp[1]))
+                on_bench = label.startswith("the chief")
+                if on_bench:
+                    e9u = float(max((a_ - b_).abs().max()
+                                    for a_, b_ in zip(d_u, gp[2:]))
+                                / max(b_.abs().max() for b_ in gp[2:]))
+                else:
+                    e9u = rows_err(d_u, gp[2:])
+                hold(f"K9 scheme {scheme}, {label}: d_lo, d_hi (of their maxima)",
+                     e9s, K9_SLAB_TOL)
+                hold(f"K9 scheme {scheme}, {label}: d_ux, d_uy, d_uz "
+                     f"({'of the largest' if on_bench else 'each of its maximum'})",
+                     e9u, K9_COORD_TOL if on_bench else K9_COORD_ROW_TOL)
+                if on_bench:
+                    sampler[scheme] = dict(uu=uu, ct=ct4, lo=lo_s, hi=hi_s,
+                                           e8=e8, e9=max(e9s, e9u))
+        slab_bytes = w_v * h_v * 16
+        for scheme in (1, 2):
+            c = sampler[scheme]
+            c["k8_ms"] = time_ms(lambda: slab_sample_forward(
+                c["lo"], c["hi"], *c["uu"], scheme), inner=20)
+            c["k9_ms"] = time_ms(lambda: slab_sample_backward(
+                c["lo"], c["hi"], *c["uu"], c["ct"], scheme), inner=20)
+            c["k8_plain_ms"] = time_ms(lambda: slab_sample_plain(
+                c["lo"], c["hi"], *c["uu"], scheme), reps=5, warm=1)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (c["lo"], c["hi"]) + c["uu"]]
+            out_p = torch.stack(slab_sample_plain(*leaves, scheme))
+            c["k9_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+                out_p, leaves, grad_outputs=c["ct"], retain_graph=True), reps=5,
+                warm=1)
+            del out_p, leaves
+            c["k8_bound"], c["k8_by"] = bound_ms(
+                7 * P * 4 + 2 * slab_bytes, P * SAMPLE_OPS[scheme])
+            c["k9_bound"], c["k9_by"] = bound_ms(
+                10 * P * 4 + 4 * slab_bytes,
+                P * (SAMPLE_OPS[scheme] + SAMPLE_VJP_OPS[scheme]))
+        # the one PyTorch call that computes the trilinear sample: grid_sample
+        # over the two slabs as a depth-2 volume, border padding (the cubic one
+        # has none: grid_sample's bicubic is another kernel, and 2-D only)
+        c1 = sampler[1]
+        gs_in = torch.stack([c1["lo"], c1["hi"]]).permute(3, 0, 1, 2)[None]
+        gs_in = gs_in.contiguous().requires_grad_(True)
+        gs_grid = torch.stack([2.0 * c1["uu"][0] / (w_v - 1.0) - 1.0,
+                               2.0 * c1["uu"][1] / (h_v - 1.0) - 1.0,
+                               2.0 * c1["uu"][2] - 1.0], -1)
+        gs_grid = gs_grid.reshape(1, 1, 1, P, 3).requires_grad_(True)
+        gs_kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+        with torch.no_grad():
+            gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
+            k8_lib_err = rows_err(gs_out.reshape(4, P), slab_sample_forward(
+                c1["lo"], c1["hi"], *c1["uu"], 1))
+            k8_lib_ms = time_ms(lambda: torch.nn.functional.grid_sample(
+                gs_in, gs_grid, **gs_kw), inner=20)
+        gs_out = torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
+        k9_lib_ms = time_ms(lambda: torch.autograd.grad(
+            gs_out, [gs_in, gs_grid], grad_outputs=c1["ct"].reshape(gs_out.shape),
+            retain_graph=True), inner=20)
+        del gs_out
+        # like for like: the device time of one K8 launch and of one grid_sample
+        # call on the same inputs, from one trace (K8's event time is mostly its
+        # wrapper's Python)
+        with torch.no_grad():
+            _, held8 = traced(lambda: (
+                slab_sample_forward(c1["lo"], c1["hi"], *c1["uu"], 1),
+                torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)),
+                others={"grid_sampler": 1})
+        k8_dev, gs_dev = (held8.get(k, NOT_MEASURED) for k in
+                          ("slab_sample_kernel", "grid_sampler"))
+        print(f"    one trace: K8 "
+              f"{ms_or_not(k8_dev if k8_dev == NOT_MEASURED else k8_dev[0], 5)}"
+              f", grid_sample "
+              f"{ms_or_not(gs_dev if gs_dev == NOT_MEASURED else gs_dev[0], 5)}"
+              f" on the device (one launch each)  [{card}]")
+        print(f"    grid_sample on the same inputs differs from K8 by "
+              f"{k8_lib_err:.3e} of each channel's maximum")
+        require(k8_lib_err <= 1e-4, "grid_sample does not compute K8's function")
+        for scheme in (1, 2):
+            c = sampler[scheme]
+            print(f"    scheme {scheme}: K8 time {c['k8_ms']:.4f} ms  plain "
+                  f"{c['k8_plain_ms']:.3f} ms  bound {c['k8_bound']:.5f} ms "
+                  f"({c['k8_by']})  K9 time {c['k9_ms']:.4f} ms  autograd through "
+                  f"the plain sampler {c['k9_plain_ms']:.3f} ms  bound "
+                  f"{c['k9_bound']:.5f} ms ({c['k9_by']})  [{card}]")
+        print(f"    grid_sample {k8_lib_ms:.4f} ms, its backward {k9_lib_ms:.4f} "
+              f"ms (trilinear only)  [{card}]")
+        c2 = sampler[2]
+        for nm, line, key, lib_ms in (("slab_sample", 166, "k8", k8_lib_ms),
+                                      ("slab_sample_bwd", 181, "k9", k9_lib_ms)):
+            err_key = "e8" if key == "k8" else "e9"
+            kernel_rows.append(dict(
+                name=nm, route="cuda",
+                source="photon_tpu_torch/csrc/slab_sample.cu",
+                replaces=f"photon_tpu/ops/march_dense_pallas.py:{line}",
+                shape=f"{P} rays, one 64 x 64 slab pair, trilinear",
+                max_abs_err=c1[err_key],
+                tolerance=K8_TOL if key == "k8" else K9_SLAB_TOL,
+                ms=c1[key + "_ms"], plain_ms=c1[key + "_plain_ms"],
+                bound_ms=c1[key + "_bound"], bound_by=c1[key + "_by"],
+                library_ms=lib_ms,
+                **({} if key == "k9" or NOT_MEASURED in (k8_dev, gs_dev) else
+                   dict(device_ms=k8_dev[0], library_device_ms=gs_dev[0])),
+                cubic=dict(shape=f"{P} rays, one 64 x 64 slab pair, tricubic",
+                           max_abs_err=c2[err_key], ms=c2[key + "_ms"],
+                           plain_ms=c2[key + "_plain_ms"],
+                           bound_ms=c2[key + "_bound"], library_ms=None)))
+        del sampler, c1, c2, coeff
 
     if failures:
         raise SystemExit(f"chip_smoke: kernel comparisons failed: {failures}")
@@ -3211,6 +3317,12 @@ def main(argv=None) -> int:
               f"untraced step takes {(fwd_s + bwd_s) * 1e3:.2f} ms, so the "
               f"device was busy for about {dev_ms / 1e3 / (fwd_s + bwd_s):.1%}"
               f" of it (the two times come from different runs)  [{card}]")
+
+    if args.splat_only:
+        for row in kernel_rows:
+            require(row.get("launches", 0) > 0,
+                    f"{row['name']} was never launched on a main path")
+        return finish(kernel_rows)
 
     # ------------------------------------------------------------------
     # phase 5: the rest of the march menu through the command line

@@ -7,19 +7,27 @@ and frame size because a TPU has no scatter.  One kernel covers any
 K <= 64 and any frame here, so ``splat_supported`` / ``splat_v2_supported``
 and the v1/v2 switch have no counterpart.
 
-Bound on the card: f32 operations (four erf a patch pixel) and the atomic
-units; the bytes are 20 a particle in and one image out.  Threads own
-(particle, patch pixel) pairs, skip zero-amplitude particles and pixels
-outside the circular mask, and ``atomicAdd`` into the image.  Float atomics
-add in an order that changes from run to run, so two renders differ in the
-last bits (the TPU kernels are deterministic); ``chip_smoke.py`` measures
-that difference.  An ordered, tile-owned accumulation is a later design.
+The spot is separable, so a particle's weights take one erf a row and a
+column edge of its patch (K + 1 each), formed once; only the rows and columns
+that the circular mask reaches are visited, each pixel with the plain
+version's mask test.  What bounds it on the card is the instructions it
+issues and the atomics, not bytes (20 a particle in, one image out): a warp
+takes up to 32 consecutive particles, a group of lanes each for the edges
+and weights, and deposits them one at a time over the warp; where the run
+is long (a large launch) it adds them into a tile of the image in shared
+memory anchored at the run's first live particle, so a dot's overlapping
+spots cost one atomic a tile pixel in the image.  Float atomics add in an
+order that changes from run to run, so two renders differ in the last bits
+(the TPU kernels are deterministic); ``chip_smoke.py`` measures that
+difference.  One launch a call, no sort of the particles.
 
 Backward kernel: ``photon_splat_bwd`` in the same source.  It replaces the
 backward of ``photon_tpu/ops/sensor_fast.py::_particle_splat_fused`` (the
 XLA transpose of the patch scatter): per particle a gather of its K x K
-patch of the image's cotangent, reduced by one warp to ``d(Xs, Ys, A)``.
-No atomics, so it is run-to-run equal.
+patch of the image's cotangent against the same separable weights and
+their derivatives (an erf and an exp an edge), reduced to
+``d(Xs, Ys, A)`` by the particle's group of lanes (a lane alone in a large
+launch).  No atomics, so it is run-to-run equal.
 
 Plain version: ``sensor_fast._particle_splat_plain`` (re-exported here as
 ``splat_particles_plain``) and ``torch.autograd`` through it.

@@ -6,7 +6,12 @@ march's stage and re-march backward (K4, K5) against autograd through the
 plain march, both schemes, rays in bunches that share voxels (the merged
 scatter) and scattered rays (the direct one); the fan's backward (K6)
 against autograd through the plain fan, three lens models; the sampler's
-backward (K9), which shares K4's scatter.
+backward (K9), which shares K4's scatter; the splat (K3) against the plain
+splat and its transpose (K7) against autograd through it, on spots in runs
+of 120 that share a dot (the bench's order; runs of the kernel straddle two
+dots), dots wider than K3's tile, scattered spots and zero-amplitude
+particles, in a small launch (a warp a particle) and a large one (a warp a
+run of 32, K3 with its tile), and a K = 40 patch on a small frame.
 
 Each test skips without a CUDA device.  This file imports no jax, so it runs
 where the JAX package is not installed:
@@ -25,6 +30,8 @@ from photon_tpu_torch.ops.march_dense_fused import (march_chief_fused,
                                                     march_forward_residual)
 from photon_tpu_torch.ops.march_dense_sampler import (slab_sample_backward,
                                                       slab_sample_plain)
+from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
+                                        splat_particles_plain)
 from photon_tpu_torch.volume import build_density_volume
 from torch_port_helpers import fan_inputs
 
@@ -223,3 +230,93 @@ def test_sampler_backward_kernel_matches_autograd(scheme):
                               leaves, grad_outputs=ct)
     assert max(_nerr(d_lo, ref[0]), _nerr(d_hi, ref[1])) <= 5e-5
     assert max(_nerr(a, b) for a, b in zip(d_u, ref[2:])) <= 5e-6
+
+
+def _splat_spots(dev, layout, P, K, nx=512, ny=384, seed=7):
+    """P spots: dots of 120 consecutive particles ("dots": within a pixel
+    or two, as the bench's; "wide dots": spread over 24 px, beyond K3's
+    32 x 32 tile) or uniform over the frame ("scattered"); 5% with zero
+    amplitude, every 97th the renderer's sentinel."""
+    rng = np.random.default_rng(seed)
+    if layout == "scattered":
+        X = rng.uniform(-0.5, nx - 0.5, P)
+        Y = rng.uniform(-0.5, ny - 0.5, P)
+    else:
+        spread = 0.8 if layout == "dots" else 12.0
+        dots = rng.uniform([8, 8], [nx - 8, ny - 8], (-(-P // 120), 2))
+        d = np.repeat(np.arange(len(dots)), 120)[:P]
+        X = dots[d, 0] + rng.normal(0, spread, P)
+        Y = dots[d, 1] + rng.normal(0, spread, P)
+    A = rng.uniform(0.1, 2.0, P) * np.pi / 32.0
+    A[rng.random(P) < 0.05] = 0.0
+    A[::97] = 0.0
+    X[::97] = -1e6
+    X, Y, A = (torch.tensor(v, dtype=torch.float32, device=dev)
+               for v in (X, Y, A))
+    col0 = (torch.round(X).to(torch.int32) - K // 2).clamp(0, nx - K)
+    row0 = (torch.round(Y).to(torch.int32) - K // 2).clamp(0, ny - K)
+    return [X, Y, A, col0, row0], dict(K=K, ny=ny, nx=nx)
+
+
+_SPLAT_CASES = [(layout, P) for layout in ("dots", "wide dots", "scattered")
+                for P in (2000, 72000)]
+
+
+@pytest.mark.parametrize("layout,P", _SPLAT_CASES)
+def test_splat_kernel_matches_the_plain_splat(layout, P):
+    """K3 against the plain splat to 1e-5 of the image maximum (chip_smoke's
+    K3_TOL): the same erff of edges that may round an ulp apart, and float
+    atomics in a changing order."""
+    dev = _card()
+    for K, D in ((8, 3.3), (12, 5.0)):
+        args, kw = _splat_spots(dev, layout, P, K)
+        kw.update(diameter=D, render_fraction=0.75)
+        got = splat_particles(*args, **kw)
+        ref = splat_particles_plain(*args, **kw)
+        assert float(ref.max()) > 0
+        assert float((got - ref).abs().max() / ref.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("layout,P", _SPLAT_CASES)
+def test_splat_transpose_kernel_matches_autograd(layout, P):
+    """K7 against autograd through the plain splat, to 1e-5 of each output's
+    maximum (chip_smoke's K7_TOL); no atomics, so two launches are equal."""
+    dev = _card()
+    args, kw = _splat_spots(dev, layout, P, 8)
+    kw.update(diameter=3.3, render_fraction=0.75)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ct = torch.randn(kw["ny"], kw["nx"], generator=gen, device=dev)
+    leaves = [a.clone().requires_grad_(True) for a in args[:3]]
+    img = splat_particles_plain(*leaves, args[3], args[4], **kw)
+    ref = torch.autograd.grad(img, leaves, grad_outputs=ct)
+    opts = dict(K=8, diameter=3.3, render_fraction=0.75)
+    got = splat_backward(*args, ct, **opts)
+    assert torch.equal(got, splat_backward(*args, ct, **opts))
+    for g, r in zip(got, ref):
+        assert _nerr(g, r) <= 1e-5
+    off = args[2] == 0
+    assert float(got[2][~off].abs().max()) > 0
+
+
+def test_splat_kernels_large_patch_on_a_small_frame():
+    """K = 40 on a 72 x 96 frame, spots on its edges and corners and one of
+    zero amplitude: both kernels against the plain versions."""
+    dev = _card()
+    X = torch.tensor([-0.4, 71.4, 3.0, 36.0, 70.0, 20.0], device=dev)
+    Y = torch.tensor([-0.4, 95.4, 95.0, 0.2, 50.0, 40.0], device=dev)
+    A = torch.tensor([1.0, 2.0, 0.5, 1.5, 0.0, 0.7], device=dev)
+    col0 = (torch.round(X).to(torch.int32) - 20).clamp(0, 72 - 40)
+    row0 = (torch.round(Y).to(torch.int32) - 20).clamp(0, 96 - 40)
+    kw = dict(K=40, ny=96, nx=72, diameter=20.0, render_fraction=0.75)
+    got = splat_particles(X, Y, A, col0, row0, **kw)
+    ref = splat_particles_plain(X, Y, A, col0, row0, **kw)
+    assert float((got - ref).abs().max() / ref.max()) <= 1e-5
+    ct = torch.randn(96, 72, generator=torch.Generator(device=dev)
+                     .manual_seed(4), device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (X, Y, A)]
+    gref = torch.autograd.grad(
+        splat_particles_plain(*leaves, col0, row0, **kw), leaves,
+        grad_outputs=ct)
+    gk = splat_backward(X, Y, A, col0, row0, ct, K=40, diameter=20.0,
+                        render_fraction=0.75)
+    assert max(_nerr(g, r) for g, r in zip(gk, gref)) <= 1e-5
