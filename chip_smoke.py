@@ -86,13 +86,13 @@ MARCH_OPS_PER_RHS = 100       # coordinates 15, weights 10, 8-voxel blend 68, rh
 MARCH_OPS_PER_RK4_COMBINE = 65
 FAN_OPS_PER_PAIR = {"general": 200, "thin-lens": 90, "apparent": 70}
 FAN_OPS_MARCH = 25
-# the splat's weights are separable: a spot's K x K patch needs one erff
-# (~20) a row and a column edge, K + 1 of each, beside the edge's offset and
-# scale (3) and its weight's difference (1); a deposit is a product and an
-# add
-SPLAT_OPS_PER_PATCH_PIXEL = 10    # index arithmetic and the circle test
+# the splat's weights are separable: a spot needs one erff (~20) a row and
+# a column edge of the rows and columns its deposits reach (one edge more
+# than rows, and than columns), beside the edge's offset and scale (3) and
+# its weight's difference (1); a deposit is the mask test (offsets from the
+# centre, their squares, sum and compare: 6), a product and an add
 SPLAT_OPS_PER_EDGE = 24
-SPLAT_OPS_PER_DEPOSIT = 2
+SPLAT_OPS_PER_DEPOSIT = 8
 # backward kernels: one stage's sample recompute and VJP (coordinates 15,
 # weights 10, blend 68, rhs 7, cotangents 20, scatter products 40, tap dots
 # 56, coordinate cotangents 45) and the per-slab combine
@@ -111,9 +111,10 @@ MARCH_VJP_OPS_PER_STAGE_CUBIC = (MARCH_OPS_PER_RHS_CUBIC + 20
 FAN_BWD_OPS_PER_PAIR = {"general": 420, "thin-lens": 150, "apparent": 110}
 FAN_BWD_OPS_MARCH = 35
 # the transpose: an edge also takes an expf (~15), its square and sign, and
-# the derivative's difference and scale; a deposit five products, three sums
+# the derivative's difference and scale; a deposit the mask test (6), five
+# products and three sums
 SPLAT_BWD_OPS_PER_EDGE = 43
-SPLAT_BWD_OPS_PER_DEPOSIT = 8
+SPLAT_BWD_OPS_PER_DEPOSIT = 14
 
 
 def bound_ms(nbytes, ops):
@@ -777,14 +778,17 @@ def main(argv=None) -> int:
     def traced(run, others=None):
         """run() under torch.profiler, every launch counter at 0 just before;
         each kernel's device time held to its counter (held_to_counters),
-        and run and traced once more where one disagreed.  `others`: {name
-        of a kernel that no counter of this package counts: the launches
-        run() makes of it}, held the same way.  Returns (the device time in
-        all, in ms, of a trace that held every kernel, else NOT_MEASURED;
-        {kernel that launched: (ms in all, launches) from the first trace
-        that held it, else NOT_MEASURED})."""
+        and run and traced once more where one disagreed.  A trace that
+        disagrees is reported: what it held against the counter, its device
+        events and its CUDA runtime calls (in the full run some traces of a
+        lone launch hold its runtime calls and no kernel record; PERF.md
+        section 7).  `others`: {name of a kernel that no counter of this
+        package counts: the launches run() makes of it}, held the same way.
+        Returns (the device time in all, in ms, of a trace that held every
+        kernel, else NOT_MEASURED; {kernel that launched: (ms in all,
+        launches) from the first trace that held it, else NOT_MEASURED})."""
         best, total = {}, NOT_MEASURED
-        for _ in range(2):
+        for attempt in range(2):
             for w in counters.values():
                 w.launches = 0
             with profile(activities=[ProfilerActivity.CPU,
@@ -792,18 +796,26 @@ def main(argv=None) -> int:
                 run()
                 sync()
             evs = device_events(prof)
-            held = held_to_counters(evs, {**{k: int(w.launches) for k, w in
-                                             counters.items() if w.launches},
-                                          **(others or {})})
+            want = {**{k: int(w.launches) for k, w in counters.items()
+                       if w.launches}, **(others or {})}
+            held = held_to_counters(evs, want)
             for k, v in held.items():
                 if best.get(k, NOT_MEASURED) == NOT_MEASURED:
                     best[k] = v
             if NOT_MEASURED not in held.values():
                 total = sum(ev.self_device_time_total for ev in evs) / 1e3
                 break
-            print(f"    the trace disagreed with the launch counters "
-                  f"({ {k: v for k, v in held.items() if v == NOT_MEASURED} })"
-                  f": traced once more")
+            api = sum(ev.count for ev in prof.key_averages()
+                      if ev.key.startswith("cuda"))
+            seen = {k: sum(ev.count for ev in evs if k in ev.key)
+                    for k in want}
+            print("    the trace disagreed with the launch counters: "
+                  + ", ".join(f"{k} traced {seen[k]} launches, counted "
+                              f"{want[k]}" for k, v in held.items()
+                              if v == NOT_MEASURED)
+                  + f"; {len(evs)} device events, {api} CUDA runtime calls "
+                  f"in the trace" + (": traced once more" if attempt == 0
+                                      else ""))
         return total, best
 
     time_ms = cuda_event_ms
@@ -2238,28 +2250,28 @@ def main(argv=None) -> int:
                                          (scat_cols, whole)))
 
     def splat_bound(cols, sl):
-        """K3's bound: (ms, by, deposits, spots that deposit).  Every patch
-        pixel of a spot that deposits pays its index arithmetic and the
-        circle test, each of its 2 (K + 1) edges one erff, and each deposit
-        its product and add."""
+        """K3's bound: (ms, by, deposits, edges).  A spot that deposits pays
+        one erff an edge of the rows and columns its deposits reach (one
+        edge more than rows, and than columns), and each deposit its mask
+        test, product and add; pixels the circle leaves out cost nothing."""
         Xs_, Ys_, A_, c0_, r0_ = (a[sl] for a in cols)
         ar = torch.arange(K, device=dev, dtype=torch.float32)
         fc = (c0_[:, None].float() + ar[None]) - Xs_[:, None]
         fr = (r0_[:, None].float() + ar[None]) - Ys_[:, None]
         inc = (fc[:, None, :] ** 2 + fr[:, :, None] ** 2) <= (0.75 * D) ** 2
-        dep = inc & (A_ > 0)[:, None, None]
+        dep = inc & (A_ > 0)[:, None, None]          # (spot, row, column)
         deposits = int(dep.sum())
-        spots = int(dep.flatten(1).any(1).sum())
-        ops = spots * (K * K * SPLAT_OPS_PER_PATCH_PIXEL
-                       + 2 * (K + 1) * SPLAT_OPS_PER_EDGE) \
-            + deposits * SPLAT_OPS_PER_DEPOSIT
+        live = dep.flatten(1).any(1)
+        edges = int(((dep.any(1).sum(1) + dep.any(2).sum(1) + 2)
+                     * live).sum())
+        ops = edges * SPLAT_OPS_PER_EDGE + deposits * SPLAT_OPS_PER_DEPOSIT
         return bound_ms(20 * A_.numel() + sensor * sensor * 4, ops) + (
-            deposits, spots)
+            deposits, edges)
 
-    k3_bound, k3_by, k3_dep, k3_spots = splat_bound(bench_cols, first)
+    k3_bound, k3_by, k3_dep, k3_edges = splat_bound(bench_cols, first)
     (k3_bound_whole, k3_by_whole, k3_dep_whole,
-     k3_spots_whole) = splat_bound(bench_cols, whole)
-    k3_bound_sc, k3_by_sc, k3_dep_sc, k3_spots_sc = splat_bound(scat_cols,
+     k3_edges_whole) = splat_bound(bench_cols, whole)
+    k3_bound_sc, k3_by_sc, k3_dep_sc, k3_edges_sc = splat_bound(scat_cols,
                                                                 whole)
     print(f"    {chunk} spots: time {k3_ms:.4f} ms (device "
           f"{ms_or_not(k3_dev, 4)})  plain {k3_plain_ms:.2f} ms  bound "
@@ -2601,20 +2613,18 @@ def main(argv=None) -> int:
                                     retain_graph=True), reps=5, warm=1)
     del img_p, leaves_p
 
-    def splat_bwd_bound(n_p, deposits, spots):
-        """K7's bound: every patch pixel of a spot that deposits pays its
-        index arithmetic and the circle test, each of its 2 (K + 1) edges
-        one erff and one expf, each deposit its gather's products and
-        sums."""
-        ops = spots * (K * K * SPLAT_OPS_PER_PATCH_PIXEL
-                       + 2 * (K + 1) * SPLAT_BWD_OPS_PER_EDGE) \
+    def splat_bwd_bound(n_p, deposits, edges):
+        """K7's bound: K3's edges and deposits (splat_bound), an edge one
+        erff and one expf, a deposit its mask test and its gather's products
+        and sums."""
+        ops = edges * SPLAT_BWD_OPS_PER_EDGE \
             + deposits * SPLAT_BWD_OPS_PER_DEPOSIT
         return bound_ms(32 * n_p + min(sensor * sensor, n_p * K * K) * 4, ops)
 
-    k7_bound, k7_by = splat_bwd_bound(chunk, k3_dep, k3_spots)
+    k7_bound, k7_by = splat_bwd_bound(chunk, k3_dep, k3_edges)
     k7_bound_whole, k7_by_whole = splat_bwd_bound(P, k3_dep_whole,
-                                                  k3_spots_whole)
-    k7_bound_sc, k7_by_sc = splat_bwd_bound(P, k3_dep_sc, k3_spots_sc)
+                                                  k3_edges_whole)
+    k7_bound_sc, k7_by_sc = splat_bwd_bound(P, k3_dep_sc, k3_edges_sc)
     print(f"    {chunk} spots: time {k7_ms:.4f} ms (device "
           f"{ms_or_not(k7_dev, 4)})  autograd through the plain splat "
           f"{k7_plain_ms:.2f} ms  bound {k7_bound:.4f} ms ({k7_by})  [{card}]")

@@ -33,20 +33,12 @@
 // (n = 1 .. 32, more where the launch is large), a group of 32 / n lanes
 // each, which form the particles' edges and weights in the warp's slice of
 // shared memory.  The deposits then go one particle at a time over the
-// whole warp, so the lanes of one instruction hit distinct pixels.  The
-// bench's particles come dot by dot (some 120 consecutive spots on the same
-// ~20 pixels), so one float atomic a deposit in L2 serialises ~120 deep on
-// each pixel: where a warp takes a run of 8 or more, it holds a kTile x kTile
-// tile of the image in shared memory, anchored at the run's first live
-// particle, and deposits a spot there with shared-memory atomics where its
-// rows and columns lie inside it (no other warp touches the tile), else
-// straight into the image; then it adds each nonzero tile pixel to the image
-// with one atomic.  Spots that share no pixels (a PIV image's) take the
-// direct branch and pay the tile's zeroing and scan.  A small launch (the
-// BOS pair's 2000-spot chunks) takes one particle a warp and no tile.
-// Particles with A == 0 deposit nothing.  Float atomics add in an order that
-// changes from run to run, so the image differs in its last bits between
-// runs (the TPU kernels are deterministic).
+// whole warp, one float atomic a pixel straight into the image, so the
+// lanes of one instruction hit distinct pixels.  A small launch (the BOS
+// pair's 2000-spot chunks) takes one particle a warp.  Particles with
+// A == 0 deposit nothing.  Float atomics add in an order that changes from
+// run to run, so the image differs in its last bits between runs (the TPU
+// kernels are deterministic).
 //
 // Plain C interface, no PyTorch headers (photon_tpu_torch/kernels.py).
 #include <cuda_runtime.h>
@@ -57,8 +49,6 @@ constexpr double kSqrt8 = 2.8284271247461903;
 constexpr double kTwoOverSqrtPi = 1.1283791670955126;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;          // warps a block, both kernels
-constexpr int kTile = 32;          // side of K3's image tile
-constexpr int kTileRun = 8;        // K3 holds a tile for runs this long
 constexpr int kWarpBytes = 12288;  // shared memory a warp, at most
 // a quarter of an H100's resident warps (132 SMs x 64): a warp takes more
 // particles only while the launch keeps that many busy
@@ -136,21 +126,18 @@ __device__ __forceinline__ int spot_row(int k, float inv_nc) {
 }
 
 // Warp w of block b takes the particles (b kWarps + w) n + l, l < n; lane
-// l g + h (h < g = 32 / n) works for particle l.  Dynamic shared memory, a
-// warp: the tile (kTile rows of `stride` floats) where `tiled`, then n slots
-// of 4 K + 3 floats.
+// l g + h (h < g = 32 / n) works for particle l.  Dynamic shared memory: n
+// slots of 4 K + 3 floats a warp.
 __global__ void __launch_bounds__(kWarps * 32) splat_kernel(
     const float* __restrict__ Xs, const float* __restrict__ Ys,
     const float* __restrict__ A, const int* __restrict__ col0,
     const int* __restrict__ row0, float* __restrict__ image, long long P,
-    int K, int ny, int nx, float s, float rf_d, int n, int stride) {
+    int K, int ny, int nx, float s, float rf_d, int n) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = 32 / n, l = lane / g, h = lane - l * g;
-  const bool tiled = n >= kTileRun && K <= kTile;   // uniform: the launch
   const int slot = 4 * K + 3;
-  float* tile = smem + warp * ((tiled ? kTile * stride : 0) + n * slot);
-  float* slots = tile + (tiled ? kTile * stride : 0);
+  float* slots = smem + warp * n * slot;
   const long long p = ((long long)blockIdx.x * kWarps + warp) * n + l;
   float a = 0.0f, x = 0.0f, y = 0.0f;
   int c0 = 0, r0 = 0;
@@ -165,15 +152,6 @@ __global__ void __launch_bounds__(kWarps * 32) splat_kernel(
   if (p >= P || a == 0.0f) b.nc = b.nr = 0;
   spot_weights(h, g, b, c0, r0, x, y, s, a, 0.0f, slots + l * slot, nullptr,
                slots + l * slot + 2 * (K + 1), nullptr);
-  int tc0 = 0, tr0 = 0;
-  if (tiled) {
-    const unsigned live = __ballot_sync(kFull, h == 0 && b.nc > 0);
-    const int f = live ? __ffs(live) - 1 : 0;
-    tc0 = __shfl_sync(kFull, c0, f) - (kTile - K) / 2;
-    tr0 = __shfl_sync(kFull, r0, f) - (kTile - K) / 2;
-    for (int i = lane; i < kTile * stride; i += 32) tile[i] = 0.0f;
-    __syncwarp();
-  }
   for (int q = 0; q < n; q++) {        // uniform over the warp
     const int nc = __shfl_sync(kFull, b.nc, q * g);
     const int nr = __shfl_sync(kFull, b.nr, q * g);
@@ -183,27 +161,12 @@ __global__ void __launch_bounds__(kWarps * 32) splat_kernel(
     const float qy = __shfl_sync(kFull, y, q * g);
     if (nc == 0) continue;
     const float* wt = slots + q * slot + 2 * (K + 1);
-    const bool inside = tiled && cb >= tc0 && cb + nc <= tc0 + kTile &&
-                        rb >= tr0 && rb + nr <= tr0 + kTile;
     const float inv_nc = 1.0f / (float)nc;
     for (int k = lane; k < nc * nr; k += 32) {
       const int i = spot_row(k, inv_nc), j = k - i * nc;
       const int col = cb + j, row = rb + i;
-      if (!in_circle((float)col - qx, (float)row - qy, rf_d)) continue;
-      const float w = wt[nc + i] * wt[j];
-      if (inside)
-        atomicAdd(tile + (row - tr0) * stride + (col - tc0), w);
-      else
-        atomicAdd(image + (long long)row * nx + col, w);
-    }
-  }
-  if (tiled) {
-    __syncwarp();
-    for (int i = lane; i < kTile * kTile; i += 32) {
-      const int r = i / kTile, cc = i - r * kTile;
-      const float v = tile[r * stride + cc];
-      if (v != 0.0f)
-        atomicAdd(image + (long long)(tr0 + r) * nx + (tc0 + cc), v);
+      if (in_circle((float)col - qx, (float)row - qy, rf_d))
+        atomicAdd(image + (long long)row * nx + col, wt[nc + i] * wt[j]);
     }
   }
 }
@@ -295,10 +258,8 @@ extern "C" int photon_splat(const float* Xs, const float* Ys, const float* A,
                             long long P, int K, int ny, int nx,
                             float diameter, float rf_d, void* stream) {
   if (P <= 0) return 0;
-  const int stride = kTile + K % 32;   // K modulo 32: rows in other banks
   auto bytes_for = [&](int n) {
-    return (int)(((n >= kTileRun && K <= kTile ? kTile * stride : 0) +
-                  n * (4 * K + 3)) * sizeof(float));
+    return (int)(n * (4 * K + 3) * sizeof(float));
   };
   const int n = particles_a_warp(P, bytes_for);
   const long long per_block = (long long)kWarps * n;
@@ -307,7 +268,7 @@ extern "C" int photon_splat(const float* Xs, const float* Ys, const float* A,
   splat_kernel<<<(unsigned)blocks, kWarps * 32, kWarps * bytes_for(n),
                  (cudaStream_t)stream>>>(
       Xs, Ys, A, col0, row0, image, P, K, ny, nx,
-      (float)(kSqrt8 / diameter), rf_d, n, stride);
+      (float)(kSqrt8 / diameter), rf_d, n);
   return (int)cudaGetLastError();
 }
 

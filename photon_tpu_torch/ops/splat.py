@@ -13,13 +13,11 @@ that the circular mask reaches are visited, each pixel with the plain
 version's mask test.  What bounds it on the card is the instructions it
 issues and the atomics, not bytes (20 a particle in, one image out): a warp
 takes up to 32 consecutive particles, a group of lanes each for the edges
-and weights, and deposits them one at a time over the warp; where the run
-is long (a large launch) it adds them into a tile of the image in shared
-memory anchored at the run's first live particle, so a dot's overlapping
-spots cost one atomic a tile pixel in the image.  Float atomics add in an
-order that changes from run to run, so two renders differ in the last bits
-(the TPU kernels are deterministic); ``chip_smoke.py`` measures that
-difference.  One launch a call, no sort of the particles.
+and weights, and deposits them one at a time over the warp, one float
+atomic a pixel straight into the image.  Float atomics add in an order that
+changes from run to run, so two renders differ in the last bits (the TPU
+kernels are deterministic); ``chip_smoke.py`` measures that difference.  One
+launch a call, no sort of the particles.
 
 Backward kernel: ``photon_splat_bwd`` in the same source.  It replaces the
 backward of ``photon_tpu/ops/sensor_fast.py::_particle_splat_fused`` (the

@@ -9,9 +9,9 @@ against autograd through the plain fan, three lens models; the sampler's
 backward (K9), which shares K4's scatter; the splat (K3) against the plain
 splat and its transpose (K7) against autograd through it, on spots in runs
 of 120 that share a dot (the bench's order; runs of the kernel straddle two
-dots), dots wider than K3's tile, scattered spots and zero-amplitude
-particles, in a small launch (a warp a particle) and a large one (a warp a
-run of 32, K3 with its tile), and a K = 40 patch on a small frame.
+dots), dots spread over 24 px, scattered spots and zero-amplitude
+particles, in launches that give a warp 1, 2, 8, 16 and 32 particles, and
+a K = 40 patch on a small frame.
 
 Each test skips without a CUDA device.  This file imports no jax, so it runs
 where the JAX package is not installed:
@@ -234,9 +234,9 @@ def test_sampler_backward_kernel_matches_autograd(scheme):
 
 def _splat_spots(dev, layout, P, K, nx=512, ny=384, seed=7):
     """P spots: dots of 120 consecutive particles ("dots": within a pixel
-    or two, as the bench's; "wide dots": spread over 24 px, beyond K3's
-    32 x 32 tile) or uniform over the frame ("scattered"); 5% with zero
-    amplitude, every 97th the renderer's sentinel."""
+    or two, as the bench's; "wide dots": spread over 24 px) or uniform over
+    the frame ("scattered"); 5% with zero amplitude, every 97th the
+    renderer's sentinel."""
     rng = np.random.default_rng(seed)
     if layout == "scattered":
         X = rng.uniform(-0.5, nx - 0.5, P)
@@ -258,8 +258,10 @@ def _splat_spots(dev, layout, P, K, nx=512, ny=384, seed=7):
     return [X, Y, A, col0, row0], dict(K=K, ny=ny, nx=nx)
 
 
+# the kernels give a warp 1, 2, 8, 16 and 32 particles at these P
+# (particles_a_warp in csrc/splat.cu, K = 8 and 12)
 _SPLAT_CASES = [(layout, P) for layout in ("dots", "wide dots", "scattered")
-                for P in (2000, 72000)]
+                for P in (2000, 5000, 20000, 40000, 72000)]
 
 
 @pytest.mark.parametrize("layout,P", _SPLAT_CASES)
