@@ -55,12 +55,21 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    re-march, with Adams-Bashforth and with tricubic interpolation; two steps
    of invert_bos on the 512^3 density grid), with launch counts per tier and
    peak device memory;
-9. prints one JSON line describing the kernels and, last, one JSON line
+9. drives the PIV and calibration configurations through the command line
+   (phase 9, before the large volumes): the CLI's PIV sample (1024 x 1024,
+   50,000 particles x 10,000 rays, Mie scattering, two frames), the same
+   with the 64^3 volume, and the calibration default (7 planes of an
+   11 x 11 grid of 1000-point dots, 500 rays); launch counts against the
+   chunking, the first image against a render through the plain versions,
+   two runs, the artifacts, and K1 / K2 / K3 at these shapes against their
+   plain versions with event and traced device times and bounds;
+10. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 ``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
 runs the build, the splat's two kernels of item 2 (with the same spots also
-scattered over the sensor), and items 3 and 4.
+scattered over the sensor), and items 3 and 4; ``--configs-only`` runs the
+build and item 9 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -483,6 +492,13 @@ def require(cond, message) -> None:
         raise RuntimeError(f"chip_smoke: {message}")
 
 
+def expect_counts(label, got_counts, want):
+    """Each kernel's launches in a run against what its chunking predicts."""
+    for k, v in want.items():
+        require(got_counts[k] == v, f"{label}: {k} launched "
+                f"{got_counts[k]} times, expected {v}")
+
+
 BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS = 1024, 1000, 500
 
 
@@ -679,6 +695,10 @@ def main(argv=None) -> int:
                       help="after the build, run the splat's phases alone: "
                       "2c, 2g, the pair of phase 3 and the step of phase 4; "
                       "the kernels line then lists K3 and K7 only")
+    only.add_argument("--configs-only", action="store_true",
+                      help="after the build, run phase 9 alone (PIV and "
+                      "calibration through the command line); the kernels "
+                      "line then lists K1, K2 and K3 at those shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -877,6 +897,48 @@ def main(argv=None) -> int:
     K = auto_patch(params)
     D = params.diffraction_diameter
     skw = dict(K=K, ny=sensor, nx=sensor, diameter=D, render_fraction=0.75)
+
+    # tolerances: kernel and plain version evaluate the same f32 formulas
+    # without FMA contraction and differ by the order of the sum over the
+    # fan, so the sums agree to a few roundings (1e-5 of the largest value
+    # is about 50 times what is seen) and the centroids AX/A, AY/A, which
+    # place the spots, to 1e-3 px (some 15 roundings of a 1024 px
+    # coordinate).  The thick lens forms beta^2 - 4 gamma from coordinates
+    # of 1e5..1e8 um in f32: a build that rounds it differently moves the
+    # centroids by hundredths of a pixel and fails the second check.
+    K2_TOL = 1e-5
+    K2_CENTROID_TOL = 1e-3
+
+    def fan_err(got, ref):
+        return max(float((g - r).abs().max() / r.abs().max())
+                   for g, r in zip(got, ref))
+
+    # tolerance: 1e-5 of the image maximum.  Kernel and plain version take
+    # erff of the same edges, whose arguments may round an ulp apart (the
+    # kernel forms each of a patch's K + 1 edges once, s (edge - centre) with
+    # s = sqrt(8) / D, the plain version each pixel's f +/- 0.5 over D);
+    # about a hundred spots of a dot overlap on a pixel and float atomics add
+    # them in an order that changes from run to run.
+    K3_TOL = 1e-5
+
+    def splat_bound(cols, sl):
+        """K3's bound: (ms, by, deposits, edges).  A spot that deposits pays
+        one erff an edge of the rows and columns its deposits reach (one
+        edge more than rows, and than columns), and each deposit its mask
+        test, product and add; pixels the circle leaves out cost nothing."""
+        Xs_, Ys_, A_, c0_, r0_ = (a[sl] for a in cols)
+        ar = torch.arange(K, device=dev, dtype=torch.float32)
+        fc = (c0_[:, None].float() + ar[None]) - Xs_[:, None]
+        fr = (r0_[:, None].float() + ar[None]) - Ys_[:, None]
+        inc = (fc[:, None, :] ** 2 + fr[:, :, None] ** 2) <= (0.75 * D) ** 2
+        dep = inc & (A_ > 0)[:, None, None]          # (spot, row, column)
+        deposits = int(dep.sum())
+        live = dep.flatten(1).any(1)
+        edges = int(((dep.any(1).sum(1) + dep.any(2).sum(1) + 2)
+                     * live).sum())
+        ops = edges * SPLAT_OPS_PER_EDGE + deposits * SPLAT_OPS_PER_DEPOSIT
+        return bound_ms(20 * A_.numel() + sensor * sensor * 4, ops) + (
+            deposits, edges)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -1096,11 +1158,6 @@ def main(argv=None) -> int:
             out_ = fn()
             sync()
             return out_, torch.cuda.max_memory_allocated(dev) / 1e9
-
-        def expect_counts(label, got_counts, want):
-            for k, v in want.items():
-                require(got_counts[k] == v, f"{label}: {k} launched "
-                        f"{got_counts[k]} times, expected {v}")
 
         def in_band_steps(v, rays):
             """Ray-slab steps that this run's rays take through v."""
@@ -1995,6 +2052,408 @@ def main(argv=None) -> int:
                     f"{row['name']} was never launched on a large-volume path")
         return rows
 
+    def configs_phase(rows):
+        """Phase 9: the PIV and calibration configurations through the
+        command line, at full size: (a) the CLI's PIV sample
+        (``cli.make_sample("piv")``: 1024^2 sensor, 50,000 particles x
+        10,000 rays, Mie with 27 diameters x 128 angles, frames 1 and 2, no
+        volume), (b) the same with the bench's 64^3 NRRD, (c) the
+        calibration default (7 planes, an 11 x 11 grid of 1000-point dots and
+        two markers, 500 rays).  For each: seconds per phase and rays/s, the
+        launches against the chunking, the first image against a render
+        through the plain versions, two runs, the artifacts, and K1 / K2 / K3
+        at the shapes the run gives them against their plain versions, with
+        event and traced device times and bounds.  Adds a ``piv`` /
+        ``calibration`` entry to the K1, K2 and K3 rows of `rows`, or makes
+        those rows where the run has none (``--configs-only``)."""
+        from photon_tpu_torch.config import SimulationConfig, default_config
+        from photon_tpu_torch.models.optics import camera_setup
+        from photon_tpu_torch.models.render import RenderParams
+        from photon_tpu_torch.models.scenes import calibration_source
+        from photon_tpu_torch.ops import splat as splat_mod
+        from photon_tpu_torch.ops.mie import create_mie_scattering_data
+        from photon_tpu_torch.pipeline import (_lens_sample_pair, _load_volume,
+                                               _render, run_simulation)
+
+        print("PIV and calibration through the command line "
+              "(photon_tpu_torch.cli.main) at full size")
+        wrappers = dict(march_dense=march_chief_fused, fan_stats=fan_stats,
+                        splat=splat_particles)
+
+        @contextlib.contextmanager
+        def swapped(pairs):
+            """Each (module, name, replacement) set for the block."""
+            saved = [(m, nm, getattr(m, nm)) for m, nm, _ in pairs]
+            for m, nm, fn in pairs:
+                setattr(m, nm, fn)
+            try:
+                yield
+            finally:
+                for m, nm, fn in saved:
+                    setattr(m, nm, fn)
+
+        def plain_versions():
+            """The renderer's three kernels replaced by their plain versions
+            (the orchestration, the Mie collapse and the chunking stay)."""
+            return swapped([
+                (render_fast, "fan_stats", lambda *a, **kw: fan_stats_plain(
+                    *a, particles_per_chunk=max(1, 2 * 10**7 // a[5].numel()),
+                    **kw)),
+                (splat_mod, "splat_particles", splat_particles_plain),
+                (mdf, "march_chief_fused", march_chief_dense)])
+
+        def kept_calls(seen):
+            """Keep the arguments of every call of the fan, the splat and the
+            march as render_fast makes them, by function, in order."""
+            def keep(nm, fn):
+                def call(*a, **kw):
+                    seen.setdefault(nm, []).append((a, kw))
+                    return fn(*a, **kw)
+                return call
+            return swapped([(render_fast, nm,
+                             keep(nm, getattr(render_fast, nm)))
+                            for nm in ("fan_stats", "particle_splat",
+                                       "chief_deltas_dense")])
+
+        def run_part(label, c, tmp, names, expect):
+            """One configuration through cli.main and the checks; returns the
+            kernels' inputs on the first chunk with a spot on the sensor, the
+            launches, each kernel's traced device ms a launch, and the second
+            run's result."""
+            stem = re.sub(r"\W+", "_", label)
+            case = os.path.join(tmp, f"{stem}.json")
+            c.to_json(case)
+            out = os.path.join(tmp, f"out_{stem}")
+            for w in wrappers.values():
+                w.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([case, "--out", out, "--verbose"])
+            counts = {k: int(w.launches) for k, w in wrappers.items()}
+            require(rc == 0, f"{label}: the CLI returned {rc}")
+            print(f"    {label}: launches {counts}, expected {expect}")
+            expect_counts(label, counts, expect)
+            for line in buf.getvalue().splitlines():
+                mt = re.match(r"\s*(\S+): ([0-9.]+)s(?:\s+([0-9.]+)M rays/s)?",
+                              line)
+                if mt:
+                    rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
+                    print(f"    {label}, {mt.group(1)}: {mt.group(2)} s"
+                          f"{rate}  [{card}]")
+            files = sorted(os.path.relpath(os.path.join(d, f), out)
+                           for d, _, fs in os.walk(out) for f in fs)
+            want = sorted(["parameters.json", "parameters.mat"]
+                          + [f"tif/{nm}.tif" for nm in names]
+                          + [f"raw/{nm}.bin" for nm in names])
+            print(f"    {label}: artifacts {files}")
+            require(files == want,
+                    f"{label}: artifacts {files}, expected {want}")
+            ny_ = c.camera_design.y_pixel_number
+            nx_ = c.camera_design.x_pixel_number
+            raws = {nm: np.fromfile(os.path.join(out, "raw", nm + ".bin"),
+                                    np.float32).reshape(ny_, nx_)
+                    for nm in names}
+            for nm in names:
+                tif = read_tiff16(os.path.join(out, "tif", nm + ".tif"))
+                require(tif.shape == (ny_, nx_) and tif.max() > 0,
+                        f"{nm}.tif does not read back")
+                require(np.isfinite(raws[nm]).all() and raws[nm].sum() > 0,
+                        f"{nm}.bin is not a finite image with a positive sum")
+            if len(names) > 1:
+                moved = float(np.abs(raws[names[0]] - raws[names[1]]).sum()
+                              / raws[names[0]].sum())
+                print(f"    {label}: {names[0]} and {names[1]} differ by "
+                      f"{moved:.3e} of the first's sum")
+                require(moved > 1e-3, f"{label}: the images do not differ")
+
+            # run to run (float atomics in the splat), keeping the kernels'
+            # inputs of the first image's first chunk with a spot on the
+            # sensor (the calibration grid's first chunks lie beyond it)
+            kept = {}
+            with kept_calls(kept):
+                again = run_simulation(c, device=dev)
+            sync()
+            lit = next(i for i, (a, _) in enumerate(kept["particle_splat"])
+                       if bool((a[2] > 0).any()))
+            seen = {nm: calls[0 if nm == "chief_deltas_dense" else lit]
+                    for nm, calls in kept.items()}
+            print(f"    {label}: the kernels are held on the first image's "
+                  f"chunk {lit}, its first with a spot on the sensor")
+            first = names[0]
+            rr = float(np.abs(again.raw_images[first] - raws[first]).max()
+                       / raws[first].max())
+            print(f"    {label}: two runs differ by {rr:.3e} of the image "
+                  f"maximum (bound 1.0e-05)")
+            require(rr <= 1e-5, f"{label}: two runs differ by {rr}")
+            for nm, dt in again.timer.phases.items():
+                rays = again.timer.rays.get(nm)
+                extra = f", {rays / dt / 1e6:.1f}M rays/s" if rays else ""
+                print(f"    {label}, second run {nm}: {dt:.4f} s{extra}  "
+                      f"[{card}]")
+
+            # the first image again, from the second run's scene: through the
+            # plain versions, and traced
+            src = again.sources[first]
+            r1_, r2_ = _lens_sample_pair(c, src.lightray_number_per_particle)
+            piv_ = c.simulation_type == "piv"
+            scat = (create_mie_scattering_data(
+                c, np.random.default_rng(c.seed))
+                    if piv_ and c.particle_field.perform_mie_scattering
+                    else None)
+            vol_ = (_load_volume(c, dev) if piv_ and
+                    c.density_gradients.simulate_density_gradients else None)
+
+            def render_first():
+                return _render(c, again.setup, src, r1_, r2_, vol=vol_,
+                               scattering=scat, device=dev)
+
+            before = {k: int(w.launches) for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            with torch.no_grad(), plain_versions():
+                plain = render_first().cpu().numpy()
+            plain_s = time.perf_counter() - t0
+            require(before == {k: int(w.launches)
+                               for k, w in wrappers.items()},
+                    f"{label}: the plain render launched a kernel")
+            l1 = float(np.abs(raws[first] - plain).sum() / plain.sum())
+            print(f"    {label}: {first} against the plain render: L1 "
+                  f"{l1:.3e} of the sum (tolerance 1.0e-03), plain render "
+                  f"{plain_s:.1f} s")
+            require(l1 < 1e-3, f"{label}: {first} is {l1} (L1) from the plain "
+                    f"render")
+
+            # where the device's time goes: one image traced
+            for w in wrappers.values():
+                w.launches = 0
+            dev_ms, held = traced(render_first)
+            render_s = sum(dt for nm, dt in again.timer.phases.items()
+                           if nm.startswith("render:")) / len(names)
+            tags = dict(march_dense="march_dense_kernel",
+                        fan_stats="fan_stats_kernel", splat="splat_kernel")
+            device = {}
+            for k, tag in tags.items():
+                got_h = held.get(tag, NOT_MEASURED)
+                device[k] = (NOT_MEASURED if got_h == NOT_MEASURED
+                             else got_h[0] / got_h[1])
+                if got_h != NOT_MEASURED:
+                    print(f"    {label}, traced {first}: {k} {got_h[1]} "
+                          f"launches, {got_h[0]:.3f} ms on the device in all, "
+                          f"{got_h[0] / got_h[1] * 1e3:.2f} us a launch  "
+                          f"[{card}]")
+            if dev_ms != NOT_MEASURED:
+                ours = sum(v[0] for kk, v in held.items()
+                           if kk in tags.values())
+                print(f"    {label}, traced {first}: device busy {dev_ms:.2f} "
+                      f"ms in all, {ours:.2f} ms in the three kernels; an "
+                      f"untraced render took {render_s * 1e3:.1f} ms: busy "
+                      f"about {dev_ms / 1e3 / render_s:.1%}  [{card}]")
+            return seen, counts, device, again
+
+        def fan_entry(label, seen, launches, device_ms):
+            (xs_, ys_, zs_, amp_, d6_, xl_, yl_), kw = seen["fan_stats"]
+            p_, r_ = xs_.shape[0], xl_.shape[0]
+            got = fan_stats(xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw)
+            sync()
+            ref = fan_stats_plain(xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw)
+            err = fan_err(got, ref)
+            okp = ref[0] > 0
+            cen = max(float((got[i][okp] / got[0][okp]
+                             - ref[i][okp] / ref[0][okp]).abs().max())
+                      for i in (1, 2))
+            print(f"    K2 {label}, {p_} x {r_}: {int(okp.sum())} of {p_} "
+                  f"particles on the sensor in the chunk")
+            hold(f"K2 {label} {p_} x {r_} (relative)", err, K2_TOL)
+            hold(f"K2 {label} {p_} x {r_} (centroid, px)", cen,
+                 K2_CENTROID_TOL)
+            ms = time_ms(lambda: fan_stats(xs_, ys_, zs_, amp_, d6_, xl_, yl_,
+                                           **kw), inner=5)
+            pms = time_ms(lambda: fan_stats_plain(
+                xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw), reps=3, warm=1)
+            n_cols = 4 if d6_ is None else 10
+            ops = p_ * r_ * (FAN_OPS_PER_PAIR[kw["lens_model"]]
+                             + (0 if d6_ is None else FAN_OPS_MARCH))
+            bnd, by = bound_ms((n_cols + 3) * p_ * 4 + 2 * r_ * 4, ops)
+            print(f"    K2 {label}, {p_} x {r_}: time {ms:.4f} ms (device "
+                  f"{ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  bound "
+                  f"{bnd:.4f} ms ({by}); "
+                  f"{issue_floor(p_ * r_, 'fan_stats', 'a pair')}  [{card}]")
+            return dict(shape=f"{p_} particles x {r_} rays, {kw['lens_model']}"
+                        + ("" if d6_ is None else ", march deltas"),
+                        launches=launches, max_abs_err=err, tolerance=K2_TOL,
+                        ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
+                        bound_by=by, library_ms=None)
+
+        def splat_entry(label, seen, launches, device_ms):
+            (Xb, Yb, A_, pc_, pr_), kw = seen["particle_splat"]
+            K_, nx_, ny_ = kw["patch"], kw["nx"], kw["ny"]
+            require(K_ == K and nx_ == ny_ == sensor and kw["diameter"] == D
+                    and kw["render_fraction"] == skw["render_fraction"],
+                    f"{label}: the splat's settings differ from the bench's")
+            # the spot arguments as particle_splat forms them
+            safe = torch.isfinite(Xb) & torch.isfinite(Yb) & (A_ > 0)
+            cols = (torch.where(safe, Xb, torch.full_like(Xb, -1e6)),
+                    torch.where(safe, Yb, torch.full_like(Yb, -1e6)),
+                    torch.where(safe, A_, torch.zeros_like(A_))
+                    * (math.pi / 32.0),
+                    (pc_ - K // 2).clamp(0, sensor - K).to(torch.int32),
+                    (pr_ - K // 2).clamp(0, sensor - K).to(torch.int32))
+            n_ = cols[0].shape[0]
+            got = splat_particles(*cols, **skw)
+            sync()
+            ref = splat_particles_plain(*cols, **skw)
+            err = float((got - ref).abs().max() / ref.max())
+            hold(f"K3 {label} {n_} spots (of the image maximum)", err, K3_TOL)
+            ms = time_ms(lambda: splat_particles(*cols, **skw), inner=20)
+            pms = time_ms(lambda: splat_particles_plain(*cols, **skw), reps=3,
+                          warm=1)
+            bnd, by, dep, _ = splat_bound(cols, slice(0, n_))
+            print(f"    K3 {label}, {n_} spots: time {ms:.4f} ms (device "
+                  f"{ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  bound "
+                  f"{bnd:.4f} ms ({by}; {dep} deposits)  [{card}]")
+            return dict(shape=f"{n_} spots, K={K}, {sensor}x{sensor} image",
+                        launches=launches, max_abs_err=err, tolerance=K3_TOL,
+                        ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
+                        bound_by=by, library_ms=None)
+
+        def march_entry(label, seen, launches, device_ms):
+            (v, *ch), kw = seen["chief_deltas_dense"]
+            require(kw.get("algorithm") == 2
+                    and kw.get("interpolation_scheme", 1) == 1,
+                    f"{label}: the march is not trilinear RK4")
+            got = march_chief_fused(v, *ch, algorithm=2)
+            sync()
+            ref = march_chief_dense(v, *ch, algorithm=2)
+            pos_e, dir_e = march_err(got, ref)
+            gg = march_geometry(v)
+            sc_ = float(max(abs(float(x)) for x in
+                            (gg.min_x, gg.min_y, gg.z_min, gg.z_max)))
+            err = max(pos_e / sc_, dir_e)
+            n_ = ch[0].shape[0]
+            hold(f"K1 {label} RK4 {n_} rays (normalised)", err, K1_TOL)
+            ms = time_ms(lambda: march_chief_fused(v, *ch, algorithm=2))
+            pms = time_ms(lambda: march_chief_dense(v, *ch, algorithm=2),
+                          reps=3, warm=1)
+            z_in = torch.where(ch[2] >= float(gg.z_max),
+                               torch.full_like(ch[2], float(gg.z_max)), ch[2])
+            ins = (z_in >= float(gg.z_min)) & (ch[5] < 0)
+            planes = f32(gg.z_planes(int(v.sizes[2])))
+            steps_ = int(((z_in[:, None] > planes[None, :])
+                          & ins[:, None]).sum())
+            bnd, by = bound_ms(12 * n_ * 4 + v.field.numel() * 4, steps_ * (
+                4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE))
+            print(f"    K1 {label}, {n_} rays in PIV order: time {ms:.4f} ms "
+                  f"(device {ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  "
+                  f"bound {bnd:.4f} ms ({by}; {steps_} ray-slab steps); "
+                  f"{issue_floor(steps_ * 4, 'march_dense', 'a ray stage')}  "
+                  f"[{card}]")
+            return dict(shape=f"{n_} rays in PIV order, 64^3 field, RK4",
+                        launches=launches, max_abs_err=err, tolerance=K1_TOL,
+                        ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
+                        bound_by=by, library_ms=None)
+
+        entries = {"march_dense": {}, "fan_stats": {}, "splat": {}}
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
+            sample = os.path.join(tmp, "piv_sample.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                require(cli_main([sample, "--make-sample", "piv"]) == 0,
+                        "--make-sample piv failed")
+            piv = SimulationConfig.from_json(sample)
+            pf = piv.particle_field
+            frames = [f"particle_image_frame_{i:04d}" for i in pf.frame_vector]
+            per_frame = -(-pf.particle_number // (
+                _ray_budget(piv) // pf.lightray_number_per_particle))
+            print(f"    (a) the PIV sample: {pf.particle_number} particles x "
+                  f"{pf.lightray_number_per_particle} rays, "
+                  f"{piv.camera_design.x_pixel_number}^2 sensor, Mie "
+                  f"{pf.particle_diameter_number} diameters x "
+                  f"{pf.mie_scattering_angle_number} angles, frames "
+                  f"{tuple(pf.frame_vector)}, {per_frame} chunks a frame")
+            seen, counts, device, again = run_part(
+                "PIV", piv, tmp, frames,
+                dict(march_dense=0, fan_stats=len(frames) * per_frame,
+                     splat=len(frames) * per_frame))
+            # the Mie factor spans orders of magnitude, so the images are held
+            # by the L1 of their sums above
+            src1 = again.sources[frames[0]]
+            scat = create_mie_scattering_data(piv, np.random.default_rng(
+                piv.seed))
+            irr = render_fast.mie_irradiance(RenderParams.from_setup(
+                piv, again.setup, src1).image_distance, src1, scat)
+            lit = src1.radiance * irr
+            print(f"    PIV, frame 1: radiance x Mie factor largest "
+                  f"{lit.max():.4g}, median {np.median(lit):.4g}; Mie factor "
+                  f"{irr.min():.4g}..{irr.max():.4g}")
+            entries["fan_stats"]["piv"] = fan_entry("PIV", seen,
+                                                    counts["fan_stats"],
+                                                    device["fan_stats"])
+            entries["splat"]["piv"] = splat_entry("PIV", seen, counts["splat"],
+                                                  device["splat"])
+
+            print("    (b) the same with the bench's 64^3 NRRD")
+            piv_v = dataclasses.replace(
+                piv, density_gradients=dataclasses.replace(
+                    piv.density_gradients, simulate_density_gradients=True))
+            write_bench_case(tmp, piv_v, rho, spacings, origin)
+            seen, counts, device, _ = run_part(
+                "PIV + volume", piv_v, tmp, frames,
+                dict(march_dense=len(frames),
+                     fan_stats=len(frames) * per_frame,
+                     splat=len(frames) * per_frame))
+            entries["march_dense"]["piv"] = march_entry(
+                "PIV + volume", seen, counts["march_dense"],
+                device["march_dense"])
+            entries["fan_stats"]["piv_volume"] = fan_entry(
+                "PIV + volume", seen, counts["fan_stats"], device["fan_stats"])
+
+            print("    (c) the calibration default")
+            cal = default_config("cal")
+            cg = cal.calibration_grid
+            cal_src = calibration_source(cal, camera_setup(cal), 0,
+                                         np.random.default_rng(cal.seed))
+            per_plane = -(-cal_src.num_particles // (
+                _ray_budget(cal) // cg.lightray_number_per_particle))
+            planes_ = [f"calibration_image_plane_{i + 1:04d}"
+                       for i in range(cg.calibration_plane_number)]
+            print(f"    calibration: {cg.calibration_plane_number} planes of "
+                  f"{cg.x_grid_point_number} x {cg.y_grid_point_number} dots, "
+                  f"{cal_src.num_particles} particles x "
+                  f"{cg.lightray_number_per_particle} rays, {per_plane} "
+                  f"chunks a plane")
+            seen, counts, device, _ = run_part(
+                "calibration", cal, tmp, planes_,
+                dict(march_dense=0,
+                     fan_stats=len(planes_) * per_plane,
+                     splat=len(planes_) * per_plane))
+            entries["fan_stats"]["calibration"] = fan_entry(
+                "calibration", seen, counts["fan_stats"], device["fan_stats"])
+            entries["splat"]["calibration"] = splat_entry(
+                "calibration", seen, counts["splat"], device["splat"])
+        print(f"    phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+        # without the earlier phases' rows, the PIV entry heads each row
+        made = dict(
+            march_dense=("photon_tpu_torch/csrc/march_dense.cu",
+                         "photon_tpu/ops/march_dense_fused.py:174",
+                         "cli.main, the PIV sample with the 64^3 volume"),
+            fan_stats=("photon_tpu_torch/csrc/fan_stats.cu",
+                       "photon_tpu/ops/fan_pallas.py:216",
+                       "cli.main, the PIV sample"),
+            splat=("photon_tpu_torch/csrc/splat.cu",
+                   "photon_tpu/ops/splat_pallas.py:59",
+                   "cli.main, the PIV sample"))
+        for nm, by_part in entries.items():
+            row = next((r for r in rows if r["name"] == nm), None)
+            if row is None:
+                src_, rep_, on = made[nm]
+                row = dict(name=nm, route="cuda", source=src_, replaces=rep_,
+                           **by_part.pop("piv"), launches_on=on)
+                if nm == "splat":
+                    row["also_replaces"] = "photon_tpu/ops/splat_pallas.py:186"
+                rows.append(row)
+            row.update(by_part)
+        return rows
+
     def finish(rows_) -> int:
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -2007,6 +2466,8 @@ def main(argv=None) -> int:
 
     if args.large_only:
         return finish(large_tier())
+    if args.configs_only:
+        return finish(configs_phase([]))
 
     whole = slice(0, P)
     first = slice(0, chunk)
@@ -2072,21 +2533,6 @@ def main(argv=None) -> int:
         # ------------------------------------------------------------------
         print("K2 fan_stats (csrc/fan_stats.cu) against its plain version")
         deltas6 = chief_deltas_dense(vol, *chief, algorithm=2)
-
-        # tolerances: kernel and plain version evaluate the same f32 formulas
-        # without FMA contraction and differ by the order of the sum over the
-        # fan, so the sums agree to a few roundings (1e-5 of the largest value
-        # is about 50 times what is seen) and the centroids AX/A, AY/A, which
-        # place the spots, to 1e-3 px (some 15 roundings of a 1024 px
-        # coordinate).  The thick lens forms beta^2 - 4 gamma from coordinates
-        # of 1e5..1e8 um in f32: a build that rounds it differently moves the
-        # centroids by hundredths of a pixel and fails the second check.
-        K2_TOL = 1e-5
-        K2_CENTROID_TOL = 1e-3
-
-        def fan_err(got, ref):
-            return max(float((g - r).abs().max() / r.abs().max())
-                       for g, r in zip(got, ref))
 
         def fan_case(lens_model, d6, sl, label):
             cols = [a[sl].contiguous() for a in (xs, ys, zs, amp0)]
@@ -2179,13 +2625,6 @@ def main(argv=None) -> int:
     Xbar[:50] = -1e6
     col0[:50] = 0
 
-    # tolerance: 1e-5 of the image maximum.  Kernel and plain version take
-    # erff of the same edges, whose arguments may round an ulp apart (the
-    # kernel forms each of a patch's K + 1 edges once, s (edge - centre) with
-    # s = sqrt(8) / D, the plain version each pixel's f +/- 0.5 over D);
-    # about a hundred spots of a dot overlap on a pixel and float atomics add
-    # them in an order that changes from run to run.
-    K3_TOL = 1e-5
     # the same spots at uniform random positions over the sensor: the
     # scattered case (a PIV image's particles), where neighbours in the
     # input share no pixels
@@ -2248,25 +2687,6 @@ def main(argv=None) -> int:
         "splat_kernel") for cols, sl in ((bench_cols, first),
                                          (bench_cols, whole),
                                          (scat_cols, whole)))
-
-    def splat_bound(cols, sl):
-        """K3's bound: (ms, by, deposits, edges).  A spot that deposits pays
-        one erff an edge of the rows and columns its deposits reach (one
-        edge more than rows, and than columns), and each deposit its mask
-        test, product and add; pixels the circle leaves out cost nothing."""
-        Xs_, Ys_, A_, c0_, r0_ = (a[sl] for a in cols)
-        ar = torch.arange(K, device=dev, dtype=torch.float32)
-        fc = (c0_[:, None].float() + ar[None]) - Xs_[:, None]
-        fr = (r0_[:, None].float() + ar[None]) - Ys_[:, None]
-        inc = (fc[:, None, :] ** 2 + fr[:, :, None] ** 2) <= (0.75 * D) ** 2
-        dep = inc & (A_ > 0)[:, None, None]          # (spot, row, column)
-        deposits = int(dep.sum())
-        live = dep.flatten(1).any(1)
-        edges = int(((dep.any(1).sum(1) + dep.any(2).sum(1) + 2)
-                     * live).sum())
-        ops = edges * SPLAT_OPS_PER_EDGE + deposits * SPLAT_OPS_PER_DEPOSIT
-        return bound_ms(20 * A_.numel() + sensor * sensor * 4, ops) + (
-            deposits, edges)
 
     k3_bound, k3_by, k3_dep, k3_edges = splat_bound(bench_cols, first)
     (k3_bound_whole, k3_by_whole, k3_dep_whole,
@@ -3544,6 +3964,7 @@ def main(argv=None) -> int:
         require(row.get("launches", 0) > 0,
                 f"{row['name']} was never launched on a main path")
 
+    configs_phase(kernel_rows)
     kernel_rows.extend(large_tier())
     return finish(kernel_rows)
 

@@ -5,7 +5,9 @@ and plain dicts* and returns the port's objects on a given device, so that
 both packages can compute the same thing from the same state.  It imports
 nothing of ``photon_tpu``: the caller (a parity test) does the unpacking on
 the JAX side, e.g. ``{k: np.asarray(v) for k, v in vol._asdict().items()}``,
-``dataclasses.asdict(source)``, ``json.loads(cfg.to_json())``.
+``dataclasses.asdict(source)``, ``json.loads(cfg.to_json())``; the Mie
+table dict of ``photon_tpu.ops.mie.create_mie_scattering_data`` is numpy
+already.
 """
 from __future__ import annotations
 
@@ -58,9 +60,30 @@ def source_from_reference(source: Mapping[str, Any]) -> LightfieldSource:
         source_point_number=int(source.get("source_point_number", 10000)))
 
 
+# the Mie table's arrays that the renderer and piv_source read, and their
+# host dtypes (ops/mie.create_mie_scattering_data)
+_SCATTERING_DTYPES = {
+    "scattering_angle": np.float64,
+    "scattering_irradiance": np.float64,
+    "beam_propogation_vector": np.float64,
+    "particle_diameter_index_distribution": np.int32,
+}
+
+
+def scattering_from_reference(scattering: Mapping[str, Any]) -> Dict[str, Any]:
+    """The Mie table dict -> the port's: its four arrays the renderer and
+    ``piv_source`` read, as host-side numpy of the port's dtypes."""
+    missing = [k for k in _SCATTERING_DTYPES if k not in scattering]
+    if missing:
+        raise KeyError(f"scattering lacks {missing}")
+    return {k: np.asarray(scattering[k], dtype=dt)
+            for k, dt in _SCATTERING_DTYPES.items()}
+
+
 def from_reference(*, config: Optional[Mapping[str, Any]] = None,
                    volume: Optional[Mapping[str, Any]] = None,
                    source: Optional[Mapping[str, Any]] = None,
+                   scattering: Optional[Mapping[str, Any]] = None,
                    r1=None, r2=None,
                    device: DeviceLike = None) -> Dict[str, Any]:
     """State of the JAX package -> the port's objects on ``device``.
@@ -69,12 +92,14 @@ def from_reference(*, config: Optional[Mapping[str, Any]] = None,
       config: ``SimulationConfig.to_json``'s dict.
       volume: the seven fields of a ``DensityVolume`` (numpy arrays, floats).
       source: a ``LightfieldSource``'s arrays and scalars.
+      scattering: the Mie table dict (``create_mie_scattering_data``).
       r1, r2: (R,) lens-aperture samples.
       device: None is the CUDA device (raises without one).
 
     Returns a dict with a key for every argument given: ``config``
     (SimulationConfig), ``volume`` (DensityVolume, its field on the device),
-    ``source`` (LightfieldSource), ``r1``/``r2`` (float32 tensors).
+    ``source`` (LightfieldSource), ``scattering`` (dict of numpy arrays, for
+    ``render_image_fast(scattering=...)``), ``r1``/``r2`` (float32 tensors).
     """
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
@@ -84,6 +109,8 @@ def from_reference(*, config: Optional[Mapping[str, Any]] = None,
         out["volume"] = volume_from_reference(volume, dev)
     if source is not None:
         out["source"] = source_from_reference(source)
+    if scattering is not None:
+        out["scattering"] = scattering_from_reference(scattering)
     if r1 is not None:
         out["r1"] = as_f32(np.asarray(r1), dev)
     if r2 is not None:

@@ -13,12 +13,13 @@ Counterpart of ``photon_tpu/models/render_fast.py``.  The renderer keeps the
 
 This slice covers the main configuration: the axis-aligned single-lens
 train with the 'apparent', 'thin-lens' or 'general' lens model, the erf
-diffraction sensor, an unrotated camera, and a density volume of any slab
-size marched with any integrator of the menu (Euler, RK4, RK4 with substeps
-given or chosen from the data, Adams-Bashforth) under trilinear or cubic
-B-spline interpolation.  Every other option raises ``NotImplementedError``
-naming the ROADMAP.md item that brings it; nothing falls through to another
-path.
+diffraction sensor, an unrotated camera, diffuse or Mie scattering (the
+table collapsed to one factor a particle on the host,
+:func:`mie_irradiance`), and a density volume of any slab size marched with
+any integrator of the menu (Euler, RK4, RK4 with substeps given or chosen
+from the data, Adams-Bashforth) under trilinear or cubic B-spline
+interpolation.  Every other option raises ``NotImplementedError`` naming the
+ROADMAP.md item that brings it; nothing falls through to another path.
 """
 from __future__ import annotations
 
@@ -99,6 +100,40 @@ def auto_patch(params: RenderParams) -> int:
     return max(6, math.ceil(2.0 * rf * params.diffraction_diameter + 3.0))
 
 
+def mie_irradiance(image_distance: float, source: LightfieldSource,
+                   scattering) -> np.ndarray:
+    """(P,) float32 Mie irradiance factor of each particle.
+
+    The per-ray scattering angles within a particle's ~1 um lens cone agree
+    to ~1e-6 rad, so the table lookup collapses to one linear interpolation
+    a particle, in angle, of its diameter's column, at the angle between its
+    chief ray (toward the lens centre) and the beam vector; host float64
+    numpy as in the JAX package (ref per-ray version:
+    parallel_ray_tracing.cu:144-210).  The camera frame is the world frame:
+    the caller holds the camera unrotated.  ``scattering``: the dict of
+    ``ops/mie.create_mie_scattering_data``.
+    """
+    angles = np.asarray(scattering["scattering_angle"])
+    table = np.asarray(scattering["scattering_irradiance"],
+                       dtype=np.float32)                  # (A, D)
+    beam = np.asarray(scattering["beam_propogation_vector"],
+                      dtype=np.float64)
+    diam_idx = np.asarray(source.diameter_index, np.int32)
+    dden = image_distance - np.asarray(source.z, np.float64)
+    ctx = np.asarray(source.x, np.float64) / dden
+    cty = np.asarray(source.y, np.float64) / dden
+    cinv = 1.0 / np.sqrt(ctx * ctx + cty * cty + 1.0)
+    cosang = np.clip(beam[0] * ctx * cinv + beam[1] * cty * cinv
+                     + beam[2] * (-cinv), -1.0, 1.0)
+    a = (np.arccos(cosang) - angles[0]) / (angles[1] - angles[0])
+    a0 = np.clip(np.floor(a).astype(np.int32), 0, table.shape[0] - 2)
+    frac = (a - a0).astype(np.float32)
+    rows = table.T[diam_idx]                              # (P, A)
+    irr_l = rows[np.arange(len(a0)), a0]
+    irr_u = rows[np.arange(len(a0)), a0 + 1]
+    return irr_l + frac * (irr_u - irr_l)
+
+
 def fan_scalars(params: RenderParams, lens_params) -> FanScalars:
     """Pack the scalar configuration of the fan chain."""
     z_object = params.object_distance + params.z_offset
@@ -137,6 +172,8 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     (numpy arrays or tensors).  ``vol``: density volume on ``device``, or
     None for the reference image.  ``particles_per_chunk``: render the
     particles in chunks of this size and sum the chunk images.
+    ``scattering``: the Mie table dict of ``ops/mie.py``
+    (:func:`mie_irradiance`), or None for diffuse scattering.
     ``dense_march``: accepted for the JAX package's callers and without
     effect on the route.  There it chooses between three marches by the
     slab's size (None: dense up to 256 x 256, windowed above; True: dense,
@@ -153,8 +190,6 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
         raise later("a tilted or multi-element lens train", EXACT_PATH)
     if mesh is not None:
         raise later("rendering across devices (mesh)", MULTI_DEVICE)
-    if scattering is not None:
-        raise later("Mie scattering", CONFIGS)
     if params.add_pos_noise:
         raise later("per-ray sensor position noise", CONFIGS)
     if not params.implement_diffraction:
@@ -180,7 +215,12 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     xs = as_f32(source.x, dev)
     ys = as_f32(source.y, dev)
     zs = as_f32(source.z, dev)
-    rad = as_f32(source.radiance, dev)
+    rad = source.radiance
+    if scattering is not None:
+        # the Mie factor folds into the radiance, before amp0's scale
+        rad = np.asarray(rad, np.float32) * mie_irradiance(
+            params.image_distance, source, scattering)
+    rad = as_f32(rad, dev)
     r1 = as_f32(r1, dev)
     r2 = as_f32(r2, dev)
     P, R = xs.shape[0], r1.shape[0]

@@ -1,27 +1,32 @@
-"""Light-field source generation: the BOS dot pattern.
+"""Light-field source generation: PIV particle clouds, BOS dot patterns,
+calibration grids.
 
-Own copy of the JAX package's host-side (numpy) scene layer, limited to
-what the BOS slice needs:
+Own copy of the JAX package's host-side (numpy) scene layer
+(``photon_tpu/models/scenes.py``); from the same numpy generator it gives
+the same arrays:
 
+* PIV particles + Gaussian-sheet radiance —
+  ref: run_simulation_02.load_lightfield_data (:774-996)
 * sunflower dot fill — ref: calculate_sunflower_coordinates (:999-1054)
+* calibration grids — ref: generate_calibration_lightfield_data (:1057-1248)
 * BOS dot patterns (random non-overlapping / regular / overlapping) —
   ref: create_non_overlapping_dot_coordinates (:1251-1325),
   generate_bos_lightfield_data (:1328-1551)
+* image-driven BOS targets — ref: generate_bos_image_lightfield_data
+  (:1554-1696)
 
-``piv_source``, ``calibration_source`` and ``bos_image_source`` arrive with
-the PIV / calibration slices (ROADMAP.md, "PIV/Mie/calibration").
 Scene synthesis runs once per image on the host; the renderer moves the
 arrays to its device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import numpy as np
 
 from photon_tpu_torch.config import SimulationConfig
-from photon_tpu_torch.models.optics import CameraSetup
+from photon_tpu_torch.models.optics import CameraSetup, rotate_coordinates
 
 
 @dataclass
@@ -207,3 +212,210 @@ def bos_source(cfg: SimulationConfig, setup: CameraSetup,
     )
     return src, dot_x, dot_y
 
+
+# ---------------------------------------------------------------------------
+# Calibration scene
+# ---------------------------------------------------------------------------
+
+
+def calibration_source(cfg: SimulationConfig, setup: CameraSetup,
+                       plane_index: int,
+                       rng: Optional[np.random.Generator] = None
+                       ) -> LightfieldSource:
+    """Calibration-grid source for one plane.
+
+    (ref: run_simulation_02.generate_calibration_lightfield_data:1057-1248 —
+    a grid of sunflower-filled dots plus two quarter-size origin markers at
+    (-dx/2, 0) and (0, +dy/2).)
+    """
+    if rng is None:
+        rng = np.random.default_rng(cfg.seed)
+    cg = cfg.calibration_grid
+    n_planes = int(cg.calibration_plane_number)
+    plane_z = cg.calibration_plane_spacing * np.linspace(
+        -(n_planes - 1) / 2.0, (n_planes - 1) / 2.0, n_planes)
+    z_world = plane_z[plane_index]
+
+    xv = cg.x_grid_point_spacing * np.linspace(
+        -(cg.x_grid_point_number - 1) / 2.0, (cg.x_grid_point_number - 1) / 2.0,
+        cg.x_grid_point_number)
+    yv = cg.y_grid_point_spacing * np.linspace(
+        -(cg.y_grid_point_number - 1) / 2.0, (cg.y_grid_point_number - 1) / 2.0,
+        cg.y_grid_point_number)
+
+    fx, fy = sunflower_coordinates(cg.grid_point_diameter,
+                                   cg.particle_number_per_grid_point, rng)
+    X, Y = np.meshgrid(xv, yv, indexing="ij")
+    x = (X.ravel()[:, None] + fx[None, :]).ravel()
+    y = (Y.ravel()[:, None] + fy[None, :]).ravel()
+
+    # origin markers, quarter diameter / 1/16 the point count
+    mx, my = sunflower_coordinates(cg.grid_point_diameter / 4.0,
+                                   cg.particle_number_per_grid_point / 16.0, rng)
+    x = np.concatenate([x, mx - cg.x_grid_point_spacing / 2.0, mx])
+    y = np.concatenate([y, my, my + cg.y_grid_point_spacing / 2.0])
+
+    z = np.full_like(x, z_world)
+    x, y, z = rotate_coordinates(x, y, z,
+                                 cfg.camera_design.x_camera_angle,
+                                 cfg.camera_design.y_camera_angle, 0.0)
+    z = z + setup.z_object
+
+    return LightfieldSource(
+        x=np.asarray(x, np.float32).ravel(),
+        y=np.asarray(y, np.float32).ravel(),
+        z=np.asarray(z, np.float32).ravel(),
+        radiance=np.ones(x.size, dtype=np.float64),
+        diameter_index=np.zeros(x.size, dtype=np.int32),
+        z_offset=float(setup.z_offset),
+        object_distance=float(setup.object_distance),
+        lightray_number_per_particle=int(cg.lightray_number_per_particle),
+    )
+
+
+# ---------------------------------------------------------------------------
+# PIV scene
+# ---------------------------------------------------------------------------
+
+
+def piv_source(cfg: SimulationConfig, setup: CameraSetup,
+               frame_index: int = 1,
+               diameter_index_distribution: Optional[np.ndarray] = None,
+               rng: Optional[np.random.Generator] = None,
+               particle_xyz: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+               ) -> LightfieldSource:
+    """PIV particle-cloud source with Gaussian laser-sheet radiance.
+
+    (ref: run_simulation_02.load_lightfield_data:774-996 — particles are
+    loaded from .mat files or drawn uniformly in the configured extent, lit
+    by ``R = C / (sigma sqrt(2 pi)) exp(-Z^2 / 2 sigma^2)``, rotated by the
+    camera angles and shifted to the object plane.)
+    """
+    if rng is None:
+        rng = np.random.default_rng(cfg.seed + frame_index)
+    pf = cfg.particle_field
+    n = int(pf.particle_number)
+
+    if particle_xyz is not None:
+        X, Y, Z = (np.asarray(a, dtype=np.float64)[:n] for a in particle_xyz)
+    elif pf.load_particle_data:
+        X, Y, Z = _load_particle_frame(pf, frame_index, n)
+    elif n == 1:
+        M = setup.magnification
+        half_px = cfg.camera_design.pixel_pitch / M / 2.0
+        X = np.array([pf.X_Min + (pf.X_Max - pf.X_Min) / 2.0 + half_px])
+        Y = np.array([pf.Y_Min + (pf.Y_Max - pf.Y_Min) / 2.0 + half_px])
+        Z = np.array([pf.particle_depth if pf.particle_depth is not None else 0.0])
+    else:
+        X = pf.X_Min + (pf.X_Max - pf.X_Min) * rng.random(n)
+        Y = pf.Y_Min + (pf.Y_Max - pf.Y_Min) * rng.random(n)
+        Z = pf.Z_Min + (pf.Z_Max - pf.Z_Min) * rng.random(n)
+
+    if pf.perform_mie_scattering:
+        irradiance_constant = 500.0
+        if diameter_index_distribution is None:
+            raise ValueError("Mie scattering requested but no diameter "
+                             "index distribution supplied (see ops/mie.py)")
+        diam_idx = np.asarray(diameter_index_distribution[:X.size], np.int32)
+    else:
+        irradiance_constant = 1e4
+        diam_idx = np.zeros(X.size, dtype=np.int32)
+    if pf.lightray_radiance is not None:
+        irradiance_constant = pf.lightray_radiance
+
+    sigma = pf.gaussian_beam_fwhm / (2.0 * np.sqrt(2.0 * np.log(2.0)))
+    R = irradiance_constant / (sigma * np.sqrt(2.0 * np.pi)) \
+        * np.exp(-(Z ** 2) / (2.0 * sigma ** 2))
+
+    X, Y, Z = rotate_coordinates(X, Y, Z,
+                                 cfg.camera_design.x_camera_angle,
+                                 cfg.camera_design.y_camera_angle, 0.0)
+    Z = Z + setup.z_object
+
+    return LightfieldSource(
+        x=np.asarray(X, np.float32).ravel(),
+        y=np.asarray(Y, np.float32).ravel(),
+        z=np.asarray(Z, np.float32).ravel(),
+        radiance=np.asarray(R, np.float64).ravel(),
+        diameter_index=diam_idx.ravel(),
+        z_offset=float(setup.z_offset),
+        object_distance=float(setup.object_distance),
+        lightray_number_per_particle=int(pf.lightray_number_per_particle),
+    )
+
+
+def _load_particle_frame(pf, frame_index: int, n: int):
+    """Load particle X/Y/Z from the frame_index'th .mat file in the data dir.
+
+    (ref: run_simulation_02.py:881-910)
+    """
+    import glob
+    import os
+    import scipy.io as sio
+
+    files = sorted(glob.glob(os.path.join(pf.data_directory,
+                                          pf.data_filename_prefix + "*.mat")))
+    path = files[frame_index - 1]
+    d = sio.loadmat(path, squeeze_me=True)
+    return (np.asarray(d["X"]).ravel()[:n], np.asarray(d["Y"]).ravel()[:n],
+            np.asarray(d["Z"]).ravel()[:n])
+
+
+def bos_image_source(cfg: SimulationConfig, setup: CameraSetup,
+                     image,
+                     x_range: Optional[Tuple[float, float]] = None,
+                     y_range: Optional[Tuple[float, float]] = None,
+                     ) -> LightfieldSource:
+    """Image-driven BOS target: every nonzero pixel emits a source point.
+
+    (ref: run_simulation_02.generate_bos_image_lightfield_data:1554-1696 —
+    the reference reads a grayscale PNG via matplotlib and keeps channel
+    0; here ``image`` may be a 2-D grayscale array or a path to a .png
+    (utils.png_io, matching the reference's input) or .tif file.
+    Coordinate conventions match: columns are mirrored into x, rows
+    descend from Y_Max, pixel intensity becomes radiance.)
+    """
+    bp = cfg.bos_pattern
+    x_min, x_max = x_range or (bp.X_Min, bp.X_Max)
+    y_min, y_max = y_range or (bp.Y_Min, bp.Y_Max)
+    if isinstance(image, (str, bytes)):
+        path = str(image)
+        if path.lower().endswith(".png"):
+            from photon_tpu_torch.utils.png_io import read_png
+            image = read_png(path)
+        else:
+            from photon_tpu_torch.utils.tiff_io import read_tiff16
+            image = read_tiff16(path)
+    img = np.asarray(image)
+    height, width = img.shape
+    pixel_width = (x_max - x_min) / width
+
+    rows, cols = np.nonzero(img > 0)
+    x = x_min + (width - cols) * pixel_width + pixel_width / 2.0
+    y = y_max - (rows * pixel_width + pixel_width / 2.0)
+    radiance = img[rows, cols].astype(np.float64)
+
+    z = np.zeros_like(x)
+    x, y, z = rotate_coordinates(x, y, z,
+                                 cfg.camera_design.x_camera_angle,
+                                 cfg.camera_design.y_camera_angle, 0.0)
+    z = np.asarray(z).ravel() + setup.z_object
+
+    return LightfieldSource(
+        x=np.asarray(x, np.float32).ravel(),
+        y=np.asarray(y, np.float32).ravel(),
+        z=z.astype(np.float32),
+        radiance=radiance,
+        diameter_index=np.zeros(x.size, dtype=np.int32),
+        z_offset=float(setup.z_offset),
+        object_distance=float(setup.object_distance),
+        lightray_number_per_particle=int(bp.lightray_number_per_particle),
+        source_point_number=min(10000, int(x.size)),
+    )
+
+
+def displace_source(src: LightfieldSource, dx: float = 0.0, dy: float = 0.0,
+                    dz: float = 0.0) -> LightfieldSource:
+    """Uniformly displace a source (frame-pair generation for PIV/BOS)."""
+    return replace(src, x=src.x + np.float32(dx), y=src.y + np.float32(dy),
+                   z=src.z + np.float32(dz))

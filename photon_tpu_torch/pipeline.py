@@ -1,12 +1,13 @@
-"""Simulation entry points: end-to-end BOS image generation.
+"""Simulation entry points: end-to-end PIV / BOS / calibration images.
 
 Counterpart of ``photon_tpu/pipeline.py`` (the reference's orchestration
 layer, run_simulation_02.py:1725-2106): builds the optical system,
-generates the scene, renders the reference + density-gradient image pair,
+generates the scene, renders (the reference + density-gradient pair for
+BOS, a frame sequence for PIV, a plane sequence for calibration),
 post-processes and writes TIFF/raw artifacts plus the parameter/position
-sidecars.  This slice drives the BOS pair through the fast renderer; PIV,
-calibration, ray dumps and the exact renderer raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them.
+sidecars.  Every image goes through the fast renderer; ray dumps and the
+exact renderer raise ``NotImplementedError`` naming the ROADMAP.md item that
+brings them.
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ from photon_tpu_torch.device import DeviceLike, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup, camera_setup
 from photon_tpu_torch.models.render_fast import (_axis_aligned,
                                                  render_image_fast)
-from photon_tpu_torch.models.scenes import LightfieldSource, bos_source
+from photon_tpu_torch.models.scenes import (LightfieldSource, bos_source,
+                                            calibration_source, piv_source)
+from photon_tpu_torch.ops.mie import create_mie_scattering_data
 from photon_tpu_torch.postprocess import postprocess
-from photon_tpu_torch.roadmap import CONFIGS, EXACT_PATH, later
+from photon_tpu_torch.roadmap import EXACT_PATH, later
 from photon_tpu_torch.utils.profiling import PhaseTimer
 from photon_tpu_torch.utils.rng import lens_samples, reference_lens_samples
 from photon_tpu_torch.utils.tiff_io import write_tiff16
@@ -95,7 +98,7 @@ def _ray_budget(cfg: SimulationConfig) -> int:
 
 
 def _render(cfg: SimulationConfig, setup: CameraSetup, source, r1, r2,
-            vol=None, rays_per_chunk: Optional[int] = None,
+            vol=None, scattering=None, rays_per_chunk: Optional[int] = None,
             device: DeviceLike = None) -> torch.Tensor:
     """Render through the fast renderer, chunked to the ray budget."""
     if not can_use_fast_renderer(cfg, setup, vol=vol):
@@ -112,13 +115,21 @@ def _render(cfg: SimulationConfig, setup: CameraSetup, source, r1, r2,
         cfg, setup, source, r1, r2, vol=vol,
         algorithm=int(cfg.density_gradients.ray_tracing_algorithm),
         interpolation_scheme=int(cfg.density_gradients.interpolation_scheme),
-        particles_per_chunk=ppc if ppc < P else None, device=device)
+        particles_per_chunk=ppc if ppc < P else None, scattering=scattering,
+        device=device)
 
 
 def _z_shift_kw(cfg: SimulationConfig) -> dict:
     """NRRD z-origin shift override (see DensityGradients.nrrd_z_origin_shift)."""
     s = cfg.density_gradients.nrrd_z_origin_shift
     return {} if s is None else {"z_origin_shift": float(s)}
+
+
+def _load_volume(cfg: SimulationConfig, dev: torch.device):
+    return load_density_volume(
+        cfg.density_gradients.density_gradient_filename,
+        gladstone_dale=cfg.density_gradients.gladstone_dale, device=dev,
+        **_z_shift_kw(cfg))
 
 
 def run_bos(cfg: SimulationConfig,
@@ -145,10 +156,7 @@ def run_bos(cfg: SimulationConfig,
     vol = None
     if bool(cfg.density_gradients.density_gradient_filename):
         with timer.phase("volume"):
-            vol = load_density_volume(
-                cfg.density_gradients.density_gradient_filename,
-                gladstone_dale=cfg.density_gradients.gladstone_dale,
-                device=dev, **_z_shift_kw(cfg))
+            vol = _load_volume(cfg, dev)
 
     images, raws = {}, {}
     noise_gen = torch.Generator(device=dev)
@@ -173,13 +181,107 @@ def run_bos(cfg: SimulationConfig,
                             timer=timer)
 
 
+def run_piv(cfg: SimulationConfig,
+            rng: Optional[np.random.Generator] = None,
+            rays_per_chunk: Optional[int] = None,
+            verbose: bool = False,
+            device: DeviceLike = None) -> SimulationResult:
+    """Render the PIV frame sequence (ref: run_simulation_02.py:1773-1879).
+
+    One numpy ``rng`` draws, in the JAX package's order, the Mie table's
+    diameter indices and then each frame's particles; the density volume
+    (``simulate_density_gradients``) bends every frame.  ``device``: None
+    is the CUDA device (raises without one); "cpu" runs the plain versions.
+    """
+    dev = resolve_device(device)
+    timer = PhaseTimer(device=dev)
+    if rng is None:
+        rng = np.random.default_rng(cfg.seed)
+    pf = cfg.particle_field
+    with timer.phase("scene"):
+        setup = camera_setup(cfg)
+    scattering = diameter_idx = None
+    if pf.perform_mie_scattering:
+        with timer.phase("mie"):
+            scattering = create_mie_scattering_data(cfg, rng)
+        diameter_idx = scattering["particle_diameter_index_distribution"]
+    with timer.phase("scene"):
+        r1, r2 = _lens_sample_pair(cfg, pf.lightray_number_per_particle)
+
+    vol = None
+    if cfg.density_gradients.simulate_density_gradients:
+        with timer.phase("volume"):
+            vol = _load_volume(cfg, dev)
+
+    images, raws, sources = {}, {}, {}
+    noise_gen = torch.Generator(device=dev)
+    noise_gen.manual_seed(int(cfg.seed) + 7)
+    for frame_index in pf.frame_vector:
+        name = f"particle_image_frame_{int(frame_index):04d}"
+        with timer.phase("scene"):
+            source = piv_source(cfg, setup, int(frame_index),
+                                diameter_index_distribution=diameter_idx,
+                                rng=rng)
+        with timer.phase(f"render:{name}", num_rays=source.num_rays):
+            raw = _render(cfg, setup, source, r1, r2, vol=vol,
+                          scattering=scattering,
+                          rays_per_chunk=rays_per_chunk, device=dev)
+        with timer.phase("postprocess"):
+            images[name], raws[name] = postprocess(cfg, raw,
+                                                   generator=noise_gen)
+        sources[name] = source
+
+    if verbose:
+        print(timer.report())
+    return SimulationResult(images=images, raw_images=raws, setup=setup,
+                            sources=sources, timer=timer)
+
+
+def run_cal(cfg: SimulationConfig,
+            rng: Optional[np.random.Generator] = None,
+            rays_per_chunk: Optional[int] = None,
+            verbose: bool = False,
+            device: DeviceLike = None) -> SimulationResult:
+    """Render one image per calibration plane
+    (ref: run_simulation_02.py:1881-1974).  ``device`` as in run_piv."""
+    dev = resolve_device(device)
+    timer = PhaseTimer(device=dev)
+    if rng is None:
+        rng = np.random.default_rng(cfg.seed)
+    cg = cfg.calibration_grid
+    with timer.phase("scene"):
+        setup = camera_setup(cfg)
+        r1, r2 = _lens_sample_pair(cfg, cg.lightray_number_per_particle)
+
+    images, raws, sources = {}, {}, {}
+    noise_gen = torch.Generator(device=dev)
+    noise_gen.manual_seed(int(cfg.seed) + 7)
+    for plane in range(int(cg.calibration_plane_number)):
+        name = f"calibration_image_plane_{plane + 1:04d}"
+        with timer.phase("scene"):
+            source = calibration_source(cfg, setup, plane, rng)
+        with timer.phase(f"render:{name}", num_rays=source.num_rays):
+            raw = _render(cfg, setup, source, r1, r2,
+                          rays_per_chunk=rays_per_chunk, device=dev)
+        with timer.phase("postprocess"):
+            images[name], raws[name] = postprocess(cfg, raw,
+                                                   generator=noise_gen)
+        sources[name] = source
+
+    if verbose:
+        print(timer.report())
+    return SimulationResult(images=images, raw_images=raws, setup=setup,
+                            sources=sources, timer=timer)
+
+
 def run_simulation(cfg: SimulationConfig, **kw) -> SimulationResult:
     """Dispatch on simulation_type (ref: run_simulation_02.py:1773, 1881, 1976)."""
     if cfg.simulation_type == "bos":
         return run_bos(cfg, **kw)
-    if cfg.simulation_type in ("piv", "cal"):
-        raise later(f"simulation_type {cfg.simulation_type!r}",
-                    CONFIGS)
+    if cfg.simulation_type == "piv":
+        return run_piv(cfg, **kw)
+    if cfg.simulation_type == "cal":
+        return run_cal(cfg, **kw)
     raise ValueError(f"unknown simulation_type {cfg.simulation_type!r}")
 
 

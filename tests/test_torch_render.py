@@ -162,7 +162,7 @@ def test_inputs_as_tensors_and_single_ray(general):
 def _opts(name):
     """Options outside this slice, each as (config edits, keyword args)."""
     def edit(cfg):
-        if name == "rotated camera":
+        if name in ("rotated camera", "Mie scattering with a rotated camera"):
             cfg.camera_design.x_camera_angle = 0.05
         elif name == "position noise":
             cfg.density_gradients.add_pos_noise = True
@@ -171,14 +171,18 @@ def _opts(name):
             cfg.camera_design.implement_diffraction = False
     kw = {"per_ray_splat": dict(per_ray_splat=True),
           "chief_march=False": dict(chief_march=False),
-          "Mie scattering": dict(scattering={"scattering_angle": [0.0]}),
+          # the per-particle Mie collapse is written for the unrotated frame
+          "Mie scattering with a rotated camera": dict(scattering={
+              "scattering_angle": np.linspace(0.0, np.pi, 5),
+              "scattering_irradiance": np.ones((5, 1)),
+              "beam_propogation_vector": np.array([0.0, 1.0, 0.0])}),
           "mesh": dict(mesh=object())}.get(name, {})
     return edit, kw
 
 
 @pytest.mark.parametrize("option", [
     "rotated camera", "position noise", "bilinear sensor", "per_ray_splat",
-    "chief_march=False", "Mie scattering", "mesh"])
+    "chief_march=False", "Mie scattering with a rotated camera", "mesh"])
 def test_unsupported_option_raises(general, option):
     import copy
     cfg, _setup, src, r1, r2 = general["torch"]
