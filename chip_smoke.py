@@ -63,18 +63,28 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    chunking, the first image against a render through the plain versions,
    two runs, the artifacts, and K1 / K2 / K3 at these shapes against their
    plain versions with event and traced device times and bounds;
-10. prints one JSON line describing the kernels and, last, one JSON line
+10. drives the per-ray (P, R) chain at the bench's size (phase 10, after
+   phase 9): the pair through the command line with a rotated camera, with
+   the bilinear sensor and with sensor position noise; two steps of
+   invert_bos with the rotated camera; the rotated im2 with every ray
+   marched (chief_march=False); launch counts, the images against renders
+   through the plain versions, two runs, traced device times and busy
+   shares, the per-ray deposits' device time, the gradient against the
+   plain versions and the peak device memory of the step;
+11. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 ``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
 runs the build, the splat's two kernels of item 2 (with the same spots also
 scattered over the sensor), and items 3 and 4; ``--configs-only`` runs the
-build and item 9 alone.
+build and item 9 alone; ``--chain-only`` the build and item 10 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
 """
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import math
@@ -135,6 +145,7 @@ def bound_ms(nbytes, ops):
 
 
 NOT_MEASURED = "not measured"
+SPIN_LAUNCHES = 16     # kernels that open each traced session (traced())
 
 
 def device_events(prof):
@@ -699,6 +710,12 @@ def main(argv=None) -> int:
                       help="after the build, run phase 9 alone (PIV and "
                       "calibration through the command line); the kernels "
                       "line then lists K1, K2 and K3 at those shapes")
+    only.add_argument("--chain-only", action="store_true",
+                      help="after the build, run phase 10 alone (the per-ray "
+                      "chain: a rotated camera, the bilinear sensor, position "
+                      "noise, invert_bos with the rotated camera, "
+                      "chief_march=False); the kernels line then lists K1, K2 "
+                      "and K3 at those shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -715,7 +732,6 @@ def main(argv=None) -> int:
     from photon_tpu_torch import kernels
     from photon_tpu_torch.cli import main as cli_main
     from photon_tpu_torch.models.render_fast import auto_patch
-    import dataclasses
 
     from photon_tpu_torch.inverse import invert_bos, volume_from_rho
     from photon_tpu_torch.models import render_fast
@@ -801,8 +817,8 @@ def main(argv=None) -> int:
         and run and traced once more where one disagreed.  A trace that
         disagrees is reported: what it held against the counter, its device
         events and its CUDA runtime calls (in the full run some traces of a
-        lone launch hold its runtime calls and no kernel record; PERF.md
-        section 7).  `others`: {name of a kernel that no counter of this
+        lone launch held its runtime calls and no kernel record, so each
+        session opens with spin kernels; PERF.md section 7).  `others`: {name of a kernel that no counter of this
         package counts: the launches run() makes of it}, held the same way.
         Returns (the device time in all, in ms, of a trace that held every
         kernel, else NOT_MEASURED; {kernel that launched: (ms in all,
@@ -813,9 +829,19 @@ def main(argv=None) -> int:
                 w.launches = 0
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                # after the full run's earlier phases a session lost its
+                # first few device records (phase 2i held 17, 18 and 18 of 20
+                # launches of three kernels launched in turn, as if the first
+                # 7 were lost, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+                # section 7): spend them on spin kernels that no reading
+                # counts
+                for _ in range(SPIN_LAUNCHES):
+                    torch.cuda._sleep(100)
+                sync()
                 run()
                 sync()
-            evs = device_events(prof)
+            evs = [ev for ev in device_events(prof)
+                   if "spin_kernel" not in ev.key]
             want = {**{k: int(w.launches) for k, w in counters.items()
                        if w.launches}, **(others or {})}
             held = held_to_counters(evs, want)
@@ -1772,13 +1798,7 @@ def main(argv=None) -> int:
             require(np.isfinite(ims[1]).all() and l1_m < 1e-3,
                     f"{label}: im2 is {l1_m} (L1) from the plain render")
             require(moved_m > 0.01, f"{label}: the volume moves nothing")
-            for line in buf.getvalue().splitlines():
-                mt = re.match(r"\s*(render:\S+|volume): ([0-9.]+)s(?:\s+"
-                              r"([0-9.]+)M rays/s)?", line)
-                if mt:
-                    rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
-                    print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}"
-                          f"  [{card}]")
+            print_phases(label, buf.getvalue(), r"render:\S+|volume")
             del vol_file
 
         def render5(**kw):
@@ -2052,6 +2072,189 @@ def main(argv=None) -> int:
                     f"{row['name']} was never launched on a large-volume path")
         return rows
 
+    # what phases 9 and 10 share: the renderer's kernels swapped for their
+    # plain versions, the kernels' inputs kept as the renderer makes them,
+    # and each kernel held against its plain version at those inputs
+    from photon_tpu_torch.ops import splat as splat_mod
+
+    @contextlib.contextmanager
+    def swapped(pairs):
+        """Each (module, name, replacement) set for the block."""
+        saved = [(m, nm, getattr(m, nm)) for m, nm, _ in pairs]
+        for m, nm, fn in pairs:
+            setattr(m, nm, fn)
+        try:
+            yield
+        finally:
+            for m, nm, fn in saved:
+                setattr(m, nm, fn)
+
+    def plain_versions():
+        """The renderer's three kernels replaced by their plain versions
+        (the orchestration, the Mie collapse and the chunking stay)."""
+        return swapped([
+            (render_fast, "fan_stats", lambda *a, **kw: fan_stats_plain(
+                *a, particles_per_chunk=max(1, 2 * 10**7 // a[5].numel()),
+                **kw)),
+            (splat_mod, "splat_particles", splat_particles_plain),
+            (mdf, "march_chief_fused", march_chief_dense)])
+
+    def kept_calls(seen, names=("fan_stats", "particle_splat",
+                                "chief_deltas_dense")):
+        """Keep the arguments of every call of the functions `names` of
+        render_fast (the fan, the splat and the march by default) as
+        render_fast makes them, by function, in order."""
+        def keep(nm, fn):
+            def call(*a, **kw):
+                seen.setdefault(nm, []).append((a, kw))
+                return fn(*a, **kw)
+            return call
+        return swapped([(render_fast, nm,
+                         keep(nm, getattr(render_fast, nm)))
+                        for nm in names])
+
+    def print_phases(label, log, which=r"\S+"):
+        """The PhaseTimer lines (``--verbose``) of a CLI run's log whose
+        phase matches `which`, with the card."""
+        for line in log.splitlines():
+            mt = re.match(rf"\s*({which}): ([0-9.]+)s(?:\s+([0-9.]+)M "
+                          r"rays/s)?", line)
+            if mt:
+                rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
+                print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}  "
+                      f"[{card}]")
+
+    render_tags = dict(march_dense="march_dense_kernel",
+                       fan_stats="fan_stats_kernel", splat="splat_kernel")
+
+    def traced_image(label, what, run, wall_s):
+        """One image traced: each forward kernel's device time a launch and
+        the device's busy share against an untraced run's wall time.
+        Returns (the device time in all, {kernel: ms a launch})."""
+        dev_ms, held = traced(run)
+        device = {}
+        for k, tag in render_tags.items():
+            got_h = held.get(tag, NOT_MEASURED)
+            device[k] = (NOT_MEASURED if got_h == NOT_MEASURED
+                         else got_h[0] / got_h[1])
+            if got_h != NOT_MEASURED:
+                print(f"    {label}, traced {what}: {k} {got_h[1]} launches, "
+                      f"{got_h[0]:.3f} ms on the device in all, "
+                      f"{got_h[0] / got_h[1] * 1e3:.2f} us a launch  [{card}]")
+        if dev_ms == NOT_MEASURED:
+            print(f"    {label}, traced {what}: device busy share "
+                  f"{NOT_MEASURED}")
+        else:
+            ours = sum(v[0] for k, v in held.items()
+                       if k in render_tags.values())
+            print(f"    {label}, traced {what}: device busy {dev_ms:.2f} ms in "
+                  f"all, {ours:.2f} ms in the three kernels; an untraced run "
+                  f"took {wall_s * 1e3:.1f} ms: busy about "
+                  f"{dev_ms / 1e3 / wall_s:.1%}  [{card}]")
+        return dev_ms, device
+
+    def fan_entry(label, seen, launches, device_ms):
+        (xs_, ys_, zs_, amp_, d6_, xl_, yl_), kw = seen["fan_stats"]
+        p_, r_ = xs_.shape[0], xl_.shape[0]
+        got = fan_stats(xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw)
+        sync()
+        ref = fan_stats_plain(xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw)
+        err = fan_err(got, ref)
+        okp = ref[0] > 0
+        cen = max(float((got[i][okp] / got[0][okp]
+                         - ref[i][okp] / ref[0][okp]).abs().max())
+                  for i in (1, 2))
+        print(f"    K2 {label}, {p_} x {r_}: {int(okp.sum())} of {p_} "
+              f"particles on the sensor in the chunk")
+        hold(f"K2 {label} {p_} x {r_} (relative)", err, K2_TOL)
+        hold(f"K2 {label} {p_} x {r_} (centroid, px)", cen,
+             K2_CENTROID_TOL)
+        ms = time_ms(lambda: fan_stats(xs_, ys_, zs_, amp_, d6_, xl_, yl_,
+                                       **kw), inner=5)
+        pms = time_ms(lambda: fan_stats_plain(
+            xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw), reps=3, warm=1)
+        n_cols = 4 if d6_ is None else 10
+        ops = p_ * r_ * (FAN_OPS_PER_PAIR[kw["lens_model"]]
+                         + (0 if d6_ is None else FAN_OPS_MARCH))
+        bnd, by = bound_ms((n_cols + 3) * p_ * 4 + 2 * r_ * 4, ops)
+        print(f"    K2 {label}, {p_} x {r_}: time {ms:.4f} ms (device "
+              f"{ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  bound "
+              f"{bnd:.4f} ms ({by}); "
+              f"{issue_floor(p_ * r_, 'fan_stats', 'a pair')}  [{card}]")
+        return dict(shape=f"{p_} particles x {r_} rays, {kw['lens_model']}"
+                    + ("" if d6_ is None else ", march deltas"),
+                    launches=launches, max_abs_err=err, tolerance=K2_TOL,
+                    ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
+                    bound_by=by, library_ms=None)
+
+    def splat_entry(label, seen, launches, device_ms):
+        (Xb, Yb, A_, pc_, pr_), kw = seen["particle_splat"]
+        K_, nx_, ny_ = kw["patch"], kw["nx"], kw["ny"]
+        require(K_ == K and nx_ == ny_ == sensor and kw["diameter"] == D
+                and kw["render_fraction"] == skw["render_fraction"],
+                f"{label}: the splat's settings differ from the bench's")
+        # the spot arguments as particle_splat forms them
+        safe = torch.isfinite(Xb) & torch.isfinite(Yb) & (A_ > 0)
+        cols = (torch.where(safe, Xb, torch.full_like(Xb, -1e6)),
+                torch.where(safe, Yb, torch.full_like(Yb, -1e6)),
+                torch.where(safe, A_, torch.zeros_like(A_))
+                * (math.pi / 32.0),
+                (pc_ - K // 2).clamp(0, sensor - K).to(torch.int32),
+                (pr_ - K // 2).clamp(0, sensor - K).to(torch.int32))
+        n_ = cols[0].shape[0]
+        got = splat_particles(*cols, **skw)
+        sync()
+        ref = splat_particles_plain(*cols, **skw)
+        err = float((got - ref).abs().max() / ref.max())
+        hold(f"K3 {label} {n_} spots (of the image maximum)", err, K3_TOL)
+        ms = time_ms(lambda: splat_particles(*cols, **skw), inner=20)
+        pms = time_ms(lambda: splat_particles_plain(*cols, **skw), reps=3,
+                      warm=1)
+        bnd, by, dep, _ = splat_bound(cols, slice(0, n_))
+        print(f"    K3 {label}, {n_} spots: time {ms:.4f} ms (device "
+              f"{ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  bound "
+              f"{bnd:.4f} ms ({by}; {dep} deposits)  [{card}]")
+        return dict(shape=f"{n_} spots, K={K}, {sensor}x{sensor} image",
+                    launches=launches, max_abs_err=err, tolerance=K3_TOL,
+                    ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
+                    bound_by=by, library_ms=None)
+
+    def march_entry(label, seen, launches, device_ms, order="PIV order"):
+        (v, *ch), kw = seen["chief_deltas_dense"]
+        require(kw.get("algorithm") == 2
+                and kw.get("interpolation_scheme", 1) == 1,
+                f"{label}: the march is not trilinear RK4")
+        got = march_chief_fused(v, *ch, algorithm=2)
+        sync()
+        ref = march_chief_dense(v, *ch, algorithm=2)
+        pos_e, dir_e = march_err(got, ref)
+        gg = march_geometry(v)
+        sc_ = float(max(abs(float(x)) for x in
+                        (gg.min_x, gg.min_y, gg.z_min, gg.z_max)))
+        err = max(pos_e / sc_, dir_e)
+        n_ = ch[0].shape[0]
+        hold(f"K1 {label} RK4 {n_} rays (normalised)", err, K1_TOL)
+        ms = time_ms(lambda: march_chief_fused(v, *ch, algorithm=2))
+        pms = time_ms(lambda: march_chief_dense(v, *ch, algorithm=2),
+                      reps=3, warm=1)
+        z_in = torch.where(ch[2] >= float(gg.z_max),
+                           torch.full_like(ch[2], float(gg.z_max)), ch[2])
+        ins = (z_in >= float(gg.z_min)) & (ch[5] < 0)
+        planes = f32(gg.z_planes(int(v.sizes[2])))
+        steps_ = int(((z_in[:, None] > planes[None, :])
+                      & ins[:, None]).sum())
+        bnd, by = bound_ms(12 * n_ * 4 + v.field.numel() * 4, steps_ * (
+            4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE))
+        print(f"    K1 {label}, {n_} rays in {order}: time {ms:.4f} ms "
+              f"(device {ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  "
+              f"bound {bnd:.4f} ms ({by}; {steps_} ray-slab steps); "
+              f"{issue_floor(steps_ * 4, 'march_dense', 'a ray stage')}  "
+              f"[{card}]")
+        return dict(shape=f"{n_} rays in {order}, 64^3 field, RK4",
+                    launches=launches, max_abs_err=err, tolerance=K1_TOL,
+                    ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
+                    bound_by=by, library_ms=None)
+
     def configs_phase(rows):
         """Phase 9: the PIV and calibration configurations through the
         command line, at full size: (a) the CLI's PIV sample
@@ -2070,7 +2273,6 @@ def main(argv=None) -> int:
         from photon_tpu_torch.models.optics import camera_setup
         from photon_tpu_torch.models.render import RenderParams
         from photon_tpu_torch.models.scenes import calibration_source
-        from photon_tpu_torch.ops import splat as splat_mod
         from photon_tpu_torch.ops.mie import create_mie_scattering_data
         from photon_tpu_torch.pipeline import (_lens_sample_pair, _load_volume,
                                                _render, run_simulation)
@@ -2079,41 +2281,6 @@ def main(argv=None) -> int:
               "(photon_tpu_torch.cli.main) at full size")
         wrappers = dict(march_dense=march_chief_fused, fan_stats=fan_stats,
                         splat=splat_particles)
-
-        @contextlib.contextmanager
-        def swapped(pairs):
-            """Each (module, name, replacement) set for the block."""
-            saved = [(m, nm, getattr(m, nm)) for m, nm, _ in pairs]
-            for m, nm, fn in pairs:
-                setattr(m, nm, fn)
-            try:
-                yield
-            finally:
-                for m, nm, fn in saved:
-                    setattr(m, nm, fn)
-
-        def plain_versions():
-            """The renderer's three kernels replaced by their plain versions
-            (the orchestration, the Mie collapse and the chunking stay)."""
-            return swapped([
-                (render_fast, "fan_stats", lambda *a, **kw: fan_stats_plain(
-                    *a, particles_per_chunk=max(1, 2 * 10**7 // a[5].numel()),
-                    **kw)),
-                (splat_mod, "splat_particles", splat_particles_plain),
-                (mdf, "march_chief_fused", march_chief_dense)])
-
-        def kept_calls(seen):
-            """Keep the arguments of every call of the fan, the splat and the
-            march as render_fast makes them, by function, in order."""
-            def keep(nm, fn):
-                def call(*a, **kw):
-                    seen.setdefault(nm, []).append((a, kw))
-                    return fn(*a, **kw)
-                return call
-            return swapped([(render_fast, nm,
-                             keep(nm, getattr(render_fast, nm)))
-                            for nm in ("fan_stats", "particle_splat",
-                                       "chief_deltas_dense")])
 
         def run_part(label, c, tmp, names, expect):
             """One configuration through cli.main and the checks; returns the
@@ -2133,13 +2300,7 @@ def main(argv=None) -> int:
             require(rc == 0, f"{label}: the CLI returned {rc}")
             print(f"    {label}: launches {counts}, expected {expect}")
             expect_counts(label, counts, expect)
-            for line in buf.getvalue().splitlines():
-                mt = re.match(r"\s*(\S+): ([0-9.]+)s(?:\s+([0-9.]+)M rays/s)?",
-                              line)
-                if mt:
-                    rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
-                    print(f"    {label}, {mt.group(1)}: {mt.group(2)} s"
-                          f"{rate}  [{card}]")
+            print_phases(label, buf.getvalue())
             files = sorted(os.path.relpath(os.path.join(d, f), out)
                            for d, _, fs in os.walk(out) for f in fs)
             want = sorted(["parameters.json", "parameters.mat"]
@@ -2223,133 +2384,10 @@ def main(argv=None) -> int:
                     f"render")
 
             # where the device's time goes: one image traced
-            for w in wrappers.values():
-                w.launches = 0
-            dev_ms, held = traced(render_first)
             render_s = sum(dt for nm, dt in again.timer.phases.items()
                            if nm.startswith("render:")) / len(names)
-            tags = dict(march_dense="march_dense_kernel",
-                        fan_stats="fan_stats_kernel", splat="splat_kernel")
-            device = {}
-            for k, tag in tags.items():
-                got_h = held.get(tag, NOT_MEASURED)
-                device[k] = (NOT_MEASURED if got_h == NOT_MEASURED
-                             else got_h[0] / got_h[1])
-                if got_h != NOT_MEASURED:
-                    print(f"    {label}, traced {first}: {k} {got_h[1]} "
-                          f"launches, {got_h[0]:.3f} ms on the device in all, "
-                          f"{got_h[0] / got_h[1] * 1e3:.2f} us a launch  "
-                          f"[{card}]")
-            if dev_ms != NOT_MEASURED:
-                ours = sum(v[0] for kk, v in held.items()
-                           if kk in tags.values())
-                print(f"    {label}, traced {first}: device busy {dev_ms:.2f} "
-                      f"ms in all, {ours:.2f} ms in the three kernels; an "
-                      f"untraced render took {render_s * 1e3:.1f} ms: busy "
-                      f"about {dev_ms / 1e3 / render_s:.1%}  [{card}]")
+            _, device = traced_image(label, first, render_first, render_s)
             return seen, counts, device, again
-
-        def fan_entry(label, seen, launches, device_ms):
-            (xs_, ys_, zs_, amp_, d6_, xl_, yl_), kw = seen["fan_stats"]
-            p_, r_ = xs_.shape[0], xl_.shape[0]
-            got = fan_stats(xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw)
-            sync()
-            ref = fan_stats_plain(xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw)
-            err = fan_err(got, ref)
-            okp = ref[0] > 0
-            cen = max(float((got[i][okp] / got[0][okp]
-                             - ref[i][okp] / ref[0][okp]).abs().max())
-                      for i in (1, 2))
-            print(f"    K2 {label}, {p_} x {r_}: {int(okp.sum())} of {p_} "
-                  f"particles on the sensor in the chunk")
-            hold(f"K2 {label} {p_} x {r_} (relative)", err, K2_TOL)
-            hold(f"K2 {label} {p_} x {r_} (centroid, px)", cen,
-                 K2_CENTROID_TOL)
-            ms = time_ms(lambda: fan_stats(xs_, ys_, zs_, amp_, d6_, xl_, yl_,
-                                           **kw), inner=5)
-            pms = time_ms(lambda: fan_stats_plain(
-                xs_, ys_, zs_, amp_, d6_, xl_, yl_, **kw), reps=3, warm=1)
-            n_cols = 4 if d6_ is None else 10
-            ops = p_ * r_ * (FAN_OPS_PER_PAIR[kw["lens_model"]]
-                             + (0 if d6_ is None else FAN_OPS_MARCH))
-            bnd, by = bound_ms((n_cols + 3) * p_ * 4 + 2 * r_ * 4, ops)
-            print(f"    K2 {label}, {p_} x {r_}: time {ms:.4f} ms (device "
-                  f"{ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  bound "
-                  f"{bnd:.4f} ms ({by}); "
-                  f"{issue_floor(p_ * r_, 'fan_stats', 'a pair')}  [{card}]")
-            return dict(shape=f"{p_} particles x {r_} rays, {kw['lens_model']}"
-                        + ("" if d6_ is None else ", march deltas"),
-                        launches=launches, max_abs_err=err, tolerance=K2_TOL,
-                        ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
-                        bound_by=by, library_ms=None)
-
-        def splat_entry(label, seen, launches, device_ms):
-            (Xb, Yb, A_, pc_, pr_), kw = seen["particle_splat"]
-            K_, nx_, ny_ = kw["patch"], kw["nx"], kw["ny"]
-            require(K_ == K and nx_ == ny_ == sensor and kw["diameter"] == D
-                    and kw["render_fraction"] == skw["render_fraction"],
-                    f"{label}: the splat's settings differ from the bench's")
-            # the spot arguments as particle_splat forms them
-            safe = torch.isfinite(Xb) & torch.isfinite(Yb) & (A_ > 0)
-            cols = (torch.where(safe, Xb, torch.full_like(Xb, -1e6)),
-                    torch.where(safe, Yb, torch.full_like(Yb, -1e6)),
-                    torch.where(safe, A_, torch.zeros_like(A_))
-                    * (math.pi / 32.0),
-                    (pc_ - K // 2).clamp(0, sensor - K).to(torch.int32),
-                    (pr_ - K // 2).clamp(0, sensor - K).to(torch.int32))
-            n_ = cols[0].shape[0]
-            got = splat_particles(*cols, **skw)
-            sync()
-            ref = splat_particles_plain(*cols, **skw)
-            err = float((got - ref).abs().max() / ref.max())
-            hold(f"K3 {label} {n_} spots (of the image maximum)", err, K3_TOL)
-            ms = time_ms(lambda: splat_particles(*cols, **skw), inner=20)
-            pms = time_ms(lambda: splat_particles_plain(*cols, **skw), reps=3,
-                          warm=1)
-            bnd, by, dep, _ = splat_bound(cols, slice(0, n_))
-            print(f"    K3 {label}, {n_} spots: time {ms:.4f} ms (device "
-                  f"{ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  bound "
-                  f"{bnd:.4f} ms ({by}; {dep} deposits)  [{card}]")
-            return dict(shape=f"{n_} spots, K={K}, {sensor}x{sensor} image",
-                        launches=launches, max_abs_err=err, tolerance=K3_TOL,
-                        ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
-                        bound_by=by, library_ms=None)
-
-        def march_entry(label, seen, launches, device_ms):
-            (v, *ch), kw = seen["chief_deltas_dense"]
-            require(kw.get("algorithm") == 2
-                    and kw.get("interpolation_scheme", 1) == 1,
-                    f"{label}: the march is not trilinear RK4")
-            got = march_chief_fused(v, *ch, algorithm=2)
-            sync()
-            ref = march_chief_dense(v, *ch, algorithm=2)
-            pos_e, dir_e = march_err(got, ref)
-            gg = march_geometry(v)
-            sc_ = float(max(abs(float(x)) for x in
-                            (gg.min_x, gg.min_y, gg.z_min, gg.z_max)))
-            err = max(pos_e / sc_, dir_e)
-            n_ = ch[0].shape[0]
-            hold(f"K1 {label} RK4 {n_} rays (normalised)", err, K1_TOL)
-            ms = time_ms(lambda: march_chief_fused(v, *ch, algorithm=2))
-            pms = time_ms(lambda: march_chief_dense(v, *ch, algorithm=2),
-                          reps=3, warm=1)
-            z_in = torch.where(ch[2] >= float(gg.z_max),
-                               torch.full_like(ch[2], float(gg.z_max)), ch[2])
-            ins = (z_in >= float(gg.z_min)) & (ch[5] < 0)
-            planes = f32(gg.z_planes(int(v.sizes[2])))
-            steps_ = int(((z_in[:, None] > planes[None, :])
-                          & ins[:, None]).sum())
-            bnd, by = bound_ms(12 * n_ * 4 + v.field.numel() * 4, steps_ * (
-                4 * MARCH_OPS_PER_RHS + MARCH_OPS_PER_RK4_COMBINE))
-            print(f"    K1 {label}, {n_} rays in PIV order: time {ms:.4f} ms "
-                  f"(device {ms_or_not(device_ms, 4)})  plain {pms:.2f} ms  "
-                  f"bound {bnd:.4f} ms ({by}; {steps_} ray-slab steps); "
-                  f"{issue_floor(steps_ * 4, 'march_dense', 'a ray stage')}  "
-                  f"[{card}]")
-            return dict(shape=f"{n_} rays in PIV order, 64^3 field, RK4",
-                        launches=launches, max_abs_err=err, tolerance=K1_TOL,
-                        ms=ms, device_ms=device_ms, plain_ms=pms, bound_ms=bnd,
-                        bound_by=by, library_ms=None)
 
         entries = {"march_dense": {}, "fan_stats": {}, "splat": {}}
         t_phase = time.perf_counter()
@@ -2454,7 +2492,369 @@ def main(argv=None) -> int:
             row.update(by_part)
         return rows
 
+    def chain_phase(rows):
+        """Phase 10: the per-ray (P, R) chain at full size on the bench scene
+        (120,000 particles x 500 rays, 1024^2 sensor, the general lens, the
+        64^3 volume, 60 chunks an image).  The pair through cli.main with (a)
+        the camera rotated by 0.05 rad about x and -0.03 rad about y, (b) the
+        bilinear sensor, (c) sensor position noise of 0.5 px; (d) two steps
+        of invert_bos with the camera of (a), all particles in one chunk; (e)
+        (a)'s im2 through render_image_fast(..., chief_march=False), every ray
+        through the march kernel.  For each: seconds per phase and rays/s,
+        launches against the chunking, the images against renders through
+        the plain versions, two runs, the device's busy share of a traced
+        image, the kernels' traced device times and the per-ray deposits'
+        device time.  Adds ``chain_*`` entries to the K1, K2 and K3 rows of
+        `rows` (making those rows where the run has none, ``--chain-only``)
+        and the traced step's device times to the K4 and K7 rows."""
+        from photon_tpu_torch.pipeline import _lens_sample_pair, _render
+
+        print("the per-ray chain at full size: the bench scene with a rotated "
+              "camera, the bilinear sensor and position noise through the "
+              "command line; invert_bos with the rotated camera; "
+              "chief_march=False")
+        t_phase = time.perf_counter()
+        wrappers = dict(march_dense=march_chief_fused, fan_stats=fan_stats,
+                        splat=splat_particles)
+        names = ("bos_pattern_image_1", "bos_pattern_image_2")
+        gd = cfg.density_gradients.gladstone_dale
+        entries = {"march_dense": {}, "fan_stats": {}, "splat": {}}
+
+        def edited(edits):
+            """A copy of the bench's config with {"section.key": value}."""
+            c = copy.deepcopy(cfg)
+            for k, v in edits.items():
+                section, key = k.split(".")
+                setattr(getattr(c, section), key, v)
+            return c
+
+        def counts_now():
+            return {k: int(w.launches) for k, w in wrappers.items()}
+
+        def subset(src, sel):
+            return dataclasses.replace(
+                src, x=src.x[sel], y=src.y[sel], z=src.z[sel],
+                radiance=src.radiance[sel],
+                diameter_index=src.diameter_index[sel])
+
+        def pair(label, c, tmp, expect, deposit=None):
+            """The pair of config `c` through cli.main (its case and NRRD in
+            the directory `tmp`, which run_bos reads again) and its checks:
+            the launches, the artifacts, both images against renders through
+            the plain versions, two runs, both images traced, and the per-ray
+            deposit `deposit` (a name in render_fast) of im2's first chunk
+            timed and traced alone."""
+            os.makedirs(tmp)
+            case, nrrd = write_bench_case(tmp, c, rho, spacings, origin)
+            out = os.path.join(tmp, "out")
+            for w in wrappers.values():
+                w.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([case, "--out", out, "--verbose"])
+            counts = counts_now()
+            require(rc == 0, f"({label}) the CLI returned {rc}")
+            print(f"    ({label}) launches {counts}, expected {expect}")
+            expect_counts(f"({label})", counts, expect)
+            print_phases(f"({label})", buf.getvalue())
+            raws = {}
+            for nm in names:
+                raws[nm] = np.fromfile(
+                    os.path.join(out, "raw", nm + ".bin"),
+                    np.float32).reshape(sensor, sensor)
+                tif = read_tiff16(os.path.join(out, "tif", nm + ".tif"))
+                require(tif.shape == (sensor, sensor) and tif.max() > 0,
+                        f"({label}) {nm}.tif does not read back")
+                require(np.isfinite(raws[nm]).all()
+                        and raws[nm].sum() > 0,
+                        f"({label}) {nm}.bin is not a finite image with "
+                        f"a positive sum")
+            vol_ = load_density_volume(nrrd, gladstone_dale=gd,
+                                       device=dev)
+            moved = float(np.abs(raws[names[0]] - raws[names[1]]).sum()
+                          / raws[names[0]].sum())
+            print(f"    ({label}) im1 and im2 differ by {moved:.3e} of im1's "
+                  f"sum")
+            require(moved > 0.05, f"({label}) the volume does not move im2")
+
+            kept = {}
+            keep = ("fan_stats", "particle_splat", "chief_deltas_dense") + (
+                (deposit,) if deposit else ())
+            with kept_calls(kept, keep):
+                again = run_bos(c, device=dev)
+            sync()
+            rr = max(float(np.abs(again.raw_images[nm] - raws[nm]).max()
+                           / raws[nm].max()) for nm in names)
+            print(f"    ({label}) two runs differ by at most {rr:.3e} of the "
+                  f"image maximum (bound 1.0e-05)")
+            require(rr <= 1e-5, f"({label}) two runs differ by {rr}")
+            for nm, dt in again.timer.phases.items():
+                rays = again.timer.rays.get(nm)
+                extra = f", {rays / dt / 1e6:.1f}M rays/s" if rays else ""
+                print(f"    ({label}) second run {nm}: {dt:.4f} s{extra}  "
+                      f"[{card}]")
+
+            src = again.sources["bos"]
+            r1_, r2_ = _lens_sample_pair(c, R)
+
+            def render(i, source_=src):
+                return _render(c, again.setup, source_, r1_, r2_,
+                               vol=vol_ if i else None, noise_seed=c.seed + i,
+                               device=dev)
+
+            before = counts_now()
+            for i, nm in enumerate(names):
+                t0 = time.perf_counter()
+                with torch.no_grad(), plain_versions():
+                    plain = render(i).cpu().numpy()
+                l1 = float(np.abs(raws[nm] - plain).sum() / plain.sum())
+                print(f"    ({label}) {nm} against the plain render: L1 "
+                      f"{l1:.3e} of the sum (tolerance 1.0e-03), plain "
+                      f"render {time.perf_counter() - t0:.1f} s")
+                require(l1 < 1e-3, f"({label}) {nm} is {l1} (L1) from the "
+                        f"plain render")
+            require(before == counts_now(),
+                    f"({label}) the plain render launched a kernel")
+            device, traced_ms = {}, {}
+            for i, nm in enumerate(names):
+                with torch.no_grad():
+                    traced_ms[nm], dv = traced_image(
+                        f"({label})", nm, lambda: render(i),
+                        again.timer.phases[f"render:{nm}"])
+                device.update({k: v for k, v in dv.items()
+                               if v != NOT_MEASURED})
+            if deposit:
+                args_, kw_ = kept[deposit][n_chunks]     # im2's first chunk
+                fn = getattr(render_fast, deposit)
+                with torch.no_grad():
+                    dep_ms = time_ms(lambda: fn(*args_, **kw_), reps=5,
+                                     warm=1)
+                    dep_dev, _ = traced(lambda: fn(*args_, **kw_))
+                share = ("" if NOT_MEASURED in (dep_dev, traced_ms[names[1]])
+                         else f"; {n_chunks} chunks {dep_dev * n_chunks:.2f} "
+                         f"ms of im2's {traced_ms[names[1]]:.2f} ms of device "
+                         f"time ({dep_dev * n_chunks / traced_ms[names[1]]:.1%})")
+                print(f"    ({label}) {deposit} of one chunk "
+                      f"({tuple(args_[0].shape)} rays, K={kw_['patch']}): time "
+                      f"{dep_ms:.4f} ms, device {ms_or_not(dep_dev, 4)} (all "
+                      f"its PyTorch kernels, one trace){share}  [{card}]")
+            return dict(again=again, kept=kept, counts=counts, device=device,
+                        vol=vol_, im2=raws[names[1]], r=(r1_, r2_))
+
+        with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
+            # (a) the rotated camera: im1 through the fan kernel (the rotation
+            # enters only a marched fan), im2 through the chain after the march
+            print("    (a) the camera rotated by 0.05 rad about x and -0.03 rad "
+                  "about y")
+            c_a = edited({"camera_design.x_camera_angle": 0.05,
+                          "camera_design.y_camera_angle": -0.03})
+            a = pair("a", c_a, os.path.join(tmp, "a"),
+                     dict(march_dense=1, fan_stats=n_chunks,
+                          splat=2 * n_chunks))
+            seen = {"fan_stats": a["kept"]["fan_stats"][0],
+                    "chief_deltas_dense": a["kept"]["chief_deltas_dense"][0],
+                    "particle_splat": a["kept"]["particle_splat"][n_chunks]}
+            dv = a["device"]
+            entries["march_dense"]["chain_rotated"] = march_entry(
+                "(a)", seen, a["counts"]["march_dense"],
+                dv.get("march_dense", NOT_MEASURED),
+                order="the rotated camera's chief order")
+            entries["fan_stats"]["chain_rotated"] = fan_entry(
+                "(a) im1", seen, a["counts"]["fan_stats"],
+                dv.get("fan_stats", NOT_MEASURED))
+            entries["splat"]["chain_rotated"] = splat_entry(
+                "(a) im2", seen, a["counts"]["splat"],
+                dv.get("splat", NOT_MEASURED))
+            del seen
+
+            print("    (b) the bilinear sensor (implement_diffraction false)")
+            pair("b", edited({"camera_design.implement_diffraction": False}),
+                 os.path.join(tmp, "b"), dict(march_dense=1, fan_stats=0,
+                                              splat=0),
+                 deposit="bilinear_patch_splat")
+            print("    (c) sensor position noise, 0.5 px (seeds cfg.seed + image)")
+            pair("c", edited({"density_gradients.add_pos_noise": True,
+                              "density_gradients.pos_noise_std": 0.5}),
+                 os.path.join(tmp, "c"), dict(march_dense=1, fan_stats=0,
+                                              splat=0), deposit="patch_splat")
+
+            # (d) invert_bos with the rotated camera against (a)'s im2
+            print("    (d) two steps of invert_bos with the camera of (a), all "
+                  "particles in one chunk")
+            setup_a, src_a = a["again"].setup, a["again"].sources["bos"]
+            (r1_a, r2_a), vol_a, im2_a = a["r"], a["vol"], a["im2"]
+            del a
+            rho_true = rho.astype(np.float32)
+            rho_uniform = np.full_like(rho_true, cfg.density_gradients.rho_0)
+            rho0 = rho_uniform + 0.8 * (rho_true - rho_uniform)
+            target = f32(im2_a)
+            rho0_t = f32(rho0)
+
+            def step(source_, plain=False):
+                """One forward and backward of the render loss: (loss, d_rho,
+                forward s, backward s)."""
+                rho_t = rho0_t.detach().clone().requires_grad_(True)
+                with plain_versions() if plain else contextlib.nullcontext():
+                    sync()
+                    ta = time.perf_counter()
+                    img = render_image_fast(c_a, setup_a, source_, r1_a, r2_a,
+                                            vol=volume_from_rho(rho_t, vol_a, gd),
+                                            algorithm=2, device=dev)
+                    loss = torch.mean((img - target) ** 2)
+                    sync()
+                    tb = time.perf_counter()
+                    (g,) = torch.autograd.grad(loss, rho_t)
+                    sync()
+                return float(loss.detach()), g, tb - ta, time.perf_counter() - tb
+
+            P_a = src_a.num_particles
+            sub10 = subset(src_a, slice(0, P_a, 10))
+            _, g_k, _, _ = step(sub10)
+            _, g_p, _, _ = step(sub10, plain=True)
+            cos_d = cosine(g_k, g_p)
+            print(f"    (d) d_rho at every tenth particle ({sub10.num_particles})"
+                  f": kernels against plain versions cosine {cos_d:.7f}, "
+                  f"relative L2 {float((g_k - g_p).norm() / g_p.norm()):.3e}")
+            require(cos_d >= 0.9999 and bool(torch.isfinite(g_k).all())
+                    and float(g_p.abs().max()) > 0,
+                    f"(d) d_rho cosine {cos_d} against the plain versions")
+            del g_k, g_p
+            # Adam's first step moves every voxel by the learning rate: at
+            # 1e-2 of rho's range (phase 4's) the second loss rose on this
+            # scene, as it does on the CPU with every 20th particle for the
+            # unrotated camera too; 3e-3 lowers both
+            lr = 3e-3 * float(rho_true.max() - rho_true.min())
+            inv_w = dict(march=march_chief_fused,
+                         march_bwd_stage=march_backward_stage,
+                         march_bwd_remarch=march_backward_remarch,
+                         fan_stats=fan_stats, fan_stats_bwd=fan_stats_backward,
+                         splat=splat_particles, splat_bwd=splat_backward)
+            for w in inv_w.values():
+                w.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res = invert_bos(c_a, setup_a, src_a, r1_a, r2_a, im2_a, vol_a,
+                             rho0=rho0, steps=2, learning_rate=lr, algorithm=2,
+                             device=dev)
+            sync()
+            inv_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            counts_d = {k: int(w.launches) for k, w in inv_w.items()}
+            print(f"    (d) 2 steps in {inv_s:.3f} s, losses "
+                  f"{', '.join(f'{v:.6g}' for v in res.losses)}; launches "
+                  f"{counts_d}; peak device memory {peak_gb:.2f} GB  [{card}]")
+            expect_counts("(d)", counts_d, dict(
+                march=2, march_bwd_stage=2, march_bwd_remarch=0, fan_stats=0,
+                fan_stats_bwd=0, splat=2, splat_bwd=2))
+            require(all(math.isfinite(v) for v in res.losses)
+                    and res.losses[-1] < res.losses[0],
+                    f"(d) the losses {res.losses} are not finite and falling")
+            step(src_a)
+            fb = [step(src_a)[2:] for _ in range(3)]
+            fwd_s = statistics.median(t[0] for t in fb)
+            bwd_s = statistics.median(t[1] for t in fb)
+            print(f"    (d) one step: forward {fwd_s * 1e3:.2f} ms, backward "
+                  f"{bwd_s * 1e3:.2f} ms (median of 3)  [{card}]")
+            dev_ms, held = traced(lambda: step(src_a))
+            step_tags = dict(march_dense="march_dense_kernel",
+                             march_bwd_stage="march_bwd_stage_kernel",
+                             splat="splat_kernel", splat_bwd="splat_bwd_kernel")
+            for nm, tag in step_tags.items():
+                got_h = held.get(tag, NOT_MEASURED)
+                if got_h == NOT_MEASURED:
+                    print(f"    (d) traced step, {nm}: {NOT_MEASURED}")
+                    continue
+                print(f"    (d) traced step, {nm}: {got_h[1]} launches, "
+                      f"{got_h[0]:.3f} ms on the device  [{card}]")
+                for row in rows:
+                    if row["name"] == nm:
+                        row["device_ms_on_rotated_step"] = got_h[0]
+            print(f"    (d) traced step: device busy "
+                  + (NOT_MEASURED if dev_ms == NOT_MEASURED else
+                     f"{dev_ms:.2f} ms, about {dev_ms / 1e3 / (fwd_s + bwd_s):.1%}"
+                     f" of an untraced step")
+                  + f"  [{card}]")
+
+            # (e) every ray of (a)'s im2 through the march kernel
+            ppc = _ray_budget(c_a) // R
+            print(f"    (e) (a)'s im2 with chief_march=False: {P_a * R:.3g} rays "
+                  f"through the march kernel, {ppc * R} a launch")
+
+            def render_e(source_):
+                with torch.no_grad():
+                    return render_image_fast(
+                        c_a, setup_a, source_, r1_a, r2_a, vol=vol_a,
+                        chief_march=False, particles_per_chunk=ppc, device=dev)
+
+            for w in wrappers.values():
+                w.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            img_e = render_e(src_a)
+            sync()
+            e_s = time.perf_counter() - t0
+            counts_e = counts_now()
+            print(f"    (e) render {e_s:.4f} s, {P_a * R / e_s / 1e6:.1f}M rays/s; "
+                  f"launches {counts_e}  [{card}]")
+            expect_counts("(e)", counts_e, dict(march_dense=n_chunks, fan_stats=0,
+                                                splat=n_chunks))
+            img_e = img_e.cpu().numpy()
+            print(f"    (e) against (a)'s im2 (one march a particle): L1 "
+                  f"{float(np.abs(img_e - im2_a).sum() / im2_a.sum()):.3e} of the "
+                  f"sum (no limit)")
+            sub100 = subset(src_a, slice(0, P_a, 100))
+            got_e = render_e(sub100).cpu().numpy()
+            with plain_versions():
+                plain_e = render_e(sub100).cpu().numpy()
+            l1_e = float(np.abs(got_e - plain_e).sum() / plain_e.sum())
+            print(f"    (e) every hundredth particle ({sub100.num_particles}) "
+                  f"against the plain render: L1 {l1_e:.3e} of the sum "
+                  f"(tolerance 1.0e-03)")
+            require(l1_e < 1e-3, f"(e) L1 {l1_e} against the plain render")
+            kept_e = {}
+            with kept_calls(kept_e, ("chief_deltas_dense",)):
+                again_e = render_e(src_a).cpu().numpy()
+            rr = float(np.abs(again_e - img_e).max() / img_e.max())
+            print(f"    (e) two runs differ by {rr:.3e} of the image maximum "
+                  f"(bound 1.0e-05)")
+            require(rr <= 1e-5, f"(e) two runs differ by {rr}")
+            _, dv_e = traced_image("(e)", "im2", lambda: render_e(src_a),
+                                     e_s)
+            entries["march_dense"]["chain_per_ray"] = march_entry(
+                "(e)", {"chief_deltas_dense": kept_e["chief_deltas_dense"][0]},
+                counts_e["march_dense"], dv_e["march_dense"],
+                order="fan order (2000 particles x 500 rays, rotated camera)")
+            del kept_e
+        print(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+        made = dict(
+            march_dense=("photon_tpu_torch/csrc/march_dense.cu",
+                         "photon_tpu/ops/march_dense_fused.py:174",
+                         "cli.main, the BOS pair with a rotated camera"),
+            fan_stats=("photon_tpu_torch/csrc/fan_stats.cu",
+                       "photon_tpu/ops/fan_pallas.py:216",
+                       "cli.main, the BOS pair with a rotated camera"),
+            splat=("photon_tpu_torch/csrc/splat.cu",
+                   "photon_tpu/ops/splat_pallas.py:59",
+                   "cli.main, the BOS pair with a rotated camera"))
+        for nm, by_part in entries.items():
+            row = next((r for r in rows if r["name"] == nm), None)
+            if row is None:
+                src_, rep_, on = made[nm]
+                row = dict(name=nm, route="cuda", source=src_, replaces=rep_,
+                           **by_part.pop("chain_rotated"), launches_on=on)
+                if nm == "splat":
+                    row["also_replaces"] = "photon_tpu/ops/splat_pallas.py:186"
+                rows.append(row)
+            row.update(by_part)
+        return rows
+
     def finish(rows_) -> int:
+        # the comparisons of phases 9 and 10 (and of the large tier) append
+        # here too
+        if failures:
+            raise SystemExit(f"chip_smoke: kernel comparisons failed: "
+                             f"{failures}")
         print(f"chip_smoke: all phases passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         print(card)
@@ -2468,6 +2868,8 @@ def main(argv=None) -> int:
         return finish(large_tier())
     if args.configs_only:
         return finish(configs_phase([]))
+    if args.chain_only:
+        return finish(chain_phase([]))
 
     whole = slice(0, P)
     first = slice(0, chunk)
@@ -3378,21 +3780,31 @@ def main(argv=None) -> int:
             gs_out, [gs_in, gs_grid], grad_outputs=c1["ct"].reshape(gs_out.shape),
             retain_graph=True), inner=20)
         del gs_out
-        # like for like: the device time of one K8 launch and of one grid_sample
+        # like for like: the device time of a K8 launch and of a grid_sample
         # call on the same inputs, from one trace (K8's event time is mostly its
-        # wrapper's Python)
+        # wrapper's Python), beside a one-element elementwise kernel: the
+        # floor of a lone launch on the device.  Twenty of each: in the full
+        # run a trace of one launch each lost every device record
+        lone = torch.zeros(1, device=dev)
+        n_tr = 20
+
+        def trio():
+            for _ in range(n_tr):
+                slab_sample_forward(c1["lo"], c1["hi"], *c1["uu"], 1)
+                torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)
+                lone.neg_()
+
         with torch.no_grad():
-            _, held8 = traced(lambda: (
-                slab_sample_forward(c1["lo"], c1["hi"], *c1["uu"], 1),
-                torch.nn.functional.grid_sample(gs_in, gs_grid, **gs_kw)),
-                others={"grid_sampler": 1})
-        k8_dev, gs_dev = (held8.get(k, NOT_MEASURED) for k in
-                          ("slab_sample_kernel", "grid_sampler"))
-        print(f"    one trace: K8 "
-              f"{ms_or_not(k8_dev if k8_dev == NOT_MEASURED else k8_dev[0], 5)}"
-              f", grid_sample "
-              f"{ms_or_not(gs_dev if gs_dev == NOT_MEASURED else gs_dev[0], 5)}"
-              f" on the device (one launch each)  [{card}]")
+            _, held8 = traced(trio, others={"grid_sampler": n_tr,
+                                            "neg_kernel": n_tr})
+        k8_dev, gs_dev, lone_dev = (
+            v if v == NOT_MEASURED else v[0] / v[1] for v in (
+                held8.get(k, NOT_MEASURED) for k in (
+                    "slab_sample_kernel", "grid_sampler", "neg_kernel")))
+        print(f"    one trace, {n_tr} launches each, device time a launch: K8 "
+              f"{ms_or_not(k8_dev, 5)}, grid_sample {ms_or_not(gs_dev, 5)}, a "
+              f"one-element neg_ (a lone launch's floor) "
+              f"{ms_or_not(lone_dev, 5)}  [{card}]")
         print(f"    grid_sample on the same inputs differs from K8 by "
               f"{k8_lib_err:.3e} of each channel's maximum")
         require(k8_lib_err <= 1e-4, "grid_sample does not compute K8's function")
@@ -3420,7 +3832,9 @@ def main(argv=None) -> int:
                 bound_ms=c1[key + "_bound"], bound_by=c1[key + "_by"],
                 library_ms=lib_ms,
                 **({} if key == "k9" or NOT_MEASURED in (k8_dev, gs_dev) else
-                   dict(device_ms=k8_dev[0], library_device_ms=gs_dev[0])),
+                   dict(device_ms=k8_dev, library_device_ms=gs_dev)),
+                **({} if key == "k9" or lone_dev == NOT_MEASURED else
+                   dict(lone_launch_device_ms=lone_dev)),
                 cubic=dict(shape=f"{P} rays, one 64 x 64 slab pair, tricubic",
                            max_abs_err=c2[err_key], ms=c2[key + "_ms"],
                            plain_ms=c2[key + "_plain_ms"],
@@ -3831,13 +4245,7 @@ def main(argv=None) -> int:
               f"{moved_m:.3e}")
         require(np.isfinite(im2_m).all() and l1_m < 1e-3,
                 f"{label}: im2 is {l1_m} (L1) from the plain render")
-        for line in buf.getvalue().splitlines():
-            mt = re.match(r"\s*(render:\S+|volume): ([0-9.]+)s(?:\s+([0-9.]+)M "
-                          r"rays/s)?", line)
-            if mt:
-                rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
-                print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}  "
-                      f"[{card}]")
+        print_phases(label, buf.getvalue(), r"render:\S+|volume")
     for row in kernel_rows:
         if row["name"] == "march_dense_cubic":
             row["launches"] = menu_counts[3]["march_dense"]
@@ -3965,6 +4373,7 @@ def main(argv=None) -> int:
                 f"{row['name']} was never launched on a main path")
 
     configs_phase(kernel_rows)
+    chain_phase(kernel_rows)
     kernel_rows.extend(large_tier())
     return finish(kernel_rows)
 

@@ -5,24 +5,35 @@ Counterpart of ``photon_tpu/models/render_fast.py``.  The renderer keeps the
 
 * density march: one chief ray per particle through the volume
   (``ops/march_dense_fused.py``), its deflection broadcast to the
-  particle's ray fan (exact to the ~1 um lens-cone width);
+  particle's ray fan (exact to the ~1 um lens-cone width); with
+  ``chief_march=False`` every ray of the fan is marched on its own;
 * ray generation -> lens -> sensor statistics: per-particle sums over the
   fan (``ops/fan.py``), no (P, R) array on the card;
 * sensor: one erf spot per particle at its amplitude-weighted centroid
   (``ops/sensor_fast.py`` -> ``ops/splat.py``).
 
-This slice covers the main configuration: the axis-aligned single-lens
-train with the 'apparent', 'thin-lens' or 'general' lens model, the erf
-diffraction sensor, an unrotated camera, diffuse or Mie scattering (the
-table collapsed to one factor a particle on the host,
-:func:`mie_irradiance`), and a density volume of any slab size marched with
-any integrator of the menu (Euler, RK4, RK4 with substeps given or chosen
-from the data, Adams-Bashforth) under trilinear or cubic B-spline
-interpolation.  Every other option raises ``NotImplementedError`` naming the
-ROADMAP.md item that brings it; nothing falls through to another path.
+Where the fan kernel does not apply, the per-ray chain of the JAX package's
+``render_chunk`` runs in PyTorch on (P, R) arrays (:func:`_ray_chain`): a
+rotated camera with a density volume (the fan passes to the march's world
+frame and back), a march of every ray, per-ray sensor position noise, and
+the per-ray deposits (an erf spot a ray, or the bilinear sensor's
+four-pixel deposit).  A rotated camera without a volume renders through
+the fan kernel: the rotation enters the chain only where a volume is
+marched.
+
+Covered: the axis-aligned single-lens train with the 'apparent',
+'thin-lens' or 'general' lens model, the erf diffraction or the bilinear
+sensor, a camera rotated by less than 90 degrees, diffuse or Mie scattering
+(the table collapsed to one factor a particle on the host,
+:func:`mie_irradiance`), sensor position noise, and a density volume of any
+slab size marched with any integrator of the menu under trilinear or cubic
+B-spline interpolation.  A tilted or multi-element train, a camera rotated
+by 90 degrees or more with a volume, and a device mesh raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -34,13 +45,16 @@ from photon_tpu_torch.device import DeviceLike, as_f32, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup
 from photon_tpu_torch.models.render import RenderParams
 from photon_tpu_torch.models.scenes import LightfieldSource
-from photon_tpu_torch.ops.fan import FanScalars, fan_stats
+from photon_tpu_torch.ops.fan import (FanConstants, FanScalars,
+                                      fan_constants, fan_rays, fan_stats,
+                                      fan_sums)
 from photon_tpu_torch.ops.march_dense import (check_march_options,
                                               chief_deltas_dense,
                                               choose_substeps)
-from photon_tpu_torch.ops.sensor_fast import particle_splat
-from photon_tpu_torch.roadmap import (CONFIGS, EXACT_PATH, MULTI_DEVICE,
-                                      later)
+from photon_tpu_torch.ops.march_fast import apply_chief_deltas
+from photon_tpu_torch.ops.sensor_fast import (bilinear_patch_splat,
+                                              particle_splat, patch_splat)
+from photon_tpu_torch.roadmap import EXACT_PATH, MULTI_DEVICE, later
 from photon_tpu_torch.volume import DensityVolume
 
 
@@ -101,7 +115,7 @@ def auto_patch(params: RenderParams) -> int:
 
 
 def mie_irradiance(image_distance: float, source: LightfieldSource,
-                   scattering) -> np.ndarray:
+                   scattering, inv_rot=None) -> np.ndarray:
     """(P,) float32 Mie irradiance factor of each particle.
 
     The per-ray scattering angles within a particle's ~1 um lens cone agree
@@ -109,8 +123,11 @@ def mie_irradiance(image_distance: float, source: LightfieldSource,
     a particle, in angle, of its diameter's column, at the angle between its
     chief ray (toward the lens centre) and the beam vector; host float64
     numpy as in the JAX package (ref per-ray version:
-    parallel_ray_tracing.cu:144-210).  The camera frame is the world frame:
-    the caller holds the camera unrotated.  ``scattering``: the dict of
+    parallel_ray_tracing.cu:144-210).  The beam vector is in the world
+    frame: ``inv_rot``, the camera's inverse rotation, turns the chief
+    direction into it first and renormalises it, as the exact path does
+    (``photon_tpu/models/render.py:138-143``).  ``inv_rot=None`` is the
+    unrotated camera, whose frames agree.  ``scattering``: the dict of
     ``ops/mie.create_mie_scattering_data``.
     """
     angles = np.asarray(scattering["scattering_angle"])
@@ -123,8 +140,15 @@ def mie_irradiance(image_distance: float, source: LightfieldSource,
     ctx = np.asarray(source.x, np.float64) / dden
     cty = np.asarray(source.y, np.float64) / dden
     cinv = 1.0 / np.sqrt(ctx * ctx + cty * cty + 1.0)
-    cosang = np.clip(beam[0] * ctx * cinv + beam[1] * cty * cinv
-                     + beam[2] * (-cinv), -1.0, 1.0)
+    if inv_rot is None:
+        cosang = beam[0] * ctx * cinv + beam[1] * cty * cinv \
+            + beam[2] * (-cinv)
+    else:
+        w = np.asarray(inv_rot, np.float64) @ np.stack(
+            [ctx * cinv, cty * cinv, -cinv])
+        w = w / np.linalg.norm(w, axis=0)
+        cosang = beam[0] * w[0] + beam[1] * w[1] + beam[2] * w[2]
+    cosang = np.clip(cosang, -1.0, 1.0)
     a = (np.arccos(cosang) - angles[0]) / (angles[1] - angles[0])
     a0 = np.clip(np.floor(a).astype(np.int32), 0, table.shape[0] - 2)
     frac = (a - a0).astype(np.float32)
@@ -152,6 +176,106 @@ def fan_scalars(params: RenderParams, lens_params) -> FanScalars:
         z_sensor=float(params.z_sensor))
 
 
+def _to_world(inv_rot, shift: float, px, py, pz, dx, dy, dz):
+    """Camera frame -> the march's (world) frame: the z shift, then the
+    camera's inverse rotation (nested lists of float32 values; None for an
+    unrotated camera), componentwise in the JAX package's order."""
+    pzs = pz - shift
+    if inv_rot is None:
+        return px, py, pzs, dx, dy, dz
+    i = inv_rot
+    return (i[0][0] * px + i[0][1] * py + i[0][2] * pzs,
+            i[1][0] * px + i[1][1] * py + i[1][2] * pzs,
+            i[2][0] * px + i[2][1] * py + i[2][2] * pzs,
+            i[0][0] * dx + i[0][1] * dy + i[0][2] * dz,
+            i[1][0] * dx + i[1][1] * dy + i[1][2] * dz,
+            i[2][0] * dx + i[2][1] * dy + i[2][2] * dz)
+
+
+def _to_camera(rot, shift: float, wx, wy, wz, wdx, wdy, wdz):
+    """The march's frame -> the camera frame, :func:`_to_world` undone; a
+    rotated direction is renormalised, as in the JAX package."""
+    if rot is None:
+        return wx, wy, wz + shift, wdx, wdy, wdz
+    r = rot
+    dx = r[0][0] * wdx + r[0][1] * wdy + r[0][2] * wdz
+    dy = r[1][0] * wdx + r[1][1] * wdy + r[1][2] * wdz
+    dz = r[2][0] * wdx + r[2][1] * wdy + r[2][2] * wdz
+    inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    return (r[0][0] * wx + r[0][1] * wy + r[0][2] * wz,
+            r[1][0] * wx + r[1][1] * wy + r[1][2] * wz,
+            r[2][0] * wx + r[2][1] * wy + r[2][2] * wz + shift,
+            dx * inv, dy * inv, dz * inv)
+
+
+def _centroids(A, AX, AY):
+    """``(A, Xbar, Ybar, pred_col, pred_row)``: each particle's
+    amplitude-weighted ray centroid, the spot's centre and its anchor;
+    particles with no surviving ray get a far sentinel."""
+    denom_a = A.clamp_min(1e-30)
+    Xbar = AX / denom_a
+    Ybar = AY / denom_a
+    ok_p = A > 0
+    far = torch.full_like(Xbar, -1e6)
+    pred_col = torch.round(torch.where(ok_p, Xbar, far)).to(torch.int32)
+    pred_row = torch.round(torch.where(ok_p, Ybar, far)).to(torch.int32)
+    return A, Xbar, Ybar, pred_col, pred_row
+
+
+def _ray_chain(xs, ys, zs, amp0, x_lens, y_lens, *, c: FanConstants,
+               lens_model: str, mirror_x: bool, march=None, rot=None,
+               inv_rot=None, sensor_noise=None):
+    """The per-ray (P, R) chain of the JAX package's ``render_chunk``
+    (``photon_tpu/models/render_fast.py:330-434``), in PyTorch.
+
+    ``march``: a function of the six (P, R) ray components in the march's
+    frame that returns them after the volume (the chief deltas, or each
+    ray's own march), or None; the rays pass to that frame and back through
+    ``rot`` / ``inv_rot`` (None: unrotated).  ``sensor_noise``: (2, P, R)
+    displacements of the sensor-plane intersection, or None.  ``amp0``:
+    (P,) amplitudes with every scalar factor folded.
+
+    Returns ``((X, Y, amp), (A, Xbar, Ybar, pred_col, pred_row))``: the
+    per-ray centres (unmasked: the deposits' ``safe`` drops culled rays)
+    and amplitudes, and the per-particle sums and centroids, formed with
+    culled rays' X and Y zeroed (the JAX chain sums ``amp * X`` over them).
+    """
+    world = None
+    if march is not None:
+        def world(*rays):
+            return _to_camera(rot, c.shift,
+                              *march(*_to_world(inv_rot, c.shift, *rays)))
+
+    X, Y, cos2, valid = fan_rays(xs, ys, zs, x_lens, y_lens, c, lens_model,
+                                 mirror_x, march=world,
+                                 sensor_noise=sensor_noise)
+    amp, sums = fan_sums(X, Y, cos2, valid, amp0)
+    return (X, Y, amp), _centroids(*sums)
+
+
+def _march_each_ray(vol, **march_kw):
+    """A ``march`` for :func:`_ray_chain` that marches every ray of the fan
+    through ``march_chief_fused`` (the march kernel on the card) and applies
+    its own deltas."""
+    def march(*rays):
+        flat = [r.reshape(-1).contiguous() for r in rays]
+        d6 = chief_deltas_dense(vol, *flat, **march_kw)
+        return apply_chief_deltas(tuple(d.reshape(rays[0].shape) for d in d6),
+                                  *rays)
+    return march
+
+
+def _chunk_normals(gen: torch.Generator, n: int, R: int) -> torch.Tensor:
+    """(2, n, R) standard normals of one chunk's sensor noise."""
+    return torch.randn((2, n, R), generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def _f32_rows(m) -> list:
+    """A 3 x 3 matrix as nested lists of float32 values."""
+    return np.asarray(m, np.float32).tolist()
+
+
 def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
                       source: LightfieldSource, r1, r2,
                       vol: Optional[DensityVolume] = None,
@@ -163,6 +287,7 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
                       scattering=None,
                       mesh=None,
                       interpolation_scheme: int = 1,
+                      noise_seed: Optional[int] = None,
                       dense_march: Optional[bool] = None,
                       march_substeps: Optional[int] = None,
                       device: DeviceLike = None) -> torch.Tensor:
@@ -171,9 +296,19 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     ``r1``/``r2``: (R,) lens-aperture samples shared by all particles
     (numpy arrays or tensors).  ``vol``: density volume on ``device``, or
     None for the reference image.  ``particles_per_chunk``: render the
-    particles in chunks of this size and sum the chunk images.
-    ``scattering``: the Mie table dict of ``ops/mie.py``
-    (:func:`mie_irradiance`), or None for diffuse scattering.
+    particles in chunks of this size and sum the chunk images; it bounds
+    the (P, R) arrays of the per-ray chain and, with ``chief_march=False``,
+    the rays a march takes.  ``scattering``: the Mie table dict of
+    ``ops/mie.py`` (:func:`mie_irradiance`), or None for diffuse scattering.
+
+    ``chief_march``: march one chief ray per particle and broadcast its
+    deflection to the fan; False marches every ray (the JAX package marches
+    them through its voxel-tube march, the port through the same gather
+    march as the chief rays).  ``per_ray_splat``: deposit an erf spot per
+    ray instead of one per particle at the amplitude-weighted centroid
+    (forced on by position noise).  ``noise_seed``: seeds the sensor
+    position noise (``cfg.seed`` when None); the chunks draw their normals
+    in turn from one generator on ``device``.
     ``dense_march``: accepted for the JAX package's callers and without
     effect on the route.  There it chooses between three marches by the
     slab's size (None: dense up to 256 x 256, windowed above; True: dense,
@@ -190,27 +325,32 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
         raise later("a tilted or multi-element lens train", EXACT_PATH)
     if mesh is not None:
         raise later("rendering across devices (mesh)", MULTI_DEVICE)
-    if params.add_pos_noise:
-        raise later("per-ray sensor position noise", CONFIGS)
-    if not params.implement_diffraction:
-        raise later("the bilinear sensor", CONFIGS)
-    if per_ray_splat:
-        raise later("per_ray_splat", CONFIGS)
-    if not chief_march:
-        raise later("chief_march=False (marching every fan ray)",
-                    CONFIGS)
-    if not np.allclose(setup.rotation_matrix, np.eye(3)):
-        raise later("a rotated camera", CONFIGS)
     if params.lens_model not in ("apparent", "thin-lens", "general"):
         raise ValueError(f"unknown lens_model {params.lens_model!r}")
     if vol is not None:
+        if float(np.asarray(setup.inverse_rotation_matrix)[2, 2]) <= 0.0:
+            # its rays travel upward in the march's frame: no march of the
+            # port enters a volume from below
+            raise later("a camera rotated by 90 degrees or more with a "
+                        "density volume", EXACT_PATH)
         check_march_options(algorithm, interpolation_scheme)
         if vol.field.device != dev:
             raise ValueError(f"volume on {vol.field.device}, render on {dev}")
     elif dense_march:
         raise ValueError("dense_march=True requires a density volume")
+    rotated = not np.allclose(setup.rotation_matrix, np.eye(3))
+    per_ray_splat = per_ray_splat or params.add_pos_noise
+    per_ray_march = vol is not None and not chief_march
+    # the fan kernel's route: diffraction, one spot a particle, and the
+    # camera frame equal to the march's frame up to the z shift
+    chain = (per_ray_splat or not params.implement_diffraction
+             or per_ray_march or (rotated and vol is not None))
     if patch is None:
-        patch = auto_patch(params)
+        # per-ray deposits keep the JAX package's conservative side: the
+        # rays' spread around the anchor depends on the scene (defocus,
+        # position noise)
+        patch = (auto_patch(params) if params.implement_diffraction
+                 and not per_ray_splat else 12)
 
     xs = as_f32(source.x, dev)
     ys = as_f32(source.y, dev)
@@ -219,7 +359,8 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     if scattering is not None:
         # the Mie factor folds into the radiance, before amp0's scale
         rad = np.asarray(rad, np.float32) * mie_irradiance(
-            params.image_distance, source, scattering)
+            params.image_distance, source, scattering,
+            setup.inverse_rotation_matrix if rotated else None)
     rad = as_f32(rad, dev)
     r1 = as_f32(r1, dev)
     r2 = as_f32(r2, dev)
@@ -241,7 +382,9 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     if R == 1:
         x_lens = torch.zeros_like(x_lens)
         y_lens = torch.zeros_like(y_lens)
-    amp_scale = (8.0 / math.pi) / params.aperture_f_number ** 2
+    # 8/pi is the erf spot's normalisation: the bilinear deposit has none
+    amp_scale = ((8.0 / math.pi) if params.implement_diffraction else 1.0) \
+        / params.aperture_f_number ** 2
     if params.lens_model == "general":
         amp_scale = amp_scale * lens_params[6]          # transmission
     amp0 = rad * float(np.float32(amp_scale))
@@ -249,7 +392,10 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     # density march: per-particle chief deltas, computed once for all
     # particles; they chunk like any other per-particle array
     deltas6 = None
-    if vol is not None:
+    march_kw = dict(algorithm=algorithm,
+                    interpolation_scheme=interpolation_scheme,
+                    substeps=march_substeps)
+    if vol is not None and chief_march:
         inv_rot = as_f32(setup.inverse_rotation_matrix, dev)
         chief = _chief_geometry(xs, ys, zs, inv_rot, params.z_offset,
                                 params.image_distance)
@@ -258,41 +404,66 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
             # on a subsample of the chief rays), once per scene
             key = (int(interpolation_scheme),
                    _scene_fingerprint(vol, setup, params, source))
-            march_substeps = _substep_cache.get(key)
-            if march_substeps is None:
-                march_substeps = choose_substeps(
+            march_kw["substeps"] = _substep_cache.get(key)
+            if march_kw["substeps"] is None:
+                march_kw["substeps"] = _substep_cache[key] = choose_substeps(
                     vol, *chief, interpolation_scheme=interpolation_scheme)
-                _substep_cache[key] = march_substeps
-        deltas6 = chief_deltas_dense(
-            vol, *chief, algorithm=algorithm,
-            interpolation_scheme=interpolation_scheme,
-            substeps=march_substeps)
+        deltas6 = chief_deltas_dense(vol, *chief, **march_kw)
 
     render_fraction = 1.0 if params.lens_model == "apparent" else 0.75
+    splat_kw = dict(nx=params.nx, ny=params.ny, patch=patch)
+    chain_kw = dict(c=fan_constants(sc), lens_model=params.lens_model,
+                    mirror_x=params.implement_diffraction)
+    if rotated:
+        chain_kw.update(rot=_f32_rows(setup.rotation_matrix),
+                        inv_rot=_f32_rows(setup.inverse_rotation_matrix))
+    gen = noise_scale = None
+    if params.add_pos_noise:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(cfg.seed if noise_seed is None else noise_seed))
+        # N(0, 1) * std * pixel_pitch on the sensor-plane intersection
+        noise_scale = float(np.float32(params.pos_noise_std
+                                       * params.pixel_pitch))
 
-    def render_chunk(sl):
+    def render_chunk(sl, normals=None):
+        """The image of the particles ``sl``; ``normals``: their (2, n, R)
+        standard normals of the sensor noise, or None without noise."""
         d6 = None if deltas6 is None else tuple(d[sl] for d in deltas6)
-        A, AX, AY = fan_stats(xs[sl], ys[sl], zs[sl], amp0[sl], d6, x_lens,
-                              y_lens, sc=sc, lens_model=params.lens_model,
-                              mirror_x=params.implement_diffraction)
-        # amplitude-weighted ray centroid: the spot centre and its anchor;
-        # particles with no surviving ray get a far sentinel
-        denom_a = A.clamp_min(1e-30)
-        Xbar = AX / denom_a
-        Ybar = AY / denom_a
-        ok_p = A > 0
-        far = torch.full_like(Xbar, -1e6)
-        pred_col = torch.round(torch.where(ok_p, Xbar, far)).to(torch.int32)
-        pred_row = torch.round(torch.where(ok_p, Ybar, far)).to(torch.int32)
-        return particle_splat(
-            Xbar, Ybar, A, pred_col, pred_row, nx=params.nx, ny=params.ny,
-            diameter=params.diffraction_diameter, patch=patch,
-            render_fraction=render_fraction)
+        if not chain:
+            sums = fan_stats(xs[sl], ys[sl], zs[sl], amp0[sl], d6, x_lens,
+                             y_lens, sc=sc, lens_model=params.lens_model,
+                             mirror_x=params.implement_diffraction)
+            A, Xbar, Ybar, pred_col, pred_row = _centroids(*sums)
+            return particle_splat(
+                Xbar, Ybar, A, pred_col, pred_row,
+                diameter=params.diffraction_diameter,
+                render_fraction=render_fraction, **splat_kw)
+        march = (_march_each_ray(vol, **march_kw) if per_ray_march
+                 else None if d6 is None
+                 else functools.partial(apply_chief_deltas, d6))
+        (X, Y, amp), (A, Xbar, Ybar, pred_col, pred_row) = _ray_chain(
+            xs[sl], ys[sl], zs[sl], amp0[sl], x_lens, y_lens, march=march,
+            sensor_noise=None if normals is None else normals * noise_scale,
+            **chain_kw)
+        if not params.implement_diffraction:
+            return bilinear_patch_splat(X, Y, amp, pred_col, pred_row,
+                                        **splat_kw)
+        if per_ray_splat:
+            return patch_splat(X, Y, amp, pred_col, pred_row,
+                               diameter=params.diffraction_diameter,
+                               **splat_kw)
+        return particle_splat(Xbar, Ybar, A, pred_col, pred_row,
+                              diameter=params.diffraction_diameter,
+                              render_fraction=render_fraction, **splat_kw)
+
+    def chunk_image(s, e):
+        return render_chunk(slice(s, e), None if gen is None
+                            else _chunk_normals(gen, e - s, R))
 
     if particles_per_chunk is None or particles_per_chunk >= P:
-        return render_chunk(slice(0, P))
+        return chunk_image(0, P)
     pc = max(1, int(particles_per_chunk))
     img = torch.zeros((params.ny, params.nx), dtype=torch.float32, device=dev)
     for s in range(0, P, pc):
-        img += render_chunk(slice(s, min(s + pc, P)))     # in place
+        img += chunk_image(s, min(s + pc, P))             # in place
     return img

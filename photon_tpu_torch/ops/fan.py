@@ -25,7 +25,9 @@ the bench scene, for every numerator: ``tests/test_torch_division.py``);
 The plain version is the (P, R) structure-of-arrays chain of the JAX
 package's ``models/render_fast.py::render_chunk`` with its lens stages
 (``propagate_thick_lens_soa``, ``propagate_thin_lens_soa``,
-``_refract_soa``, ``_sphere_hit_soa``).  Both versions take reciprocal
+``_refract_soa``, ``_sphere_hit_soa``); its ray path, :func:`fan_rays`,
+also serves the renderer's per-ray chain (``models/render_fast.py``), where
+the fan kernel does not apply.  Both versions take reciprocal
 square roots as ``1 / sqrt`` and form the scalar constants once, in
 float64, before rounding to float32 (:func:`fan_constants`).
 
@@ -226,8 +228,19 @@ def propagate_thin_lens_soa(px, py, pz, dx, dy, dz, valid, c: FanConstants):
         ox * inv, oy * inv, oz * inv, valid
 
 
-def _fan_chunk_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens,
-                     c: FanConstants, lens_model: str, mirror_x: bool):
+def fan_rays(xs, ys, zs, x_lens, y_lens, c: FanConstants, lens_model: str,
+             mirror_x: bool, march=None, sensor_noise=None):
+    """Every ray of the (P, R) fans from source to sensor, plain PyTorch.
+
+    Generates the ray from each particle toward each lens-aperture sample,
+    passes the camera-frame rays through ``march`` (a function of the six
+    (P, R) components that returns them after the volume, or None), runs
+    the lens, adds ``sensor_noise`` ((2, P, R) displacements, or None) to
+    the sensor-plane intersection and maps it to pixels (x mirrored when
+    ``mirror_x``).  Returns ``(X, Y, cos2, valid)``, each (P, R): the pixel
+    coordinates ``d_x - 0.5`` / ``d_y - 0.5`` (not finite for some culled
+    rays), the squared cosine of the ray to the sensor normal, and the rays
+    that pass the aperture and land on the sensor."""
     tx = -(x_lens[None, :] - xs[:, None]) / (c.image_distance - zs[:, None])
     ty = -(y_lens[None, :] - ys[:, None]) / (c.image_distance - zs[:, None])
     inv = 1.0 / torch.sqrt(tx * tx + ty * ty + 1.0)
@@ -237,12 +250,8 @@ def _fan_chunk_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens,
     pz = zs[:, None].expand_as(tx)
     valid = torch.ones_like(tx, dtype=torch.bool)
 
-    if deltas6 is not None:
-        # camera -> march frame (z shift only: unrotated camera), chief
-        # deltas, back to the camera frame
-        px, py, pzw, dx, dy, dz = apply_chief_deltas(
-            deltas6, px, py, pz - c.shift, dx, dy, dz)
-        pz = pzw + c.shift
+    if march is not None:
+        px, py, pz, dx, dy, dz = march(px, py, pz, dx, dy, dz)
 
     if lens_model == "apparent":
         # reverse + object-plane intersection + magnification
@@ -264,7 +273,14 @@ def _fan_chunk_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens,
         iy = py + dy * t
         fdx, fdy, fdz = dx, dy, dz
 
-    # pixel coordinates (the diffraction path mirrors x, ref: :1441-1447)
+    # per-ray sensor position noise, on the intersection before the pixel
+    # mapping (ref: :1424-1434)
+    if sensor_noise is not None:
+        ix = ix + sensor_noise[0]
+        iy = iy + sensor_noise[1]
+
+    # pixel coordinates (the diffraction path mirrors x, ref: :1441-1447;
+    # the bilinear path does not, ref: :1814)
     d_x = (ix - c.pixel_1_x) / c.pixel_pitch
     if mirror_x:
         d_x = c.nx_m1 - d_x
@@ -273,13 +289,35 @@ def _fan_chunk_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens,
     valid = valid & on_sensor
 
     cos2 = (fdz * fdz) / (fdx * fdx + fdy * fdy + fdz * fdz)
+    return d_x - 0.5, d_y - 0.5, cos2, valid
+
+
+def fan_sums(X, Y, cos2, valid, amp0):
+    """Per-ray amplitudes ``amp0 * cos^4`` (zero for culled rays) and the
+    per-particle sums ``(A, AX, AY)`` of :func:`fan_rays`' rays."""
     zero = torch.zeros_like(cos2)
     amp = torch.where(valid, amp0[:, None] * cos2 * cos2, zero)
     # X/Y of culled rays are zeroed under the same mask as amp, so that
     # 0 * inf never reaches the sums
-    X = torch.where(valid, d_x - 0.5, zero)
-    Y = torch.where(valid, d_y - 0.5, zero)
-    return amp.sum(dim=1), (amp * X).sum(dim=1), (amp * Y).sum(dim=1)
+    X = torch.where(valid, X, zero)
+    Y = torch.where(valid, Y, zero)
+    return amp, (amp.sum(dim=1), (amp * X).sum(dim=1), (amp * Y).sum(dim=1))
+
+
+def _fan_chunk_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens,
+                     c: FanConstants, lens_model: str, mirror_x: bool):
+    march = None
+    if deltas6 is not None:
+        def march(px, py, pz, dx, dy, dz):
+            # camera -> march frame (z shift only: unrotated camera), chief
+            # deltas, back to the camera frame
+            px, py, pzw, dx, dy, dz = apply_chief_deltas(
+                deltas6, px, py, pz - c.shift, dx, dy, dz)
+            return px, py, pzw + c.shift, dx, dy, dz
+
+    rays = fan_rays(xs, ys, zs, x_lens, y_lens, c, lens_model, mirror_x,
+                    march=march)
+    return fan_sums(*rays, amp0)[1]
 
 
 def fan_stats_plain(xs, ys, zs, amp0, deltas6, x_lens, y_lens, *,

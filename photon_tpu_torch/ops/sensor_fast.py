@@ -1,19 +1,26 @@
-"""Per-particle erf splat: anchors, sentinels and the plain scatter.
+"""Sensor deposits: the per-particle erf splat and the per-ray deposits.
 
-Counterpart of ``photon_tpu/ops/sensor_fast.py``, of which this slice needs
-:func:`particle_splat`: one erf spot per *particle* at its
-amplitude-weighted ray centroid.  ``patch_splat`` (per-ray spots under
-position noise) and ``bilinear_patch_splat`` arrive with the PIV / noise /
-bilinear slice (ROADMAP.md).
+Counterpart of ``photon_tpu/ops/sensor_fast.py``.  :func:`particle_splat`
+puts one erf spot per *particle* at its amplitude-weighted ray centroid
+through the splat kernel of ``ops/splat.py``; :func:`patch_splat` (an erf
+spot per ray, under position noise or ``per_ray_splat``) and
+:func:`bilinear_patch_splat` (the bilinear sensor's 4-pixel deposit per ray)
+deposit every ray of a (P, R) fan.
 
-:func:`_particle_splat_plain` is the plain version of the splat kernel of
-``ops/splat.py``: (P, K, K) patches with the circular render mask, scattered
-with ``index_add_``; ``torch.autograd`` through it is the plain version of
-the splat's transpose kernel.  The ``where(safe, ...)``, the pi/32 scale and
+:func:`_particle_splat_plain` is the plain version of the splat kernel:
+(P, K, K) patches with the circular render mask, scattered with
+``index_add_``; ``torch.autograd`` through it is the plain version of the
+splat's transpose kernel.  The ``where(safe, ...)``, the pi/32 scale and
 the centroid division stay plain PyTorch around the kernels on either device.
+
+The per-ray deposits are XLA in the JAX package, not Pallas: a product of
+(K, P, R) weight stacks over the rays and a scatter.  They are the same
+here, ``einsum`` and ``index_add_``, on every device, with the product in
+full float32 whatever the global TF32 setting (:class:`_PatchProduct`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -101,3 +108,106 @@ def particle_splat(Xbar, Ybar, A, pred_col, pred_row, *, nx: int, ny: int,
     return splat_particles(Xs, Ys, A, col0, row0, K=K, ny=int(ny), nx=int(nx),
                            diameter=float(diameter),
                            render_fraction=float(render_fraction))
+
+
+# ---------------------------------------------------------------------------
+# per-ray deposits
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _full_f32():
+    """Matrix products in full float32 for the block, whatever the global
+    TF32 setting (restored on leaving)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class _PatchProduct(torch.autograd.Function):
+    """(K, P, R) row and column weight stacks -> (P, K, K) [row, col]
+    patches, a sum over each particle's rays; forward and backward in full
+    float32."""
+
+    @staticmethod
+    def forward(ctx, wy, wx):
+        ctx.save_for_backward(wy, wx)
+        with _full_f32():
+            return torch.einsum("ipr,jpr->pij", wy, wx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        wy, wx = ctx.saved_tensors
+        with _full_f32():
+            return (torch.einsum("pij,jpr->ipr", ct, wx),
+                    torch.einsum("pij,ipr->jpr", ct, wy))
+
+
+def _per_ray_anchors(X, Y, amp, pred_col, pred_row, K: int, nx: int,
+                     ny: int):
+    """Patch anchors ``clip(pred - K//2, -K, n-1)`` and the rays masked by
+    ``safe`` (finite centre, positive amplitude): (col0, row0, Xs, Ys, amp),
+    the anchors (P,) int64."""
+    col0 = (pred_col.to(torch.int64) - K // 2).clamp(-K, nx - 1)
+    row0 = (pred_row.to(torch.int64) - K // 2).clamp(-K, ny - 1)
+    safe = torch.isfinite(X) & torch.isfinite(Y) & (amp > 0)
+    far = torch.full_like(X, -1e6)
+    return (col0, row0, torch.where(safe, X, far), torch.where(safe, Y, far),
+            torch.where(safe, amp, torch.zeros_like(amp)))
+
+
+def _offsets(anchor, K: int):
+    """(K, P, 1) int64 patch rows or columns of each particle."""
+    return anchor[None, :, None] + torch.arange(
+        K, dtype=torch.int64, device=anchor.device)[:, None, None]
+
+
+def patch_splat(X, Y, amp, pred_col, pred_row, *, nx: int, ny: int,
+                diameter: float, patch: int = 12):
+    """Accumulate an erf spot per ray into the (ny, nx) image.
+
+    ``X``, ``Y``: (P, R) spot centres in pixel coordinates (``d_x - 0.5`` /
+    ``d_y - 0.5``, x already mirrored); ``amp``: (P, R) amplitudes
+    (radiance * cos^4 * 8/pi, zero for culled rays); ``pred_col``,
+    ``pred_row``: (P,) patch anchors.  Each particle accumulates a K x K
+    patch over its rays: a ray farther than ~K/2 - D px from its anchor loses
+    its tail.  No circular render mask, as in the JAX package (its tail
+    there is under 1e-3 of the peak); the pi/32 scale folds into the rows.
+    """
+    K = int(patch)
+    col0, row0, Xs, Ys, amp = _per_ray_anchors(X, Y, amp, pred_col,
+                                               pred_row, K, nx, ny)
+    wx = _erf_pair(_offsets(col0, K).to(Xs.dtype) - Xs[None], diameter)
+    wy = _erf_pair(_offsets(row0, K).to(Ys.dtype) - Ys[None], diameter)
+    wy = wy * (amp * (math.pi / 32.0))[None]
+    return _scatter_patches(_PatchProduct.apply(wy, wx), col0, row0, nx, ny)
+
+
+def bilinear_patch_splat(X, Y, amp, pred_col, pred_row, *, nx: int, ny: int,
+                         patch: int = 12):
+    """Per-ray 4-pixel bilinear deposit (the sensor without diffraction).
+
+    The deposit is a 2-tap hat centred at ``d_x - 0.5`` / ``d_y - 0.5`` (x
+    not mirrored), accumulated per particle as :func:`patch_splat`'s
+    patches.  The reference's legacy ``(ii-1)*nx + (jj-1)`` accumulation
+    shift (parallel_ray_tracing.cu:2228) scatters the patches one row and
+    one column up-left; the weights are masked on the *unshifted* pixel
+    bounds (intersect_sensor, :1735-1895).  ``amp``: radiance * cos^4 (no
+    8/pi here)."""
+    K = int(patch)
+    col0, row0, Xs, Ys, amp = _per_ray_anchors(X, Y, amp, pred_col,
+                                               pred_row, K, nx, ny)
+    cols, rows = _offsets(col0, K), _offsets(row0, K)
+    zero = torch.zeros((), dtype=Xs.dtype, device=Xs.device)
+
+    def hat(f):
+        return (1.0 - f.abs()).clamp_min(0.0)
+
+    wx = torch.where((cols >= 0) & (cols <= nx - 1),
+                     hat(cols.to(Xs.dtype) - Xs[None]), zero)
+    wy = torch.where((rows >= 0) & (rows <= ny - 1),
+                     hat(rows.to(Ys.dtype) - Ys[None]), zero) * amp[None]
+    return _scatter_patches(_PatchProduct.apply(wy, wx), col0 - 1, row0 - 1,
+                            nx, ny)

@@ -99,8 +99,11 @@ def _ray_budget(cfg: SimulationConfig) -> int:
 
 def _render(cfg: SimulationConfig, setup: CameraSetup, source, r1, r2,
             vol=None, scattering=None, rays_per_chunk: Optional[int] = None,
+            noise_seed: Optional[int] = None,
             device: DeviceLike = None) -> torch.Tensor:
-    """Render through the fast renderer, chunked to the ray budget."""
+    """Render through the fast renderer, chunked to the ray budget;
+    ``noise_seed`` seeds the sensor position noise (``cfg.seed`` when
+    None)."""
     if not can_use_fast_renderer(cfg, setup, vol=vol):
         raise later("a configuration outside the fast renderer (tilted or "
                     "multi-element train, gradient-index noise, dispersion,"
@@ -116,7 +119,7 @@ def _render(cfg: SimulationConfig, setup: CameraSetup, source, r1, r2,
         algorithm=int(cfg.density_gradients.ray_tracing_algorithm),
         interpolation_scheme=int(cfg.density_gradients.interpolation_scheme),
         particles_per_chunk=ppc if ppc < P else None, scattering=scattering,
-        device=device)
+        noise_seed=noise_seed, device=device)
 
 
 def _z_shift_kw(cfg: SimulationConfig) -> dict:
@@ -161,14 +164,15 @@ def run_bos(cfg: SimulationConfig,
     images, raws = {}, {}
     noise_gen = torch.Generator(device=dev)
     noise_gen.manual_seed(int(cfg.seed) + 7)
-    for name, gradients in (("bos_pattern_image_1", False),
-                            ("bos_pattern_image_2", True)):
+    for im_idx, (name, gradients) in enumerate(
+            (("bos_pattern_image_1", False), ("bos_pattern_image_2", True))):
         # im1 always renders without gradients, im2 with them — regardless
         # of the config flag (ref: run_simulation_02.py:2034, 2064)
         use_vol = vol if gradients else None
         with timer.phase(f"render:{name}", num_rays=source.num_rays):
             raw = _render(cfg, setup, source, r1, r2, vol=use_vol,
-                          rays_per_chunk=rays_per_chunk, device=dev)
+                          rays_per_chunk=rays_per_chunk,
+                          noise_seed=cfg.seed + im_idx, device=dev)
         with timer.phase("postprocess"):
             I, I_raw = postprocess(cfg, raw, generator=noise_gen)
         images[name], raws[name] = I, I_raw
@@ -225,7 +229,8 @@ def run_piv(cfg: SimulationConfig,
         with timer.phase(f"render:{name}", num_rays=source.num_rays):
             raw = _render(cfg, setup, source, r1, r2, vol=vol,
                           scattering=scattering,
-                          rays_per_chunk=rays_per_chunk, device=dev)
+                          rays_per_chunk=rays_per_chunk,
+                          noise_seed=cfg.seed + int(frame_index), device=dev)
         with timer.phase("postprocess"):
             images[name], raws[name] = postprocess(cfg, raw,
                                                    generator=noise_gen)

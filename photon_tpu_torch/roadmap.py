@@ -6,8 +6,6 @@ through to a different path.
 """
 from __future__ import annotations
 
-CONFIGS = ("The per-ray (P, R) chain: rotation, noise, bilinear sensor, "
-           "per-ray splats, chief_march=False")
 EXACT_PATH = "The exact-semantics path"
 MULTI_DEVICE = "Multi-device"
 

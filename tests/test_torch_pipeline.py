@@ -177,15 +177,16 @@ def test_from_reference_round_trips(case):
         from_reference(volume={"field": np.zeros((3, 3, 3, 4))}, device="cpu")
 
 
-@pytest.mark.parametrize("edit", ["rotated", "bilinear", "save_lightrays",
+@pytest.mark.parametrize("edit", ["rotated", "rotated_y", "save_lightrays",
                                   "ngrad_noise"])
 def test_later_slices_raise(case, edit):
     import copy
     cfg = copy.deepcopy(case["torch_cfg"])
+    # cameras rotated by 90 degrees or more, with the case's volume
     if edit == "rotated":
-        cfg.camera_design.x_camera_angle = 0.1
-    elif edit == "bilinear":
-        cfg.camera_design.implement_diffraction = False
+        cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
+    elif edit == "rotated_y":
+        cfg.camera_design.y_camera_angle = -0.5 * np.pi - 0.1
     elif edit == "save_lightrays":
         cfg.output_data.save_lightrays = True
     else:

@@ -12,7 +12,8 @@ from photon_tpu.models.scenes import bos_source as jax_bos_source
 from photon_tpu.utils.rng import lens_samples as jax_lens_samples
 from photon_tpu.volume import build_density_volume
 from photon_tpu_torch.models import render_fast
-from photon_tpu_torch.models.optics import camera_setup
+from photon_tpu_torch.models.optics import (camera_setup,
+                                            create_camera_optical_system)
 from photon_tpu_torch.models.render_fast import render_image_fast
 from tests.test_bos_pipeline import bos_case, gradient_volume_between
 from tests.torch_port_helpers import (port_config, port_source, port_volume,
@@ -160,37 +161,31 @@ def test_inputs_as_tensors_and_single_ray(general):
 
 
 def _opts(name):
-    """Options outside this slice, each as (config edits, keyword args)."""
-    def edit(cfg):
-        if name in ("rotated camera", "Mie scattering with a rotated camera"):
-            cfg.camera_design.x_camera_angle = 0.05
-        elif name == "position noise":
-            cfg.density_gradients.add_pos_noise = True
-            cfg.density_gradients.pos_noise_std = 0.1
-        elif name == "bilinear sensor":
-            cfg.camera_design.implement_diffraction = False
-    kw = {"per_ray_splat": dict(per_ray_splat=True),
-          "chief_march=False": dict(chief_march=False),
-          # the per-particle Mie collapse is written for the unrotated frame
-          "Mie scattering with a rotated camera": dict(scattering={
-              "scattering_angle": np.linspace(0.0, np.pi, 5),
-              "scattering_irradiance": np.ones((5, 1)),
-              "beam_propogation_vector": np.array([0.0, 1.0, 0.0])}),
-          "mesh": dict(mesh=object())}.get(name, {})
-    return edit, kw
+    """Options outside this slice: the camera setup an option makes from a
+    copy of the config, and keyword arguments."""
+    def setup_of(cfg):
+        if name == "camera rotated by 90 degrees or more":
+            # with a volume its rays travel upward in the march's frame
+            cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
+        assembly = create_camera_optical_system(cfg)
+        if name == "tilted train":
+            lens = assembly.elements[0]
+            while not hasattr(lens, "front_surface_radius"):
+                lens = lens.elements[0]
+            lens.rotation_angles = (0.02, 0.0, 0.0)
+        return camera_setup(cfg, assembly)
+    return setup_of, {"mesh": dict(mesh=object())}.get(name, {})
 
 
 @pytest.mark.parametrize("option", [
-    "rotated camera", "position noise", "bilinear sensor", "per_ray_splat",
-    "chief_march=False", "Mie scattering with a rotated camera", "mesh"])
+    "camera rotated by 90 degrees or more", "tilted train", "mesh"])
 def test_unsupported_option_raises(general, option):
     import copy
     cfg, _setup, src, r1, r2 = general["torch"]
     cfg = copy.deepcopy(cfg)
-    edit, kw = _opts(option)
-    edit(cfg)
+    setup_of, kw = _opts(option)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_image_fast(cfg, camera_setup(cfg), src, r1, r2,
+        render_image_fast(cfg, setup_of(cfg), src, r1, r2,
                           vol=general["torch_vol"], device="cpu", **kw)
 
 
