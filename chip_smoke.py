@@ -71,13 +71,23 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    through the plain versions, two runs, traced device times and busy
    shares, the per-ray deposits' device time, the gradient against the
    plain versions and the peak device memory of the step;
-11. prints one JSON line describing the kernels and, last, one JSON line
+11. drives the exact-semantics renderer at the bench's size (phase 11,
+   after phase 10; plain PyTorch, no kernel of the port launches): the
+   reference sample scene's camera (rotated by 5 pi / 6, the thin lens,
+   Euler) through the command line with a 64^3 ramp across its world-frame
+   rays, the unrotated bench pair forced onto the exact path against the
+   fast renderer, a tilted train with a stop (the bench source, then the
+   PIV sample's frame 1 with Mie and dispersion), and the exact march's
+   gradient on the bench's chief rays; seconds, rays/s, a traced busy
+   share, peak memory, each against the same work on the CPU;
+12. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 ``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
 runs the build, the splat's two kernels of item 2 (with the same spots also
 scattered over the sensor), and items 3 and 4; ``--configs-only`` runs the
-build and item 9 alone; ``--chain-only`` the build and item 10 alone.
+build and item 9 alone; ``--chain-only`` the build and item 10 alone;
+``--exact-only`` the build and item 11 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -604,6 +614,34 @@ def bench_volume_512(setup, dev, n=512):
     return vol, (gx, gz, amp)
 
 
+def volume_across_rays(setup, half, n=64, fracs=(0.1, 0.6)):
+    """A density ramp along x on an n^3 grid, in a cube that holds, in the
+    march's (world) frame, the rays from a +-``half`` square of the object
+    plane toward the lens between the fractions ``fracs`` of their way, so a
+    rotated camera's rays cross it (a cube: the march's step is the least
+    voxel spacing).  Returns (rho (W, H, D), spacings, origin) in the NRRD
+    frame (world z + 750e3)."""
+    import numpy as np
+
+    shift = setup.z_offset + 750e3
+    inv = np.asarray(setup.inverse_rotation_matrix, np.float64)
+    corners = np.array([[sx * half, sy * half, setup.z_object]
+                        for sx in (-1, 1) for sy in (-1, 1)])
+    lens = np.array([0.0, 0.0, setup.z_lens])
+    pts = np.concatenate([corners + f * (lens - corners)
+                          for f in np.linspace(*fracs, 5)])
+    world = (pts - [0.0, 0.0, shift]) @ inv.T
+    centre = 0.5 * (world.min(0) + world.max(0))
+    side = 1.2 * (world.max(0) - world.min(0)).max()
+    axes = [np.linspace(centre[a] - side / 2, centre[a] + side / 2, n)
+            for a in range(3)]
+    x = axes[0]
+    rho = 1.225 + 5.0 * (x[:, None, None] - x.min()) / (x.max() - x.min()) \
+        * np.ones((1, n, n))
+    return (rho, [ax[1] - ax[0] for ax in axes],
+            [axes[0][0], axes[1][0], axes[2][0] + 750e3])
+
+
 def bench_inputs(dev):
     """What K1 and K2 take on the main path of the bench scene: the scene
     (bench_scene), its source points, lens samples, 64^3 volume, render
@@ -716,6 +754,12 @@ def main(argv=None) -> int:
                       "noise, invert_bos with the rotated camera, "
                       "chief_march=False); the kernels line then lists K1, K2 "
                       "and K3 at those shapes")
+    only.add_argument("--exact-only", action="store_true",
+                      help="after the build, run phase 11 alone (the "
+                      "exact-semantics renderer: the sample scene's camera, "
+                      "the bench pair forced exact, a tilted train with a "
+                      "stop, the exact march's gradient); it launches no "
+                      "kernel, so the kernels line is empty")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2849,6 +2893,375 @@ def main(argv=None) -> int:
             row.update(by_part)
         return rows
 
+    def exact_phase():
+        """Phase 11: the exact-semantics renderer (``models/render.py`` over
+        ``ops/lens.py``, ``ops/march.py``, ``ops/sensor.py``) at full size:
+        plain PyTorch, no kernel of the port.  (a) The reference sample
+        scene's camera (y_camera_angle 5 pi / 6, the thin lens, Euler) on
+        the bench scene through cli.main, with a 64^3 ramp placed across its
+        world-frame rays: the share of rays that enter the volume, K1-K9 at
+        0 launches, im2 against im1, seconds and rays/s, the busy share of a
+        traced im2 (every tenth particle), the peak device memory, im2
+        against the CPU on every thousandth particle, two runs.  (b) The unrotated bench pair forced
+        onto the exact path (RK4, the general lens) against
+        render_image_fast.  (c) The camera's lens tilted by 0.02 rad behind
+        a stop that culls: the bench's source with no volume, then the CLI's
+        PIV sample's frame 1 with Mie scattering and a finite Abbe number,
+        each against the CPU on a subsample.  (d) march_rays(differentiable=
+        True) forward and backward on the bench's 120,000 chief rays, d_field
+        against the CPU's on every thirtieth ray.  The CPU subsamples are
+        the phase's depth cuts: every hundredth particle of (a) took the
+        host 47 s on the card's machine, every tenth ray of (d) 22 s."""
+        from photon_tpu_torch.config import SimulationConfig
+        from photon_tpu_torch.models import render as exact
+        from photon_tpu_torch.models.optics import (
+            OpticalElement, camera_setup, create_camera_optical_system)
+        from photon_tpu_torch.models.scenes import bos_source, piv_source
+        from photon_tpu_torch.ops.lens import RayBundle
+        from photon_tpu_torch.ops.march import (aabb_entry, make_march_fn,
+                                                march_rays)
+        from photon_tpu_torch.ops.mie import create_mie_scattering_data
+        from photon_tpu_torch.pipeline import (_lens_sample_pair, _ray_budget,
+                                               _render)
+
+        print("phase 11: the exact-semantics renderer at full size (plain "
+              "PyTorch on the card): the sample scene's camera, the bench "
+              "pair forced exact, a tilted train with a stop, the march's "
+              "gradient")
+        t_phase = time.perf_counter()
+        cpu = torch.device("cpu")
+        gd = cfg.density_gradients.gladstone_dale
+        names = ("bos_pattern_image_1", "bos_pattern_image_2")
+
+        def zero():
+            for w in counters.values():
+                w.launches = 0
+
+        def counts_now():
+            return {k: int(w.launches) for k, w in counters.items()}
+
+        def subset(src, sel):
+            return dataclasses.replace(
+                src, x=src.x[sel], y=src.y[sel], z=src.z[sel],
+                radiance=src.radiance[sel],
+                diameter_index=src.diameter_index[sel])
+
+        def l1(a, b_):
+            a = np.asarray(a, np.float64)
+            b_ = np.asarray(b_, np.float64)
+            return float(np.abs(a - b_).sum() / np.abs(b_).sum())
+
+        def timed(fn):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            return out, time.perf_counter() - t0
+
+        def against_cpu(label, render_on, tol=1e-3):
+            """The same render on the card and on the CPU (``render_on(dev)``
+            returns an image tensor); L1 of the difference over the CPU's
+            sum."""
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                on_card = render_on(dev).cpu().numpy()
+                on_cpu = render_on(cpu).numpy()
+            d = l1(on_card, on_cpu)
+            print(f"    {label} against the same render on the CPU: L1 "
+                  f"{d:.3e} of the sum (bound {tol:.0e}); "
+                  f"{time.perf_counter() - t0:.1f} s")
+            require(on_cpu.sum() > 0 and d <= tol,
+                    f"{label}: card against CPU L1 {d}")
+
+        with tempfile.TemporaryDirectory(prefix="photon_exact_") as tmp:
+            # (a) the sample scene's camera on the bench scene
+            c_a = copy.deepcopy(cfg)
+            c_a.camera_design.y_camera_angle = 5.0 * math.pi / 6.0
+            c_a.lens_design.lens_model = "thin-lens"
+            c_a.density_gradients.ray_tracing_algorithm = 1
+            setup_a = camera_setup(c_a)
+            rho_a, sp_a, or_a = volume_across_rays(
+                setup_a, float(c_a.bos_pattern.X_Max), n=64)
+            case, nrrd = write_bench_case(tmp, c_a, rho_a, sp_a, or_a)
+            print("    (a) y_camera_angle 5 pi / 6, thin lens, Euler, a 64^3 "
+                  "ramp across the world-frame rays; cli.main")
+            out = os.path.join(tmp, "out")
+            zero()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([case, "--out", out, "--verbose"])
+            counts = counts_now()
+            require(rc == 0, f"(a) the CLI returned {rc}")
+            print(f"    (a) launches of K1-K9: {counts}")
+            require(not any(counts.values()),
+                    f"(a) a kernel of the fast path launched: {counts}")
+            print_phases("(a)", buf.getvalue())
+            raws = {nm: np.fromfile(os.path.join(out, "raw", nm + ".bin"),
+                                    np.float32).reshape(sensor, sensor)
+                    for nm in names}
+            for nm in names:
+                tif = read_tiff16(os.path.join(out, "tif", nm + ".tif"))
+                require(tif.shape == (sensor, sensor) and tif.max() > 0
+                        and np.isfinite(raws[nm]).all()
+                        and raws[nm].sum() > 0,
+                        f"(a) {nm} is not a finite image with a positive sum")
+            moved = l1(raws[names[1]], raws[names[0]])
+            print(f"    (a) im2 against im1: L1 {moved:.3e} of im1's sum")
+            require(moved > 1e-3, "(a) the volume does not move im2")
+
+            vol_a = load_density_volume(nrrd, gladstone_dale=gd, device=dev)
+            src_a, _, _ = bos_source(c_a, setup_a,
+                                     np.random.default_rng(c_a.seed))
+            r1_a, r2_a = _lens_sample_pair(c_a, R)
+            budget = _ray_budget(c_a)
+
+            # the share of the rays of every hundredth particle that enter
+            # the volume, in the march's frame of the renderer's own chain
+            sub_a = subset(src_a, slice(0, src_a.num_particles, 100))
+            params_a = exact.RenderParams.from_setup(c_a, setup_a, sub_a)
+            seen = []
+
+            def keep(rays):
+                seen.append(rays)
+                return rays
+            chunk_a = exact._chunk_tensors(sub_a, slice(None), dev) + (
+                f32(r1_a), f32(r2_a))
+            exact._generate_and_march(chunk_a, params_a, keep,
+                                      setup_a.rotation_matrix,
+                                      setup_a.inverse_rotation_matrix, {})
+            _, hit = aabb_entry(seen[0].pos, seen[0].dir,
+                                f32(vol_a.min_bound), f32(vol_a.max_bound))
+            share = float(hit.float().mean())
+            up = float((seen[0].dir[:, 2] > 0).float().mean())
+            print(f"    (a) {share:.4f} of the rays of every hundredth "
+                  f"particle enter the volume (bound 0.9); {up:.4f} travel "
+                  f"upward in the march's frame")
+            require(share >= 0.9 and up == 1.0,
+                    f"(a) {share} of the rays enter the volume")
+            del seen, chunk_a
+
+            def render_a(source_, device_, vol_=None):
+                v = vol_a if vol_ is None else vol_
+                return exact.render_image(
+                    c_a, setup_a, source_, r1_a, r2_a,
+                    march_fn=make_march_fn(v, algorithm=1),
+                    rays_per_chunk=budget, device=device_)
+
+            zero()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with torch.no_grad():
+                img2, s2 = timed(lambda: render_a(src_a, dev))
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            require(not any(counts_now().values()),
+                    "(a) a kernel of the fast path launched")
+            rr = float(np.abs(img2.cpu().numpy() - raws[names[1]]).max()
+                       / raws[names[1]].max())
+            print(f"    (a) im2 again: {s2:.3f} s, {P * R / s2 / 1e6:.1f}M "
+                  f"rays/s, peak device memory {peak:.2f} GB; the two runs "
+                  f"differ by {rr:.3e} of the maximum (bound 1.0e-05)  "
+                  f"[{card}]")
+            require(rr <= 1e-5, f"(a) two runs differ by {rr}")
+            del img2
+            # a trace holds every kernel of a render (some 90 a march step):
+            # trace the im2 of every tenth particle, against its untraced
+            # render's wall time
+            sub10 = subset(src_a, slice(0, src_a.num_particles, 10))
+            with torch.no_grad():
+                _, s10 = timed(lambda: render_a(sub10, dev))
+                dev_ms, _ = traced(lambda: render_a(sub10, dev))
+            print(f"    (a) traced im2 of every tenth particle "
+                  f"({sub10.num_particles}): untraced {s10:.3f} s; device "
+                  f"busy " + (NOT_MEASURED if dev_ms == NOT_MEASURED else
+                              f"{dev_ms:.1f} ms, about "
+                              f"{dev_ms / 1e3 / s10:.1%}") + f"  [{card}]")
+            vol_cpu = load_density_volume(nrrd, gladstone_dale=gd,
+                                          device=cpu)
+            # every thousandth particle: every hundredth took 47 s on the
+            # host (Euler, 6e5 rays)
+            sub_k = subset(src_a, slice(0, src_a.num_particles, 1000))
+            against_cpu(f"(a) im2 of every thousandth particle "
+                        f"({sub_k.num_particles})",
+                        lambda d: render_a(sub_k, d,
+                                           vol_a if d == dev else vol_cpu))
+            del vol_a, vol_cpu
+
+        # (b) the unrotated bench pair forced onto the exact path
+        print("    (b) the bench pair through render_image (RK4, the general "
+              "lens) against render_image_fast")
+        budget = _ray_budget(cfg)
+        with torch.no_grad():
+            zero()
+            e1, s_e1 = timed(lambda: exact.render_image(
+                cfg, setup, source, r1, r2, rays_per_chunk=budget,
+                device=dev))
+            e2, s_e2 = timed(lambda: exact.render_image(
+                cfg, setup, source, r1, r2,
+                march_fn=make_march_fn(vol, algorithm=2),
+                rays_per_chunk=budget, device=dev))
+            require(not any(counts_now().values()),
+                    "(b) the exact renders launched a kernel")
+            f1 = render_image_fast(cfg, setup, source, r1, r2,
+                                   particles_per_chunk=chunk, device=dev)
+            f2 = render_image_fast(cfg, setup, source, r1, r2, vol=vol,
+                                   algorithm=2, particles_per_chunk=chunk,
+                                   device=dev)
+        # im1: tests/test_fast.py's budget.  im2: that file's 1e-2 is for its
+        # gentler volume; on this ramp the JAX package's own two renderers
+        # differ by 3.5e-2 (tests/test_torch_exact_render.py::
+        # test_fast_against_exact_on_the_bench_ramp, at 128^2), the exact
+        # RK4 freezing a ray mid-step at the exit face
+        for nm, e, f, s_, tol in (("im1", e1, f1, s_e1, 1e-3),
+                                  ("im2", e2, f2, s_e2, 5e-2)):
+            d = l1(f.cpu().numpy(), e.cpu().numpy())
+            print(f"    (b) exact {nm}: {s_:.3f} s, {P * R / s_ / 1e6:.1f}M "
+                  f"rays/s; the fast renderer's {nm} against it: L1 {d:.3e} "
+                  f"of the sum (bound {tol:.0e})  [{card}]")
+            require(float(e.sum()) > 0 and d < tol,
+                    f"(b) {nm}: fast against exact L1 {d}")
+        moved = l1(e2.cpu().numpy(), e1.cpu().numpy())
+        print(f"    (b) exact im2 against exact im1: L1 {moved:.3e}")
+        require(moved > 0.05, "(b) the volume does not move im2")
+        del e1, e2, f1, f2
+
+        # (c) a tilted train with a stop that culls
+        def tilted_train(c, abbe=None, stop=True):
+            assembly = create_camera_optical_system(c)
+            lens = assembly.elements[0]
+            while not hasattr(lens, "front_surface_radius"):
+                lens = lens.elements[0]
+            lens.rotation_angles = (0.02, 0.0, 0.0)
+            if abbe is not None:
+                lens.abbe_number = abbe
+            if stop:
+                # a stop narrower than the ray cone (1.3 um at f/8), in the
+                # lens's plane (its two planes 0.1 um apart: off-axis rays
+                # cross planes farther apart beyond the cone)
+                assembly.elements.append(OpticalElement(
+                    element_type="aperture", pitch=2.0,
+                    vertex_distance=0.1))
+            return camera_setup(c, assembly)
+
+        setup_c = tilted_train(cfg)
+        print(f"    (c) the camera's lens tilted by 0.02 rad, a 2 um stop; "
+              f"{setup_c.elements.num_elements} elements")
+        sub_c = subset(source, slice(0, P, 100))
+        with torch.no_grad():
+            zero()
+            img_c, s_c = timed(lambda: exact.render_image(
+                cfg, setup_c, source, r1, r2, rays_per_chunk=budget,
+                device=dev))
+            require(not any(counts_now().values()),
+                    "(c) the exact render launched a kernel")
+            kept_c = float(exact.render_image(
+                cfg, setup_c, sub_c, r1, r2, device=dev).sum()) / float(
+                exact.render_image(cfg, tilted_train(cfg, stop=False), sub_c,
+                                   r1, r2, device=dev).sum())
+        print(f"    (c) bench source, no volume: {s_c:.3f} s, "
+              f"{P * R / s_c / 1e6:.1f}M rays/s; with the stop {kept_c:.3f} "
+              f"of the light of every hundredth particle stays  [{card}]")
+        require(bool(torch.isfinite(img_c).all()) and 0.05 < kept_c < 0.95,
+                f"(c) the stop keeps {kept_c} of the light")
+        del img_c
+        against_cpu(f"(c) every hundredth particle ({sub_c.num_particles})",
+                    lambda d: exact.render_image(
+                        cfg, setup_c, sub_c, r1, r2, rays_per_chunk=budget,
+                        device=d))
+
+        with tempfile.TemporaryDirectory(prefix="photon_exact_") as tmp:
+            sample = os.path.join(tmp, "piv_sample.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                require(cli_main([sample, "--make-sample", "piv"]) == 0,
+                        "--make-sample piv failed")
+            c_p = SimulationConfig.from_json(sample)
+        rng = np.random.default_rng(c_p.seed)
+        scattering = create_mie_scattering_data(c_p, rng)
+        # a finite Abbe number: the reference's Cauchy term takes the
+        # wavelength in the config's unit (0.532, microns) against constants
+        # in nm, so a glass's 20-90 makes n_lambda ~1e7 on this lens and
+        # every ray total internal reflection; 1e9 moves n by ~0.9
+        setup_p = tilted_train(c_p, abbe=1e9)
+        src_p = piv_source(c_p, setup_p, 1, diameter_index_distribution=(
+            scattering["particle_diameter_index_distribution"]), rng=rng)
+        r1_p, r2_p = _lens_sample_pair(c_p,
+                                       c_p.particle_field
+                                       .lightray_number_per_particle)
+        budget_p = _ray_budget(c_p)
+        n_p = src_p.num_rays
+        with torch.no_grad():
+            zero()
+            img_p, s_p = timed(lambda: exact.render_image(
+                c_p, setup_p, src_p, r1_p, r2_p, scattering=scattering,
+                rays_per_chunk=budget_p, device=dev))
+        require(not any(counts_now().values()),
+                "(c) the exact PIV render launched a kernel")
+        n_chunks_p = -(-src_p.num_particles // max(1, budget_p // len(r1_p)))
+        print(f"    (c) the PIV sample's frame 1 ({src_p.num_particles} "
+              f"particles x {len(r1_p)} rays = {n_p:.3g} rays, "
+              f"{n_chunks_p} chunks, Mie, abbe_number 1e9): {s_p:.3f} s, "
+              f"{n_p / s_p / 1e6:.1f}M rays/s  [{card}]")
+        require(bool(torch.isfinite(img_p).all()) and float(img_p.sum()) > 0,
+                "(c) the PIV frame is not a finite image with light")
+        del img_p
+        sub_p = subset(src_p, slice(0, src_p.num_particles,
+                                    max(1, src_p.num_particles // 50)))
+        against_cpu(f"(c) {sub_p.num_particles} particles of the PIV frame",
+                    lambda d: exact.render_image(
+                        c_p, setup_p, sub_p, r1_p, r2_p,
+                        scattering=scattering, rays_per_chunk=budget_p,
+                        device=d))
+
+        # (d) the exact march's gradient on the bench's chief rays
+        def chief_grad(device_, vol_, sel=slice(None)):
+            """d(sum of exit x + 1e5 * exit x direction)/d(field) through
+            march_rays(differentiable=True): (gradient, forward s, backward
+            s)."""
+            ch = [c.to(device_)[sel] for c in chief]
+            rays = RayBundle(torch.stack(ch[:3], -1).contiguous(),
+                             torch.stack(ch[3:], -1).contiguous(),
+                             torch.zeros_like(ch[0]), torch.ones_like(ch[0]))
+            field = vol_.field.reshape(-1, 4).detach().clone() \
+                .requires_grad_(True)
+            t0 = time.perf_counter()
+            out = march_rays(vol_, rays, algorithm=2, differentiable=True,
+                             field_flat=field)
+            loss = out.pos[:, 0].sum() + 1e5 * out.dir[:, 0].sum()
+            if device_.type == "cuda":
+                sync()
+            t1 = time.perf_counter()
+            (g,) = torch.autograd.grad(loss, field)
+            if device_.type == "cuda":
+                sync()
+            return g, t1 - t0, time.perf_counter() - t1
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero()
+        g_full, fwd_s, bwd_s = chief_grad(dev, vol)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        require(not any(counts_now().values()) and bool(
+            torch.isfinite(g_full).all()),
+                "(d) the exact march launched a kernel, or d_field is not "
+                "finite")
+        del g_full
+        # the card against the CPU on every thirtieth chief ray (every
+        # tenth took the host 22 s)
+        sub_d = slice(0, P, 30)
+        g_card, _, _ = chief_grad(dev, vol, sub_d)
+        vol_cpu = vol._replace(field=vol.field.cpu())
+        t0 = time.perf_counter()
+        g_cpu, _, _ = chief_grad(cpu, vol_cpu, sub_d)
+        cpu_s = time.perf_counter() - t0
+        cos_d = cosine(g_card.cpu().double(), g_cpu.double())
+        print(f"    (d) {P} chief rays, RK4: forward {fwd_s:.3f} s, backward "
+              f"{bwd_s:.3f} s, peak device memory {peak:.2f} GB; d_field of "
+              f"every thirtieth ray against the CPU's (which took {cpu_s:.1f} "
+              f"s): cosine {cos_d:.7f} (bound 0.9999), relative L2 "
+              f"{float((g_card.cpu() - g_cpu).norm() / g_cpu.norm()):.3e}  "
+              f"[{card}]")
+        require(cos_d >= 0.9999 and float(g_cpu.abs().max()) > 0,
+                f"(d) d_field cosine {cos_d}")
+        wall = time.perf_counter() - t_phase
+        print(f"    phase 11 took {wall:.1f} s  [{card}]")
+
     def finish(rows_) -> int:
         # the comparisons of phases 9 and 10 (and of the large tier) append
         # here too
@@ -2870,6 +3283,9 @@ def main(argv=None) -> int:
         return finish(configs_phase([]))
     if args.chain_only:
         return finish(chain_phase([]))
+    if args.exact_only:
+        exact_phase()
+        return finish([])
 
     whole = slice(0, P)
     first = slice(0, chunk)
@@ -4374,6 +4790,7 @@ def main(argv=None) -> int:
 
     configs_phase(kernel_rows)
     chain_phase(kernel_rows)
+    exact_phase()
     kernel_rows.extend(large_tier())
     return finish(kernel_rows)
 

@@ -11,25 +11,48 @@ launch, see ``kernels.py``).  Module and function names follow
                         the port's objects on a device
   device.py             the device rule (the card unless the caller says cpu)
   kernels.py            nvcc build + ctypes loading of csrc/*.cu
+  roadmap.py            the NotImplementedError of what later slices bring
   volume.py             DensityVolume, gradient precompute, NRRD ingest
   models/optics.py      camera / lens construction
-  models/scenes.py      BOS dot-pattern source
-  models/render.py      RenderParams
-  models/render_fast.py render_image_fast: the (P, R) fast renderer
-  ops/march_dense.py    plain dense chief-ray march
+  models/scenes.py      light-field sources: BOS dot patterns, PIV particle
+                        fields (random, loaded, image-driven), calibration
+                        grids
+  models/render.py      RenderParams and the exact-semantics renderer
+                        (render_image, render_rays, trace_chunk)
+  models/render_fast.py render_image_fast: the (P, R) fast renderer, with
+                        the per-ray chain where its fan kernel does not apply
+  ops/lens.py           RayBundle; thin, thick (dispersion, absorbance) and
+                        aperture propagation of any train (exact path)
+  ops/interp.py         texture lookup, tex3D trilinear and tricubic
+                        sampling (exact path)
+  ops/march.py          the exact path's march: AABB entry, Euler, RK4,
+                        grad-n noise, the differentiable loop
+  ops/sensor.py         erf diffraction and bilinear sensors (exact path)
+  ops/march_dense.py    plain dense chief-ray march, the B-spline prefilter
   ops/march_dense_fused.py  the march kernels' wrappers, forward and
                         backward (csrc/march_dense.cu, csrc/march_bwd.cu)
-  ops/fan.py            fan statistics: kernel wrappers (csrc/fan_stats.cu)
-                        + plain version
-  ops/sensor_fast.py    particle_splat (anchors, sentinels, scale)
+  ops/march_dense_sampler.py  the per-stage slab sampler's wrappers
+                        (csrc/slab_sample.cu) and its plain version
+  ops/march_fast.py     apply_chief_deltas: a march's deltas on a ray fan
+  ops/fan.py            fan statistics: kernel wrappers (csrc/fan_stats.cu,
+                        csrc/fan_stats_bwd.cu) + plain version, the per-ray
+                        chain's ray path
+  ops/mie.py            Mie scattering tables (host numpy)
+  ops/sensor_fast.py    particle_splat and the per-ray deposits
   ops/splat.py          the splat kernels' wrappers (csrc/splat.cu)
   inverse.py            volume_from_rho, invert_bos: Adam on a density grid
   postprocess.py        noise, gain, quantisation, crop
-  pipeline.py           run_bos / run_simulation / save_result
+  pipeline.py           run_bos / run_piv / run_cal / run_simulation /
+                        save_result, routing each case to a renderer
   cli.py                batch command line
+  utils/                NRRD, TIFF and PNG I/O, GlibcRand, phase timers
 
 The slices so far: the BOS image pair through the fast renderer, its
-gradient with respect to the density field, and the inversion built on it.
+gradient with respect to the density field and the inversion built on it,
+the whole march menu on volumes of any size, PIV with Mie scattering and
+calibration grids, the per-ray chain (rotated cameras, the bilinear sensor,
+position noise), and the exact-semantics path (any lens train, dispersion,
+absorbance, gradient-index noise, cameras rotated past 90 degrees).
 Nothing here imports ``jax`` or ``photon_tpu``.
 """
 

@@ -27,9 +27,11 @@ sensor, a camera rotated by less than 90 degrees, diffuse or Mie scattering
 (the table collapsed to one factor a particle on the host,
 :func:`mie_irradiance`), sensor position noise, and a density volume of any
 slab size marched with any integrator of the menu under trilinear or cubic
-B-spline interpolation.  A tilted or multi-element train, a camera rotated
-by 90 degrees or more with a volume, and a device mesh raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+B-spline interpolation.  A tilted or multi-element train and a camera
+rotated by 90 degrees or more with a volume raise ``NotImplementedError``:
+``pipeline.can_use_fast_renderer`` sends them to the exact renderer
+(``models/render.py``).  A device mesh raises naming the ROADMAP.md item
+that brings it.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 from photon_tpu_torch.config import SimulationConfig
 from photon_tpu_torch.device import DeviceLike, as_f32, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup
-from photon_tpu_torch.models.render import RenderParams
+from photon_tpu_torch.models.render import RenderParams, _f32_rows
 from photon_tpu_torch.models.scenes import LightfieldSource
 from photon_tpu_torch.ops.fan import (FanConstants, FanScalars,
                                       fan_constants, fan_rays, fan_stats,
@@ -54,7 +56,7 @@ from photon_tpu_torch.ops.march_dense import (check_march_options,
 from photon_tpu_torch.ops.march_fast import apply_chief_deltas
 from photon_tpu_torch.ops.sensor_fast import (bilinear_patch_splat,
                                               particle_splat, patch_splat)
-from photon_tpu_torch.roadmap import EXACT_PATH, MULTI_DEVICE, later
+from photon_tpu_torch.roadmap import MULTI_DEVICE, later
 from photon_tpu_torch.volume import DensityVolume
 
 
@@ -271,11 +273,6 @@ def _chunk_normals(gen: torch.Generator, n: int, R: int) -> torch.Tensor:
                        dtype=torch.float32)
 
 
-def _f32_rows(m) -> list:
-    """A 3 x 3 matrix as nested lists of float32 values."""
-    return np.asarray(m, np.float32).tolist()
-
-
 def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
                       source: LightfieldSource, r1, r2,
                       vol: Optional[DensityVolume] = None,
@@ -322,17 +319,20 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     dev = resolve_device(device)
     params = RenderParams.from_setup(cfg, setup, source)
     if not _axis_aligned(setup):
-        raise later("a tilted or multi-element lens train", EXACT_PATH)
+        raise NotImplementedError("fast path requires the axis-aligned "
+                                  "single-lens train")
     if mesh is not None:
         raise later("rendering across devices (mesh)", MULTI_DEVICE)
     if params.lens_model not in ("apparent", "thin-lens", "general"):
         raise ValueError(f"unknown lens_model {params.lens_model!r}")
     if vol is not None:
         if float(np.asarray(setup.inverse_rotation_matrix)[2, 2]) <= 0.0:
-            # its rays travel upward in the march's frame: no march of the
-            # port enters a volume from below
-            raise later("a camera rotated by 90 degrees or more with a "
-                        "density volume", EXACT_PATH)
+            # its rays travel upward in the march's frame: the chief march
+            # enters a volume from above only
+            raise NotImplementedError(
+                "the fast renderer marches rays that enter the volume from "
+                "above: render a camera rotated by 90 degrees or more with a "
+                "density volume through models/render.render_image")
         check_march_options(algorithm, interpolation_scheme)
         if vol.field.device != dev:
             raise ValueError(f"volume on {vol.field.device}, render on {dev}")

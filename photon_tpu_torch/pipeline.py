@@ -5,9 +5,10 @@ layer, run_simulation_02.py:1725-2106): builds the optical system,
 generates the scene, renders (the reference + density-gradient pair for
 BOS, a frame sequence for PIV, a plane sequence for calibration),
 post-processes and writes TIFF/raw artifacts plus the parameter/position
-sidecars.  Every image goes through the fast renderer; ray dumps and the
-exact renderer raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings them.
+sidecars.  :func:`can_use_fast_renderer` routes each case, as in the JAX
+package, to the fast renderer (``models/render_fast.py``) or to the
+exact-semantics renderer (``models/render.py``); ray dumps raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -22,13 +23,15 @@ import torch
 from photon_tpu_torch.config import SimulationConfig
 from photon_tpu_torch.device import DeviceLike, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup, camera_setup
+from photon_tpu_torch.models.render import render_image
 from photon_tpu_torch.models.render_fast import (_axis_aligned,
                                                  render_image_fast)
 from photon_tpu_torch.models.scenes import (LightfieldSource, bos_source,
                                             calibration_source, piv_source)
+from photon_tpu_torch.ops.march import make_march_fn
 from photon_tpu_torch.ops.mie import create_mie_scattering_data
 from photon_tpu_torch.postprocess import postprocess
-from photon_tpu_torch.roadmap import EXACT_PATH, later
+from photon_tpu_torch.roadmap import SLICE_B, later
 from photon_tpu_torch.utils.profiling import PhaseTimer
 from photon_tpu_torch.utils.rng import lens_samples, reference_lens_samples
 from photon_tpu_torch.utils.tiff_io import write_tiff16
@@ -99,25 +102,35 @@ def _ray_budget(cfg: SimulationConfig) -> int:
 
 def _render(cfg: SimulationConfig, setup: CameraSetup, source, r1, r2,
             vol=None, scattering=None, rays_per_chunk: Optional[int] = None,
-            noise_seed: Optional[int] = None,
+            noise_seed: Optional[int] = None, fast: Optional[bool] = None,
             device: DeviceLike = None) -> torch.Tensor:
-    """Render through the fast renderer, chunked to the ray budget;
-    ``noise_seed`` seeds the sensor position noise (``cfg.seed`` when
-    None)."""
-    if not can_use_fast_renderer(cfg, setup, vol=vol):
-        raise later("a configuration outside the fast renderer (tilted or "
-                    "multi-element train, gradient-index noise, dispersion,"
-                    " absorbance, camera rotated by 90 degrees or more)",
-                    EXACT_PATH)
+    """Render one image, chunked to the ray budget, through the route
+    ``fast`` (True: the fast renderer; False: the exact renderer with
+    ``vol`` marched, if given; None: :func:`can_use_fast_renderer` of this
+    image).  ``noise_seed`` seeds the sensor position noise (``cfg.seed``
+    when None)."""
+    if fast is None:
+        fast = can_use_fast_renderer(cfg, setup, vol=vol)
     if rays_per_chunk is None:
         rays_per_chunk = _ray_budget(cfg)
+    dg = cfg.density_gradients
+    if not fast:
+        march_fn = None if vol is None else make_march_fn(
+            vol, algorithm=int(dg.ray_tracing_algorithm),
+            interpolation_scheme=int(dg.interpolation_scheme),
+            add_ngrad_noise=bool(dg.add_ngrad_noise),
+            ngrad_noise_std=float(dg.ngrad_noise_std), seed=int(cfg.seed))
+        return render_image(cfg, setup, source, r1, r2, march_fn=march_fn,
+                            scattering=scattering,
+                            rays_per_chunk=rays_per_chunk,
+                            noise_seed=noise_seed, device=device)
     R = int(source.lightray_number_per_particle)
     P = source.num_particles
     ppc = max(1, rays_per_chunk // max(R, 1))
     return render_image_fast(
         cfg, setup, source, r1, r2, vol=vol,
-        algorithm=int(cfg.density_gradients.ray_tracing_algorithm),
-        interpolation_scheme=int(cfg.density_gradients.interpolation_scheme),
+        algorithm=int(dg.ray_tracing_algorithm),
+        interpolation_scheme=int(dg.interpolation_scheme),
         particles_per_chunk=ppc if ppc < P else None, scattering=scattering,
         noise_seed=noise_seed, device=device)
 
@@ -147,7 +160,7 @@ def run_bos(cfg: SimulationConfig,
     """
     dev = resolve_device(device)
     if cfg.output_data.save_lightrays:
-        raise later("save_lightrays (final ray dumps)", EXACT_PATH)
+        raise later("save_lightrays (final ray dumps)", SLICE_B)
     timer = PhaseTimer(device=dev)
     if rng is None:
         rng = np.random.default_rng(cfg.seed)
@@ -161,6 +174,10 @@ def run_bos(cfg: SimulationConfig,
         with timer.phase("volume"):
             vol = _load_volume(cfg, dev)
 
+    # one route for both images, chosen with the volume: a camera rotated by
+    # 90 degrees or more renders im1 on the exact path too, as in the JAX
+    # package
+    fast = can_use_fast_renderer(cfg, setup, vol=vol)
     images, raws = {}, {}
     noise_gen = torch.Generator(device=dev)
     noise_gen.manual_seed(int(cfg.seed) + 7)
@@ -172,7 +189,8 @@ def run_bos(cfg: SimulationConfig,
         with timer.phase(f"render:{name}", num_rays=source.num_rays):
             raw = _render(cfg, setup, source, r1, r2, vol=use_vol,
                           rays_per_chunk=rays_per_chunk,
-                          noise_seed=cfg.seed + im_idx, device=dev)
+                          noise_seed=cfg.seed + im_idx, fast=fast,
+                          device=dev)
         with timer.phase("postprocess"):
             I, I_raw = postprocess(cfg, raw, generator=noise_gen)
         images[name], raws[name] = I, I_raw

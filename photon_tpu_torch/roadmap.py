@@ -1,12 +1,12 @@
-"""What this slice of the port leaves to later ones.
+"""What the port leaves to later slices.
 
-An option outside the slice raises ``NotImplementedError`` naming the
+An option outside the port raises ``NotImplementedError`` naming the
 ROADMAP.md item ("Modules still to port") that brings it; nothing falls
 through to a different path.
 """
 from __future__ import annotations
 
-EXACT_PATH = "The exact-semantics path"
+SLICE_B = "The exact path, slice B"
 MULTI_DEVICE = "Multi-device"
 
 

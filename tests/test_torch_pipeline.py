@@ -16,6 +16,7 @@ from photon_tpu.volume import load_density_volume as jax_load_volume
 from photon_tpu_torch.cli import main as cli_main
 from photon_tpu_torch.compat import from_reference
 from photon_tpu_torch.config import SimulationConfig
+from photon_tpu_torch.ops.march import make_march_fn
 from photon_tpu_torch.pipeline import run_bos, run_simulation, save_result
 from photon_tpu_torch.utils.nrrd_io import write_nrrd
 from photon_tpu_torch.utils.tiff_io import read_tiff16
@@ -177,22 +178,95 @@ def test_from_reference_round_trips(case):
         from_reference(volume={"field": np.zeros((3, 3, 3, 4))}, device="cpu")
 
 
-@pytest.mark.parametrize("edit", ["rotated", "rotated_y", "save_lightrays",
-                                  "ngrad_noise"])
+@pytest.mark.parametrize("edit", ["save_lightrays", "rk45_exact",
+                                  "ab4_exact"])
 def test_later_slices_raise(case, edit):
+    """The ray dumps, and RK45 / Adams-Bashforth on the exact path (a camera
+    rotated past 90 degrees with the case's volume), are slice B."""
     import copy
     cfg = copy.deepcopy(case["torch_cfg"])
-    # cameras rotated by 90 degrees or more, with the case's volume
-    if edit == "rotated":
-        cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
-    elif edit == "rotated_y":
-        cfg.camera_design.y_camera_angle = -0.5 * np.pi - 0.1
-    elif edit == "save_lightrays":
+    if edit == "save_lightrays":
         cfg.output_data.save_lightrays = True
     else:
-        cfg.density_gradients.add_ngrad_noise = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
+        cfg.density_gradients.ray_tracing_algorithm = \
+            3 if edit == "rk45_exact" else 4
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*slice B"):
         run_simulation(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("edit", ["rotated", "rotated_y"])
+def test_rotated_past_90_degrees_matches_jax(case, edit):
+    """Cameras rotated by 90 degrees or more, with the case's volume: both
+    images through the exact path, as in the JAX package's run_simulation,
+    within the budget of tests/test_fast.py (L1 1e-3 of the sum)."""
+    import copy
+    from photon_tpu.pipeline import run_simulation as jax_run_simulation
+    pair = []
+    for cfg, run, kw in ((case["jax_cfg"], jax_run_simulation, {}),
+                         (case["torch_cfg"], run_simulation,
+                          dict(device="cpu"))):
+        cfg = copy.deepcopy(cfg)
+        if edit == "rotated":
+            cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
+        else:
+            cfg.camera_design.y_camera_angle = -0.5 * np.pi - 0.1
+        pair.append(run(cfg, rng=np.random.default_rng(11), **kw))
+    ref, got = pair
+    for name in ref.raw_images:
+        l1 = rel_l1(got.raw_images[name], ref.raw_images[name])
+        print(f"{edit}, {name}: raw L1 {l1:.3g}")
+        assert l1 < 1e-3, l1
+
+
+def test_ngrad_noise_renders_through_the_exact_path(case, monkeypatch):
+    """Gradient-index noise routes the pair to the exact path (the JAX
+    package's draws cannot be repeated): with ngrad_noise_std = 0 it equals
+    the noiseless exact render bit for bit, and a nonzero std moves im2."""
+    import copy
+    from photon_tpu_torch import pipeline as port_pipeline
+    calls = []
+    exact = port_pipeline.render_image
+
+    def counted(*a, **kw):
+        calls.append(kw.get("march_fn") is not None)
+        return exact(*a, **kw)
+
+    monkeypatch.setattr(port_pipeline, "render_image", counted)
+    base = copy.deepcopy(case["torch_cfg"])
+    base.density_gradients.add_ngrad_noise = True
+    images = {}
+    for std in (0.0, 2e-9):
+        cfg = copy.deepcopy(base)
+        cfg.density_gradients.ngrad_noise_std = std
+        images[std] = run_bos(cfg, rng=np.random.default_rng(11),
+                              device="cpu").raw_images
+    assert calls == [False, True, False, True]
+    # the noiseless exact render of the same pair
+    noiseless = port_pipeline.render_image(
+        *_pair_inputs(case["torch_cfg"]), march_fn=make_march_fn(
+            load_density_volume(
+                case["torch_cfg"].density_gradients.density_gradient_filename,
+                device="cpu")),
+        rays_per_chunk=port_pipeline._ray_budget(case["torch_cfg"]),
+        noise_seed=case["torch_cfg"].seed + 1, device="cpu").numpy()
+    im2 = "bos_pattern_image_2"
+    np.testing.assert_array_equal(images[0.0][im2], noiseless)
+    np.testing.assert_array_equal(images[0.0]["bos_pattern_image_1"],
+                                  images[2e-9]["bos_pattern_image_1"])
+    assert rel_l1(images[2e-9][im2], noiseless) > 1e-4
+
+
+def _pair_inputs(cfg):
+    """(cfg, setup, source, r1, r2) of the case's pair, as run_bos makes
+    them with rng seed 11."""
+    from photon_tpu_torch.models.optics import camera_setup
+    from photon_tpu_torch.models.scenes import bos_source
+    from photon_tpu_torch.pipeline import _lens_sample_pair
+    setup = camera_setup(cfg)
+    source, _, _ = bos_source(cfg, setup, np.random.default_rng(11))
+    r1, r2 = _lens_sample_pair(cfg, source.lightray_number_per_particle)
+    return cfg, setup, source, r1, r2
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,33 @@ def test_golden_through_the_port(name, over, with_volume):
     np.testing.assert_allclose(got, eager, rtol=2e-3, atol=atol)
 
 
+@pytest.mark.parametrize("name,sensor,over,kw", [
+    ("golden_bos_64", 64, {}, {}),
+    ("bos_tricubic_rk45_128", 128,
+     {"density_gradients.interpolation_scheme": 2,
+      "density_gradients.ray_tracing_algorithm": 3},
+     dict(algorithm=3, interpolation_scheme=2))])
+def test_fast_goldens_through_the_port(name, sensor, over, kw):
+    """tests/test_golden.py's RK4 trilinear 64^2 golden and its tricubic
+    RK45-substep 128^2 golden (both through render_image_fast with the 12^3
+    gradient volume) through the port on the CPU, at that test's tolerance:
+    rtol 2e-3, atol 1e-6 of the golden's maximum, on every pixel."""
+    from tests.test_golden import LEGACY_GOLDEN
+    cfg, setup, src, r1, r2 = _bos_scene(sensor=sensor, **over)
+    vol, *_ = gradient_volume_between(setup, n=12)
+    tcfg = port_config(cfg)
+    got = render_image_fast(tcfg, camera_setup(tcfg), port_source(src),
+                            np.asarray(r1), np.asarray(r2),
+                            vol=port_volume(vol), device="cpu", **kw).numpy()
+    path = LEGACY_GOLDEN if name == "golden_bos_64" \
+        else os.path.join(GOLDEN_DIR, name + ".npy")
+    golden = np.load(path)
+    print(f"{name}: L1 {rel_l1(got, golden):.3g} of the golden's sum")
+    assert got.sum() > 0 and got.shape == golden.shape
+    np.testing.assert_allclose(got, golden, rtol=2e-3,
+                               atol=1e-6 * max(golden.max(), 1.0))
+
+
 # ---------------------------------------------------------------------------
 # render_image_fast against the JAX package's
 # ---------------------------------------------------------------------------

@@ -161,8 +161,9 @@ def test_inputs_as_tensors_and_single_ray(general):
 
 
 def _opts(name):
-    """Options outside this slice: the camera setup an option makes from a
-    copy of the config, and keyword arguments."""
+    """Options outside the fast renderer: the camera setup an option makes
+    from a copy of the config, keyword arguments, and the message its
+    error names."""
     def setup_of(cfg):
         if name == "camera rotated by 90 degrees or more":
             # with a volume its rays travel upward in the march's frame
@@ -174,17 +175,22 @@ def _opts(name):
                 lens = lens.elements[0]
             lens.rotation_angles = (0.02, 0.0, 0.0)
         return camera_setup(cfg, assembly)
-    return setup_of, {"mesh": dict(mesh=object())}.get(name, {})
+    match = {"camera rotated by 90 degrees or more": "render_image",
+             "tilted train": "axis-aligned single-lens train",
+             "mesh": "ROADMAP.md"}[name]
+    return setup_of, {"mesh": dict(mesh=object())}.get(name, {}), match
 
 
 @pytest.mark.parametrize("option", [
     "camera rotated by 90 degrees or more", "tilted train", "mesh"])
 def test_unsupported_option_raises(general, option):
+    """The first two belong to the exact renderer, where the pipeline sends
+    them (tests/test_torch_exact_render.py); a mesh is a later slice."""
     import copy
     cfg, _setup, src, r1, r2 = general["torch"]
     cfg = copy.deepcopy(cfg)
-    setup_of, kw = _opts(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    setup_of, kw, match = _opts(option)
+    with pytest.raises(NotImplementedError, match=match):
         render_image_fast(cfg, setup_of(cfg), src, r1, r2,
                           vol=general["torch_vol"], device="cpu", **kw)
 
