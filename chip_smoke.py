@@ -80,14 +80,23 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    PIV sample's frame 1 with Mie and dispersion), and the exact march's
    gradient on the bench's chief rays; seconds, rays/s, a traced busy
    share, peak memory, each against the same work on the CPU;
-12. prints one JSON line describing the kernels and, last, one JSON line
+12. drives the rest of the exact path's march menu at the bench's size
+   (phase 12, after phase 11; plain PyTorch, no kernel of the port
+   launches), on phase 11's sample-camera case: the pair with the adaptive
+   RK45 and with Adams-Bashforth through the command line, the
+   differentiable RK45 on the bench's chief rays, and the ray dumps of every
+   ray of both images (60 files a directory), held against the CPU and,
+   dot by dot, against the paraxial oracle, then 1000 rays with their
+   per-step (intermediate) dumps;
+13. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 ``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
 runs the build, the splat's two kernels of item 2 (with the same spots also
 scattered over the sensor), and items 3 and 4; ``--configs-only`` runs the
 build and item 9 alone; ``--chain-only`` the build and item 10 alone;
-``--exact-only`` the build and item 11 alone.
+``--exact-only`` the build and item 11 alone; ``--menu-only`` the build and
+item 12 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -105,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 H100_F32_FLOPS = 67e12        # published peak, f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # published HBM3 rate, SXM part
@@ -647,8 +657,6 @@ def bench_inputs(dev):
     (bench_scene), its source points, lens samples, 64^3 volume, render
     parameters, chief rays and the fan's scalars, lens rows and amplitudes,
     as a namespace."""
-    import types
-
     import numpy as np
     import torch
 
@@ -730,6 +738,464 @@ def cuda_event_ms(fn, reps=7, warm=2, inner=1):
     return statistics.median(ts)
 
 
+# the limits phase 12 (c) holds the card's per-dot displacements to, against
+# the paraxial oracle, per axis: (|1 - slope|, least correlation or None,
+# RMS over tests/test_sample_scene.py:158-166's RMS limit).  The sample
+# scene's (0.03, 0.995, 1) where the JAX package's own flow meets them on
+# this case: on the CPU (oracle_flow.py, every 10th and every 40th particle
+# of each dot, Adams-Bashforth) it read x: slope 1.0119-1.0120, correlation
+# 0.017-0.022 (the ramp moves every dot by ~2.7 px alike, so what varies
+# between dots is the flow's own error), RMS 0.112 px, 1.74 times that
+# limit; y: slope 1.0026-1.0028, correlation 0.99566, RMS 0.6-0.7 times it
+ORACLE_LIMITS = {"x": (0.03, None, 2.0), "y": (0.03, 0.995, 1.0)}
+
+
+def flow_readings(disp, pred, ok):
+    """Per axis: (slope, correlation, RMS in px, the sample scene's RMS
+    limit: 2% of the largest displacement plus 0.005 px) of the rendered
+    per-dot displacement ``disp`` against the oracle's ``pred`` over the
+    dots ``ok``."""
+    import numpy as np
+    out = []
+    for axis in range(2):
+        a, b = disp[ok, axis], pred[ok, axis]
+        slope = float((a * b).sum() / (b * b).sum())
+        corr = float(np.corrcoef(a, b)[0, 1])
+        rms = float(np.sqrt(np.mean((a - b) ** 2)))
+        out.append((slope, corr, rms, 0.02 * float(np.abs(a).max()) + 0.005))
+    return out
+
+
+def subset(src, sel):
+    """The source points ``sel`` of a LightfieldSource."""
+    return dataclasses.replace(
+        src, x=src.x[sel], y=src.y[sel], z=src.z[sel],
+        radiance=src.radiance[sel], diameter_index=src.diameter_index[sel])
+
+
+def rel_l1(a, b):
+    """L1 of a - b over b's L1 (float64)."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).sum() / np.abs(b).sum())
+
+
+def print_phases(label, log, card, which=r"\S+"):
+    """The PhaseTimer lines (``--verbose``) of a CLI run's log whose phase
+    matches `which`, with the card; returns {phase: seconds}."""
+    seen = {}
+    for line in log.splitlines():
+        mt = re.match(rf"\s*({which}): ([0-9.]+)s(?:\s+([0-9.]+)M "
+                      r"rays/s)?", line)
+        if mt:
+            rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
+            print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}  "
+                  f"[{card}]")
+            seen[mt.group(1)] = float(mt.group(2))
+    return seen
+
+
+class MarchOnce:
+    """A rays -> rays march that, called again with the same rays, returns
+    its first result: the CPU's image and ray-dump references of one
+    subsample share one march."""
+
+    def __init__(self, march):
+        self.march, self.last = march, None
+
+    def __call__(self, rays):
+        import torch
+        if self.last is None or not (
+                torch.equal(self.last[0].pos, rays.pos)
+                and torch.equal(self.last[0].dir, rays.dir)):
+            self.last = (rays, self.march(rays))
+        return self.last[1]
+
+
+def menu_phase(env):
+    """Phase 12: the exact path's slice B at the bench's width (plain
+    PyTorch; no kernel of the port launches), on phase 11 (a)'s case: the
+    bench scene under the reference sample scene's camera (y_camera_angle
+    5 pi / 6, the thin lens) with chip_smoke.volume_across_rays's 64^3 ramp.
+
+    (a) RK45 and Adams-Bashforth pairs through cli.main, both images on the
+    exact path: K1-K9 at 0 launches, render seconds and rays/s, the busy
+    share of a traced im2 and two runs of it (every hundredth particle, 1e-5
+    of the maximum), peak device memory, im2 against the same render on the
+    CPU (L1 1e-3; every hundredth particle for Adams-Bashforth, every
+    three-hundredth for RK45), and the L1 against phase 11 (a)'s Euler im2
+    when that ran.  (b) The differentiable RK45 on the bench's 120,000
+    chief rays (the bench volume) with respect to the field: the scan
+    against the while loop (tests/test_march.py:173-184's tolerances),
+    forward and backward seconds, peak memory, d_field against the CPU's on
+    every 120th ray at 96 steps (cosine 0.9999).  (c) The ray dumps of the
+    Adams-Bashforth run, every ray of both images (60 files a directory):
+    the save_lightrays seconds and bytes, every hundredth particle's rays
+    against the CPU (the same NaN pattern; positions within 1e-2 px and
+    directions within 1e-5, as the CPU tests hold render_rays), the
+    per-dot displacement of all dots against the paraxial oracle at
+    ORACLE_LIMITS; then the dump stage again with 1000 rays saved and their
+    intermediate dumps (100 iterations), against the same on the CPU.
+
+    ``env``: dev, card, cfg, vol, chief, counters, cli_main and euler_im2
+    (phase 11 (a)'s im2 or None)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.analysis.fields import paraxial_displacement_oracle
+    from photon_tpu_torch.analysis.light_rays import (
+        load_intermediate_ray_data, load_ray_data, process_lightray_data)
+    from photon_tpu_torch.models import render as exact
+    from photon_tpu_torch.models.optics import camera_setup
+    from photon_tpu_torch.models.scenes import bos_source
+    from photon_tpu_torch.ops.lens import RayBundle
+    from photon_tpu_torch.ops.march import make_march_fn, march_rays
+    from photon_tpu_torch.pipeline import (_lens_sample_pair, _ray_budget,
+                                           _save_lightrays)
+    from photon_tpu_torch.volume import load_density_volume
+
+    dev, card, cpu = env.dev, env.card, torch.device("cpu")
+    print("phase 12: the exact path's RK45, Adams-Bashforth, differentiable "
+          "RK45 and ray dumps at full size (plain PyTorch on the card)")
+    t_phase = time.perf_counter()
+    names = ("bos_pattern_image_1", "bos_pattern_image_2")
+
+    def zero():
+        for w in env.counters.values():
+            w.launches = 0
+
+    def counts_now():
+        return {k: int(w.launches) for k, w in env.counters.items()}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def close(got, ref, label, rtol=1e-4, pos_atol=1e-2, dir_atol=1e-6):
+        """Two (N, 3) position and direction arrays, by default at
+        tests/test_march.py:173-184's tolerances, with the same NaN pattern;
+        returns the largest differences."""
+        errs = []
+        for g, r, atol in zip(got, ref, (pos_atol, dir_atol)):
+            g, r = np.asarray(g), np.asarray(r)
+            require(g.shape == r.shape and np.array_equal(np.isnan(g),
+                                                          np.isnan(r)),
+                    f"{label}: shapes or NaN patterns differ")
+            fin = np.isfinite(r)
+            err = np.abs(g[fin] - r[fin])
+            require(bool((err <= atol + rtol * np.abs(r[fin])).all()),
+                    f"{label}: off by {float(err.max())}")
+            errs.append(float(err.max()) if err.size else 0.0)
+        return errs
+
+    c0 = copy.deepcopy(env.cfg)
+    c0.camera_design.y_camera_angle = 5.0 * math.pi / 6.0
+    c0.lens_design.lens_model = "thin-lens"
+    setup_c = camera_setup(c0)
+    rho, sp, org = volume_across_rays(setup_c, float(c0.bos_pattern.X_Max),
+                                      n=64)
+    src, dot_x, _ = bos_source(c0, setup_c, np.random.default_rng(c0.seed))
+    P, R = src.num_particles, int(src.lightray_number_per_particle)
+    r1, r2 = _lens_sample_pair(c0, R)
+    budget = _ray_budget(c0)
+    files_expected = -(-P // max(1, budget // R))
+    sub100 = subset(src, slice(0, P, 100))
+    gd = c0.density_gradients.gladstone_dale
+
+    with tempfile.TemporaryDirectory(prefix="photon_menu_") as tmp:
+        _, nrrd = write_bench_case(tmp, copy.deepcopy(c0), rho, sp, org)
+        vol_d = load_density_volume(nrrd, gladstone_dale=gd, device=dev)
+        vol_c = load_density_volume(nrrd, gladstone_dale=gd, device=cpu)
+        for alg, label in ((3, "RK45"), (4, "Adams-Bashforth")):
+            c = copy.deepcopy(c0)
+            c.density_gradients.ray_tracing_algorithm = alg
+            out = os.path.join(tmp, f"algorithm_{alg}")
+            os.makedirs(out)
+            c.output_data.image_directory = out
+            dumps = alg == 4
+            if dumps:
+                c.output_data.save_lightrays = True
+                c.output_data.num_lightrays_save = 0
+            case, _ = write_bench_case(out, c, rho, sp, org)
+            print(f"    (a) {label}: y_camera_angle 5 pi / 6, thin lens, "
+                  f"the 64^3 ramp; cli.main"
+                  + (", save_lightrays of every ray" if dumps else ""))
+            zero()
+            torch.cuda.reset_peak_memory_stats(dev)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = env.cli_main([case, "--out", out, "--verbose"])
+            counts = counts_now()
+            peak_cli = torch.cuda.max_memory_allocated(dev) / 1e9
+            require(rc == 0, f"(a) {label}: the CLI returned {rc}")
+            print(f"    (a) {label}: launches of K1-K9: {counts}")
+            require(not any(counts.values()),
+                    f"(a) {label}: a kernel of the fast path launched")
+            seconds = print_phases(f"(a) {label}", buf.getvalue(), card)
+            raws = {nm: np.fromfile(os.path.join(out, "raw", nm + ".bin"),
+                                    np.float32).reshape(c.camera_design
+                                                        .y_pixel_number, -1)
+                    for nm in names}
+            for nm in names:
+                require(np.isfinite(raws[nm]).all() and raws[nm].sum() > 0,
+                        f"(a) {label}: {nm} is not a finite image with light")
+            im2 = raws[names[1]]
+            moved = rel_l1(im2, raws[names[0]])
+            euler = ("phase 11 did not run" if env.euler_im2 is None else
+                     f"{rel_l1(im2, env.euler_im2):.3e}")
+            render_s = seconds["render:" + names[1]]
+            print(f"    (a) {label}: im2 {render_s:.3f} s, "
+                  f"{P * R / render_s / 1e6:.2f}M rays/s; im2 against im1 L1 "
+                  f"{moved:.3e}; against phase 11 (a)'s Euler im2 L1 {euler} "
+                  f"(no limit); peak device memory of the CLI run "
+                  f"{peak_cli:.2f} GB  [{card}]")
+            require(moved > 1e-3, f"(a) {label}: the volume does not move im2")
+
+            def render(source_, device_, v=None):
+                return exact.render_image(
+                    c, setup_c, source_, r1, r2,
+                    march_fn=make_march_fn(vol_d if v is None else v,
+                                           algorithm=alg),
+                    rays_per_chunk=budget, device=device_)
+
+            # two runs, the second traced, of every hundredth particle
+            # (depth cut; on an NVIDIA H100 80GB HBM3 at 700 W a second run
+            # of the whole image took 22.8 s for RK45, and the trace of every
+            # tenth particle's render some 30 s of host time)
+            zero()
+            with torch.no_grad():
+                first, s100 = timed(lambda: render(sub100, dev))
+                held = {}
+
+                def again():
+                    held["img"] = render(sub100, dev)
+                dev_ms, _ = env.traced(again)
+            require(not any(counts_now().values()),
+                    f"(a) {label}: a kernel of the fast path launched")
+            rr = float((held["img"] - first).abs().max() / first.max())
+            print(f"    (a) {label}: im2 of every hundredth particle "
+                  f"({sub100.num_particles}) twice: untraced {s100:.3f} s; "
+                  f"the two runs differ by {rr:.3e} of the maximum (bound "
+                  f"1.0e-05); traced, the device busy "
+                  + (NOT_MEASURED if dev_ms == NOT_MEASURED else
+                     f"{dev_ms:.1f} ms, about {dev_ms / 1e3 / s100:.1%}")
+                  + f"  [{card}]")
+            require(rr <= 1e-5, f"(a) {label}: two runs differ by {rr}")
+            del first, held
+
+            # the CPU's every hundredth particle: one march for the image and,
+            # for the dumps, the rays; RK45's every three-hundredth (depth
+            # cut: every hundredth took that card's host CPU 35 s)
+            every = 100 if dumps else 300
+            sub_cpu = sub100 if dumps else subset(src, slice(0, P, every))
+            t0 = time.perf_counter()
+            march_cpu = MarchOnce(make_march_fn(vol_c, algorithm=alg))
+            with torch.no_grad():
+                img_card = exact.render_image(
+                    c, setup_c, sub_cpu, r1, r2, march_fn=make_march_fn(
+                        vol_d, algorithm=alg), rays_per_chunk=budget,
+                    device=dev).cpu().numpy()
+                img_cpu = exact.render_image(
+                    c, setup_c, sub_cpu, r1, r2, march_fn=march_cpu,
+                    rays_per_chunk=budget, device=cpu).numpy()
+            d = rel_l1(img_card, img_cpu)
+            print(f"    (a) {label}: im2 of every {every}th particle "
+                  f"({sub_cpu.num_particles}) against the CPU: L1 {d:.3e} of "
+                  f"the sum (bound 1e-03); {time.perf_counter() - t0:.1f} s")
+            require(img_cpu.sum() > 0 and d <= 1e-3,
+                    f"(a) {label}: card against CPU L1 {d}")
+            print(f"    (a) {label}: phase 12 at "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+            if not dumps:
+                continue
+
+            # (c) the dumps of every ray
+            per_dir = {}
+            for kind in ("positions", "directions"):
+                for tag in ("im1", "im2"):
+                    per_dir[kind, tag] = sorted(glob.glob(os.path.join(
+                        out, f"light-ray-{kind}", tag, "*.bin")))
+            n_bytes = sum(os.path.getsize(f) for fs in per_dir.values()
+                          for f in fs)
+            print(f"    (c) save_lightrays of every ray of both images: "
+                  f"{seconds.get('save_lightrays', float('nan')):.3f} s, "
+                  f"{n_bytes / 1e9:.3f} GB in "
+                  f"{sum(len(fs) for fs in per_dir.values())} files "
+                  f"({files_expected} a directory)  [{card}]")
+            require(all(len(fs) == files_expected
+                        for fs in per_dir.values())
+                    and n_bytes == 4 * P * R * 12,
+                    f"(c) the dumps hold {n_bytes} bytes in "
+                    f"{[len(fs) for fs in per_dir.values()]} files")
+            dumped = {(kind, tag): load_ray_data(os.path.dirname(fs[0]),
+                                                 "pos" if kind ==
+                                                 "positions" else "dir")
+                      for (kind, tag), fs in per_dir.items()}
+            rows = (np.arange(0, P, 100)[:, None] * R
+                    + np.arange(R)[None]).ravel()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ref2 = exact.render_rays(c, setup_c, sub100, r1, r2,
+                                         march_fn=march_cpu, device=cpu)
+                ref1 = exact.render_rays(c, setup_c, sub100, r1, r2,
+                                         device=cpu)
+            # the final rays at the sensor plane, held as
+            # tests/test_torch_exact_render.py::test_render_rays_matches_jax
+            # holds them: positions within 1e-2 px, directions within 1e-5
+            pitch = float(c.camera_design.pixel_pitch)
+            for tag, ref in (("im1", ref1), ("im2", ref2)):
+                errs = close((dumped["positions", tag][rows],
+                              dumped["directions", tag][rows]),
+                             (ref.pos.numpy(), ref.dir.numpy()),
+                             f"(c) {tag} dumps", rtol=0.0,
+                             pos_atol=0.01 * pitch, dir_atol=1e-5)
+                nan = float(np.isnan(ref.pos.numpy()).any(1).mean())
+                print(f"    (c) {tag} dumps of every hundredth particle "
+                      f"against the CPU: positions within {errs[0]:.3e} um, "
+                      f"directions within {errs[1]:.3e}; {nan:.4f} of the "
+                      f"rays culled (NaN) on both; "
+                      f"{time.perf_counter() - t0:.1f} s")
+            # the per-dot displacement of all dots against the oracle
+            t0 = time.perf_counter()
+            n_dots = len(dot_x)
+            cd = c.camera_design
+            disp = process_lightray_data(
+                dumped["positions", "im1"], dumped["positions", "im2"],
+                P // n_dots * R, cd.pixel_pitch, cd.x_pixel_number,
+                cd.y_pixel_number)["displacement"]
+            del dumped
+            pred, hit = paraxial_displacement_oracle(c, setup_c, vol_d, src)
+            pred = pred.reshape(n_dots, -1, 2).mean(1)
+            ok = hit.reshape(n_dots, -1).all(1) & np.isfinite(disp).all(1)
+            print(f"    (c) the dumps' per-dot displacement against the "
+                  f"paraxial oracle, {int(ok.sum())} of {n_dots} dots "
+                  f"finite and hit ({time.perf_counter() - t0:.1f} s):")
+            require(ok.sum() >= 0.9 * n_dots, "(c) too few dots")
+            for axis, (slope, corr, rms, rms_lim) in zip(
+                    "xy", flow_readings(disp, pred, ok)):
+                lim = ORACLE_LIMITS[axis]
+                print(f"        axis {axis}: slope {slope:.5f}, correlation "
+                      f"{corr:.6f}, RMS {rms:.5f} px (the sample scene's "
+                      f"limit {rms_lim:.5f} px); limits: |1 - slope| <= "
+                      f"{lim[0]}, correlation "
+                      + ("none" if lim[1] is None else f">= {lim[1]}")
+                      + f", RMS <= {lim[2]} x the sample scene's  [{card}]")
+                require(abs(1.0 - slope) <= lim[0]
+                        and (lim[1] is None or corr >= lim[1])
+                        and rms <= lim[2] * rms_lim,
+                        f"(c) axis {axis} against the oracle")
+
+            # (c) again: 1000 rays and their intermediate dumps, through the
+            # dump stage as run_bos calls it (depth cut: a second CLI run
+            # renders the pair again, 12 s on that card), on the card and on
+            # the CPU
+            c.output_data.num_lightrays_save = 1000
+            c.output_data.save_intermediate_ray_data = True
+            out2, ref_dir = (os.path.join(tmp, d) for d in ("second", "cpu"))
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for d, v, device_ in ((out2, vol_d, dev), (ref_dir, vol_c,
+                                                           cpu)):
+                    c.output_data.image_directory = d
+                    _save_lightrays(c, setup_c, src, r1, r2, v, "im2",
+                                    device_)
+            S = int(c.output_data.num_intermediate_positions_save)
+            for kind, prefix in (("positions", "intermediate_pos"),
+                                 ("directions", "intermediate_dir")):
+                got = load_intermediate_ray_data(os.path.join(
+                    out2, f"light-ray-{kind}", "im2"), S, prefix)
+                ref = load_intermediate_ray_data(os.path.join(
+                    ref_dir, f"light-ray-{kind}", "im2"), S, prefix)
+                require(got.shape == (1000, S, 3),
+                        f"(c) intermediate dumps of shape {got.shape}")
+                fin = np.isfinite(ref)
+                require(np.array_equal(fin, np.isfinite(got)),
+                        f"(c) {prefix}: the NaN patterns differ")
+                err = np.abs(got[fin] - ref[fin])
+                tol = (1e-2 if kind == "positions" else 1e-6) \
+                    + 1e-4 * np.abs(ref[fin])
+                require(bool((err <= tol).all()),
+                        f"(c) {prefix} off by {float(err.max())}")
+                print(f"    (c) {prefix} of 1000 rays x {S} iterations "
+                      f"against the CPU's: the same NaN pattern "
+                      f"({float(fin.mean()):.4f} finite), within "
+                      f"{float(err.max()):.3e}; "
+                      f"{time.perf_counter() - t0:.1f} s")
+        del vol_d, vol_c
+    print(f"    (c): phase 12 at {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) the differentiable RK45 on the bench's chief rays
+    def chief_rk45(device_, vol_, sel=slice(None), grad=True,
+                   num_steps=None):
+        ch = [t.to(device_)[sel] for t in env.chief]
+        rays = RayBundle(torch.stack(ch[:3], -1).contiguous(),
+                         torch.stack(ch[3:], -1).contiguous(),
+                         torch.zeros_like(ch[0]), torch.ones_like(ch[0]))
+        if not grad:
+            with torch.no_grad():
+                return march_rays(vol_, rays, algorithm=3)
+        field = vol_.field.reshape(-1, 4).detach().clone().requires_grad_(
+            True)
+        t0 = time.perf_counter()
+        out_ = march_rays(vol_, rays, algorithm=3, differentiable=True,
+                          num_steps=num_steps, field_flat=field)
+        loss = out_.pos[:, 0].sum() + 1e5 * out_.dir[:, 0].sum()
+        if device_.type == "cuda":
+            sync()
+        t1 = time.perf_counter()
+        (g,) = torch.autograd.grad(loss, field)
+        if device_.type == "cuda":
+            sync()
+        return out_, g, t1 - t0, time.perf_counter() - t1
+
+    n_chief = int(env.chief[0].numel())
+    zero()
+    loop = chief_rk45(dev, env.vol, grad=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    scan, g_full, fwd_s, bwd_s = chief_rk45(dev, env.vol)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    require(not any(counts_now().values()) and bool(
+        torch.isfinite(g_full).all()), "(b) a kernel launched, or d_field "
+            "is not finite")
+    errs = close((scan.pos.detach().cpu().numpy(),
+                  scan.dir.detach().cpu().numpy()),
+                 (loop.pos.cpu().numpy(), loop.dir.cpu().numpy()),
+                 "(b) the scan against the while loop")
+    del g_full, scan, loop
+    # every 120th ray, 96 steps (depth cut: every thirtieth ray took that
+    # card's host CPU 30 s at the default 478 steps; the march needs some 30)
+    sub_b = slice(0, n_chief, 120)
+    _, g_card, _, _ = chief_rk45(dev, env.vol, sub_b, num_steps=96)
+    t0 = time.perf_counter()
+    _, g_cpu, _, _ = chief_rk45(cpu, env.vol._replace(
+        field=env.vol.field.cpu()), sub_b, num_steps=96)
+    cpu_s = time.perf_counter() - t0
+    g_card = g_card.cpu().double()
+    g_cpu = g_cpu.double()
+    cos_b = float((g_card * g_cpu).sum() / (g_card.norm() * g_cpu.norm()))
+    print(f"    (b) {n_chief} chief rays, the differentiable RK45: forward "
+          f"{fwd_s:.3f} s, backward {bwd_s:.3f} s, peak device memory "
+          f"{peak:.2f} GB; the scan against the while loop within "
+          f"{errs[0]:.3e} um / {errs[1]:.3e}; d_field of every 120th ray "
+          f"(96 steps) "
+          f"against the CPU's (which took {cpu_s:.1f} s): cosine "
+          f"{cos_b:.7f} (bound 0.9999), relative L2 "
+          f"{float((g_card - g_cpu).norm() / g_cpu.norm()):.3e}  [{card}]")
+    require(cos_b >= 0.9999 and float(g_cpu.abs().max()) > 0,
+            f"(b) d_field cosine {cos_b}")
+    print(f"    phase 12 took {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -760,6 +1226,11 @@ def main(argv=None) -> int:
                       "the bench pair forced exact, a tilted train with a "
                       "stop, the exact march's gradient); it launches no "
                       "kernel, so the kernels line is empty")
+    only.add_argument("--menu-only", action="store_true",
+                      help="after the build, run phase 12 alone (the exact "
+                      "path's RK45, Adams-Bashforth, differentiable RK45 and "
+                      "ray dumps at full size); it launches no kernel, so the "
+                      "kernels line is empty")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1842,7 +2313,7 @@ def main(argv=None) -> int:
             require(np.isfinite(ims[1]).all() and l1_m < 1e-3,
                     f"{label}: im2 is {l1_m} (L1) from the plain render")
             require(moved_m > 0.01, f"{label}: the volume moves nothing")
-            print_phases(label, buf.getvalue(), r"render:\S+|volume")
+            print_phases(label, buf.getvalue(), card, r"render:\S+|volume")
             del vol_file
 
         def render5(**kw):
@@ -2157,17 +2628,6 @@ def main(argv=None) -> int:
                          keep(nm, getattr(render_fast, nm)))
                         for nm in names])
 
-    def print_phases(label, log, which=r"\S+"):
-        """The PhaseTimer lines (``--verbose``) of a CLI run's log whose
-        phase matches `which`, with the card."""
-        for line in log.splitlines():
-            mt = re.match(rf"\s*({which}): ([0-9.]+)s(?:\s+([0-9.]+)M "
-                          r"rays/s)?", line)
-            if mt:
-                rate = f", {mt.group(3)}M rays/s" if mt.group(3) else ""
-                print(f"    {label}: {mt.group(1)}: {mt.group(2)} s{rate}  "
-                      f"[{card}]")
-
     render_tags = dict(march_dense="march_dense_kernel",
                        fan_stats="fan_stats_kernel", splat="splat_kernel")
 
@@ -2344,7 +2804,7 @@ def main(argv=None) -> int:
             require(rc == 0, f"{label}: the CLI returned {rc}")
             print(f"    {label}: launches {counts}, expected {expect}")
             expect_counts(label, counts, expect)
-            print_phases(label, buf.getvalue())
+            print_phases(label, buf.getvalue(), card)
             files = sorted(os.path.relpath(os.path.join(d, f), out)
                            for d, _, fs in os.walk(out) for f in fs)
             want = sorted(["parameters.json", "parameters.mat"]
@@ -2575,12 +3035,6 @@ def main(argv=None) -> int:
         def counts_now():
             return {k: int(w.launches) for k, w in wrappers.items()}
 
-        def subset(src, sel):
-            return dataclasses.replace(
-                src, x=src.x[sel], y=src.y[sel], z=src.z[sel],
-                radiance=src.radiance[sel],
-                diameter_index=src.diameter_index[sel])
-
         def pair(label, c, tmp, expect, deposit=None):
             """The pair of config `c` through cli.main (its case and NRRD in
             the directory `tmp`, which run_bos reads again) and its checks:
@@ -2600,7 +3054,7 @@ def main(argv=None) -> int:
             require(rc == 0, f"({label}) the CLI returned {rc}")
             print(f"    ({label}) launches {counts}, expected {expect}")
             expect_counts(f"({label})", counts, expect)
-            print_phases(f"({label})", buf.getvalue())
+            print_phases(f"({label})", buf.getvalue(), card)
             raws = {}
             for nm in names:
                 raws[nm] = np.fromfile(
@@ -2940,17 +3394,6 @@ def main(argv=None) -> int:
         def counts_now():
             return {k: int(w.launches) for k, w in counters.items()}
 
-        def subset(src, sel):
-            return dataclasses.replace(
-                src, x=src.x[sel], y=src.y[sel], z=src.z[sel],
-                radiance=src.radiance[sel],
-                diameter_index=src.diameter_index[sel])
-
-        def l1(a, b_):
-            a = np.asarray(a, np.float64)
-            b_ = np.asarray(b_, np.float64)
-            return float(np.abs(a - b_).sum() / np.abs(b_).sum())
-
         def timed(fn):
             sync()
             t0 = time.perf_counter()
@@ -2966,7 +3409,7 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 on_card = render_on(dev).cpu().numpy()
                 on_cpu = render_on(cpu).numpy()
-            d = l1(on_card, on_cpu)
+            d = rel_l1(on_card, on_cpu)
             print(f"    {label} against the same render on the CPU: L1 "
                   f"{d:.3e} of the sum (bound {tol:.0e}); "
                   f"{time.perf_counter() - t0:.1f} s")
@@ -2995,7 +3438,7 @@ def main(argv=None) -> int:
             print(f"    (a) launches of K1-K9: {counts}")
             require(not any(counts.values()),
                     f"(a) a kernel of the fast path launched: {counts}")
-            print_phases("(a)", buf.getvalue())
+            print_phases("(a)", buf.getvalue(), card)
             raws = {nm: np.fromfile(os.path.join(out, "raw", nm + ".bin"),
                                     np.float32).reshape(sensor, sensor)
                     for nm in names}
@@ -3005,7 +3448,8 @@ def main(argv=None) -> int:
                         and np.isfinite(raws[nm]).all()
                         and raws[nm].sum() > 0,
                         f"(a) {nm} is not a finite image with a positive sum")
-            moved = l1(raws[names[1]], raws[names[0]])
+            moved = rel_l1(raws[names[1]], raws[names[0]])
+            euler_im2 = raws[names[1]]
             print(f"    (a) im2 against im1: L1 {moved:.3e} of im1's sum")
             require(moved > 1e-3, "(a) the volume does not move im2")
 
@@ -3112,13 +3556,13 @@ def main(argv=None) -> int:
         # RK4 freezing a ray mid-step at the exit face
         for nm, e, f, s_, tol in (("im1", e1, f1, s_e1, 1e-3),
                                   ("im2", e2, f2, s_e2, 5e-2)):
-            d = l1(f.cpu().numpy(), e.cpu().numpy())
+            d = rel_l1(f.cpu().numpy(), e.cpu().numpy())
             print(f"    (b) exact {nm}: {s_:.3f} s, {P * R / s_ / 1e6:.1f}M "
                   f"rays/s; the fast renderer's {nm} against it: L1 {d:.3e} "
                   f"of the sum (bound {tol:.0e})  [{card}]")
             require(float(e.sum()) > 0 and d < tol,
                     f"(b) {nm}: fast against exact L1 {d}")
-        moved = l1(e2.cpu().numpy(), e1.cpu().numpy())
+        moved = rel_l1(e2.cpu().numpy(), e1.cpu().numpy())
         print(f"    (b) exact im2 against exact im1: L1 {moved:.3e}")
         require(moved > 0.05, "(b) the volume does not move im2")
         del e1, e2, f1, f2
@@ -3261,6 +3705,7 @@ def main(argv=None) -> int:
                 f"(d) d_field cosine {cos_d}")
         wall = time.perf_counter() - t_phase
         print(f"    phase 11 took {wall:.1f} s  [{card}]")
+        return euler_im2
 
     def finish(rows_) -> int:
         # the comparisons of phases 9 and 10 (and of the large tier) append
@@ -3283,8 +3728,17 @@ def main(argv=None) -> int:
         return finish(configs_phase([]))
     if args.chain_only:
         return finish(chain_phase([]))
+    def menu(euler_im2):
+        menu_phase(types.SimpleNamespace(
+            dev=dev, card=card, cfg=cfg, vol=vol, chief=chief,
+            counters=counters, traced=traced, cli_main=cli_main,
+            euler_im2=euler_im2))
+
     if args.exact_only:
         exact_phase()
+        return finish([])
+    if args.menu_only:
+        menu(None)
         return finish([])
 
     whole = slice(0, P)
@@ -4661,7 +5115,7 @@ def main(argv=None) -> int:
               f"{moved_m:.3e}")
         require(np.isfinite(im2_m).all() and l1_m < 1e-3,
                 f"{label}: im2 is {l1_m} (L1) from the plain render")
-        print_phases(label, buf.getvalue(), r"render:\S+|volume")
+        print_phases(label, buf.getvalue(), card, r"render:\S+|volume")
     for row in kernel_rows:
         if row["name"] == "march_dense_cubic":
             row["launches"] = menu_counts[3]["march_dense"]
@@ -4790,7 +5244,7 @@ def main(argv=None) -> int:
 
     configs_phase(kernel_rows)
     chain_phase(kernel_rows)
-    exact_phase()
+    menu(exact_phase())
     kernel_rows.extend(large_tier())
     return finish(kernel_rows)
 

@@ -26,7 +26,8 @@ launch, see ``kernels.py``).  Module and function names follow
   ops/interp.py         texture lookup, tex3D trilinear and tricubic
                         sampling (exact path)
   ops/march.py          the exact path's march: AABB entry, Euler, RK4,
-                        grad-n noise, the differentiable loop
+                        adaptive RK45, Adams-Bashforth, grad-n noise, the
+                        differentiable loop, the per-step recorder
   ops/sensor.py         erf diffraction and bilinear sensors (exact path)
   ops/march_dense.py    plain dense chief-ray march, the B-spline prefilter
   ops/march_dense_fused.py  the march kernels' wrappers, forward and
@@ -43,16 +44,21 @@ launch, see ``kernels.py``).  Module and function names follow
   inverse.py            volume_from_rho, invert_bos: Adam on a density grid
   postprocess.py        noise, gain, quantisation, crop
   pipeline.py           run_bos / run_piv / run_cal / run_simulation /
-                        save_result, routing each case to a renderer
+                        save_result, routing each case to a renderer; the
+                        ray dumps (save_lightrays)
   cli.py                batch command line
-  utils/                NRRD, TIFF and PNG I/O, GlibcRand, phase timers
+  utils/                NRRD, TIFF and PNG I/O, GlibcRand, phase timers,
+                        ray_statistics
+  analysis/             ray-dump loading, per-dot BOS displacements, the
+                        paraxial oracle, synthetic fields (numpy / scipy)
 
 The slices so far: the BOS image pair through the fast renderer, its
 gradient with respect to the density field and the inversion built on it,
 the whole march menu on volumes of any size, PIV with Mie scattering and
 calibration grids, the per-ray chain (rotated cameras, the bilinear sensor,
 position noise), and the exact-semantics path (any lens train, dispersion,
-absorbance, gradient-index noise, cameras rotated past 90 degrees).
+absorbance, gradient-index noise, cameras rotated past 90 degrees, the
+whole march menu, the ray dumps and their analysis).
 Nothing here imports ``jax`` or ``photon_tpu``.
 """
 

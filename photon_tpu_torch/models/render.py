@@ -125,8 +125,12 @@ def generate_rays(source_x, source_y, source_z, source_radiance,
     P = source_x.shape[0]
     R = r1.shape[0]
     cone = params.ray_cone_pitch_ratio * params.lens_pitch
-    x_lens = cone * r1 * torch.cos(2.0 * math.pi * r2)           # (R,)
-    y_lens = cone * r1 * torch.sin(2.0 * math.pi * r2)
+    # the angle's cosine and sine in float64, rounded once: the card's and
+    # the CPU's float32 cos differ in the last bit, and an adaptive march
+    # (RK45) turns one ulp of a ray into another sequence of steps
+    ang = (2.0 * math.pi * r2).double()
+    x_lens = cone * r1 * torch.cos(ang).to(r2.dtype)              # (R,)
+    y_lens = cone * r1 * torch.sin(ang).to(r2.dtype)
     if R == 1:
         x_lens = torch.zeros_like(x_lens)   # chief ray only (ref: :111-116)
         y_lens = torch.zeros_like(y_lens)

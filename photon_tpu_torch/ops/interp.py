@@ -22,9 +22,10 @@ component-major, (3, N) (each row contiguous on the card), and
 :class:`Grid` holds the volume's constants as tensors on the rays' device,
 made once: a tensor made from Python numbers on a call would be a copy to
 the card, and a wait, every time.  The samplers gather from the field laid
-out channel by channel, (C, D*H*W), corner-major, and sum the corners over
-a leading axis: PyTorch's gather of rows of four floats, and its sum over
-a trailing axis of 8, were each several times slower on an H100.  Indices
+out channel by channel, (C, D*H*W), corner-major, and add the corners in
+order along a leading axis: PyTorch's gather of rows of four floats, and
+its sum over a trailing axis of 8, were each several times slower on an
+H100, and its sum over the corner axis rounds by the batch's width.  Indices
 are int32 where the field allows.  The public functions take the JAX
 package's arguments and layouts, (N, 3) points and (D*H*W, C) fields, and
 make a grid per call.
@@ -106,8 +107,15 @@ def _weights(w):
 
 def _blend(field_t, idx, wgt):
     """sum_k wgt[k] * field[idx[k]] -> (C, N), from the channel-major
-    field ``field_t`` (C, D*H*W)."""
-    return (wgt * field_t[:, idx]).sum(dim=1)
+    field ``field_t`` (C, D*H*W), the corners added in order: PyTorch's sum
+    over the corner axis adds the last columns of a CPU batch in another
+    order, by the batch's width, and a ray's sample must not depend on the
+    batch that carries it (the ray dumps trace a chunk at a time)."""
+    terms = wgt * field_t[:, idx]
+    acc = terms[:, 0]
+    for k in range(1, terms.shape[1]):
+        acc = acc + terms[:, k]
+    return acc
 
 
 def trilinear_in(grid: Grid, field_t, lookup):

@@ -7,11 +7,15 @@ BOS, a frame sequence for PIV, a plane sequence for calibration),
 post-processes and writes TIFF/raw artifacts plus the parameter/position
 sidecars.  :func:`can_use_fast_renderer` routes each case, as in the JAX
 package, to the fast renderer (``models/render_fast.py``) or to the
-exact-semantics renderer (``models/render.py``); ray dumps raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+exact-semantics renderer (``models/render.py``).  ``save_lightrays``
+writes the reference's ray dumps (final positions and directions, and the
+per-step trajectories of the first rays), traced chunk by chunk through the
+exact renderer.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 from dataclasses import dataclass
@@ -23,15 +27,16 @@ import torch
 from photon_tpu_torch.config import SimulationConfig
 from photon_tpu_torch.device import DeviceLike, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup, camera_setup
-from photon_tpu_torch.models.render import render_image
+from photon_tpu_torch.device import as_f32
+from photon_tpu_torch.models.render import render_image, render_rays
 from photon_tpu_torch.models.render_fast import (_axis_aligned,
                                                  render_image_fast)
 from photon_tpu_torch.models.scenes import (LightfieldSource, bos_source,
                                             calibration_source, piv_source)
-from photon_tpu_torch.ops.march import make_march_fn
+from photon_tpu_torch.ops.march import make_march_fn, march_rays
+from photon_tpu_torch.ops.march_dense import bspline_prefilter
 from photon_tpu_torch.ops.mie import create_mie_scattering_data
 from photon_tpu_torch.postprocess import postprocess
-from photon_tpu_torch.roadmap import SLICE_B, later
 from photon_tpu_torch.utils.profiling import PhaseTimer
 from photon_tpu_torch.utils.rng import lens_samples, reference_lens_samples
 from photon_tpu_torch.utils.tiff_io import write_tiff16
@@ -159,8 +164,6 @@ def run_bos(cfg: SimulationConfig,
     device (raises without one); "cpu" runs the plain versions.
     """
     dev = resolve_device(device)
-    if cfg.output_data.save_lightrays:
-        raise later("save_lightrays (final ray dumps)", SLICE_B)
     timer = PhaseTimer(device=dev)
     if rng is None:
         rng = np.random.default_rng(cfg.seed)
@@ -195,12 +198,105 @@ def run_bos(cfg: SimulationConfig,
             I, I_raw = postprocess(cfg, raw, generator=noise_gen)
         images[name], raws[name] = I, I_raw
 
+        if cfg.output_data.save_lightrays:
+            with timer.phase("save_lightrays"):
+                _save_lightrays(cfg, setup, source, r1, r2, use_vol,
+                                "im2" if gradients else "im1", dev)
+
     if verbose:
         print(timer.report())
     return SimulationResult(images=images, raw_images=raws, setup=setup,
                             sources={"bos": source},
                             dot_positions={"x": dot_x, "y": dot_y},
                             timer=timer)
+
+
+def _save_lightrays(cfg: SimulationConfig, setup: CameraSetup, source,
+                    r1, r2, vol, tag: str, dev: torch.device) -> None:
+    """Write the final ray dumps as the reference does, one file of float32
+    (x, y, z) rows per chunk of the ray budget: ``pos_%04d.bin`` under
+    ``light-ray-positions/<tag>`` and ``dir_%04d.bin`` under
+    ``light-ray-directions/<tag>`` (ref: parallel_ray_tracing.cu
+    :3561-3670), the first ``num_lightrays_save`` rays (0: all), marched
+    without noise.  With ``save_intermediate_ray_data`` and a volume, the
+    same march records the first ``num_intermediate_positions_save``
+    iterations of those rays into ``intermediate_{pos,dir}_0000.bin``,
+    (n_save, S, 3) float32 in the march's (world) frame (:3613-3670).
+
+    Rays are independent, so only the particles whose rays are saved are
+    traced, a chunk at a time, and each chunk's files are written as it
+    is done: the same files as one trace of the whole source (the JAX
+    package's way, photon_tpu/pipeline.py:246), in the memory of one
+    chunk.  Position noise draws each chunk's normals in turn from a
+    generator seeded with 0 (the JAX package's draws cannot be
+    repeated)."""
+    od = cfg.output_data
+    base = od.image_directory or "."
+    pos_dir = od.lightray_positions_filepath or os.path.join(
+        base, "light-ray-positions", tag)
+    dir_dir = od.lightray_directions_filepath or os.path.join(
+        base, "light-ray-directions", tag)
+    os.makedirs(pos_dir, exist_ok=True)
+    os.makedirs(dir_dir, exist_ok=True)
+    R = max(1, int(source.lightray_number_per_particle))
+    n_all = source.num_particles * R
+    n_save = min(int(od.num_lightrays_save) or n_all, n_all)
+    ppc = max(1, _ray_budget(cfg) // R)
+    chunk_rays = ppc * R
+    record = bool(od.save_intermediate_ray_data) and vol is not None
+    dg = cfg.density_gradients
+    march_kw = dict(algorithm=int(dg.ray_tracing_algorithm),
+                    interpolation_scheme=int(dg.interpolation_scheme))
+    if vol is not None:
+        field = vol.field
+        if march_kw["interpolation_scheme"] == 2:
+            field = bspline_prefilter(field)
+        march_kw["field_flat"] = field.reshape(-1, 4)
+    gen = None
+    if cfg.density_gradients.add_pos_noise:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    r1, r2 = as_f32(r1, dev), as_f32(r2, dev)
+    with contextlib.ExitStack() as files:
+        if record:
+            inter = [files.enter_context(open(os.path.join(
+                d, f"intermediate_{k}_0000.bin"), "wb"))
+                for d, k in ((pos_dir, "pos"), (dir_dir, "dir"))]
+        for c in range(max(1, -(-n_save // chunk_rays))):
+            take = max(0, min(chunk_rays, n_save - c * chunk_rays))
+            sl = slice(c * ppc, c * ppc + -(-take // R))
+            sub = dataclasses.replace(
+                source, x=source.x[sl], y=source.y[sl], z=source.z[sl],
+                radiance=source.radiance[sl],
+                diameter_index=source.diameter_index[sl])
+            recorded = []
+
+            def march(rays_w, take=take, recorded=recorded):
+                if not record:
+                    return march_rays(vol, rays_w, **march_kw)
+                out, rec = march_rays(
+                    vol, rays_w, record_steps=int(
+                        od.num_intermediate_positions_save),
+                    record_rays=take, **march_kw)
+                recorded.append(rec)
+                return out
+
+            pos = np.zeros((0, 3), np.float32)
+            dirs = pos
+            if take:
+                normals = None if gen is None else torch.randn(
+                    (sub.num_particles * R, 2), generator=gen, device=dev,
+                    dtype=torch.float32)
+                rays = render_rays(cfg, setup, sub, r1, r2,
+                                   march_fn=None if vol is None else march,
+                                   normals=normals, device=dev)
+                pos = rays.pos[:take].cpu().numpy()
+                dirs = rays.dir[:take].cpu().numpy()
+            pos.tofile(os.path.join(pos_dir, f"pos_{c:04d}.bin"))
+            dirs.tofile(os.path.join(dir_dir, f"dir_{c:04d}.bin"))
+            if recorded:
+                for f, a in zip(inter, recorded[0]):
+                    f.write(a.cpu().numpy().tobytes())
 
 
 def run_piv(cfg: SimulationConfig,

@@ -6,7 +6,6 @@ through to a different path.
 """
 from __future__ import annotations
 
-SLICE_B = "The exact path, slice B"
 MULTI_DEVICE = "Multi-device"
 
 

@@ -1,9 +1,11 @@
-"""Phase timers with rays/s accounting.
+"""Phase timers with rays/s accounting, and ray-survival statistics.
 
 The reference's observability is wall-clock printfs around the kernel
 loop (ref: parallel_ray_tracing.cu:3498-3684, batch_run_simulation.py:53).
 Here: lightweight host-clock phase timers that synchronise the CUDA device
-at each phase end, so a phase's time includes the device work it enqueued.
+at each phase end, so a phase's time includes the device work it enqueued,
+and a count of the rays that survive a trace (the reference's NaN-culled
+rays, counted instead of printf'd).
 """
 from __future__ import annotations
 
@@ -52,3 +54,16 @@ class PhaseTimer:
                 extra = f"  {self.rays[name] / dt / 1e6:.2f}M rays/s"
             lines.append(f"{name}: {dt:.3f}s{extra}")
         return "\n".join(lines)
+
+
+def ray_statistics(rays) -> Dict[str, float]:
+    """Survival accounting for a traced RayBundle: the reference poisons
+    culled rays with NaN, so a ray survives where its position is finite.
+    Counted on the bundle's device; returns Python floats."""
+    n = int(rays.pos.shape[0])
+    surviving = int(torch.isfinite(rays.pos).all(dim=-1).sum())
+    return {
+        "total_rays": float(n),
+        "surviving": float(surviving),
+        "survival_fraction": surviving / n if n else 0.0,
+    }

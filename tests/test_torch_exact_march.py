@@ -1,8 +1,9 @@
 """Port vs JAX: the exact path's march (``ops/march.py``) on the CPU, on the
 same seeded inputs: the AABB entry, Euler and RK4 for rays entering from
 above and from below, the stale-sample fallback, pass-through and misses,
-the cubic scheme, the differentiable loop and its field gradient, and
-gradient-index noise.
+the cubic scheme, the differentiable loop and its field gradient,
+gradient-index noise, and make_march_fn / record_steps across the menu
+(RK45 and Adams-Bashforth in depth: tests/test_torch_exact_menu.py).
 
 Tolerances.  Both sides run the same float32 formulas in the same order;
 the JAX package's CPU ``sqrt`` (RK4's renormalisation) is not always the
@@ -222,15 +223,28 @@ def test_field_gradient_matches_jax_grad(algorithm):
 
 
 def test_make_march_fn_and_slice_b_raise(vol32):
+    """make_march_fn at the cubic scheme; algorithms 3 (RK45) and 4
+    (Adams-Bashforth) through make_march_fn, and ``record_steps`` through
+    march_rays, against the JAX package's (RK45 against its run op by op,
+    whose adaptive steps the port repeats: tests/test_torch_exact_menu.py);
+    an unknown algorithm raises ValueError."""
     rays = _rays(8, seed=8)
     jr, tr = _both(rays)
     vol = port_volume(vol32)
     fn = march.make_march_fn(vol, algorithm=2, interpolation_scheme=2)
     ref = jmarch.make_march_fn(vol32, algorithm=2, interpolation_scheme=2)(jr)
     _assert_close(fn(tr), ref)
-    for kw in (dict(algorithm=3), dict(algorithm=4), dict(record_steps=4)):
-        with pytest.raises(NotImplementedError, match="slice B"):
-            march.march_rays(vol, tr, **kw)
+    for algorithm in (3, 4):
+        with jax.disable_jit():
+            ref = jmarch.make_march_fn(vol32, algorithm=algorithm)(jr)
+        _assert_close(march.make_march_fn(vol, algorithm=algorithm)(tr), ref)
+    got, (gpos, gdir) = march.march_rays(vol, tr, record_steps=4)
+    ref, (rpos, rdir) = jmarch.march_rays(vol32, jr, record_steps=4)
+    _assert_close(got, ref)
+    assert gpos.shape == gdir.shape == (8, 4, 3)
+    for g, r, atol in ((gpos, rpos, POS_ATOL), (gdir, rdir, DIR_ATOL)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=atol)
     with pytest.raises(ValueError):
         march.march_rays(vol, tr, algorithm=5)
 

@@ -180,19 +180,45 @@ def test_from_reference_round_trips(case):
 
 @pytest.mark.parametrize("edit", ["save_lightrays", "rk45_exact",
                                   "ab4_exact"])
-def test_later_slices_raise(case, edit):
-    """The ray dumps, and RK45 / Adams-Bashforth on the exact path (a camera
-    rotated past 90 degrees with the case's volume), are slice B."""
+def test_later_slices_raise(case, edit, tmp_path):
+    """What slice B brought, against the JAX package's run_simulation on the
+    case: the ray dumps (the same files, the rays within the exact march's
+    0.1 um and 1e-6 on positions and directions) and RK45 / Adams-Bashforth
+    on the exact path (a camera rotated past 90 degrees with the case's
+    volume), the images within tests/test_fast.py's L1 1e-3 of the sum."""
     import copy
-    cfg = copy.deepcopy(case["torch_cfg"])
-    if edit == "save_lightrays":
-        cfg.output_data.save_lightrays = True
-    else:
-        cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
-        cfg.density_gradients.ray_tracing_algorithm = \
-            3 if edit == "rk45_exact" else 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*slice B"):
-        run_simulation(cfg, device="cpu")
+    from photon_tpu.pipeline import run_simulation as jax_run_simulation
+    pair = []
+    for side, cfg, run, kw in (
+            ("jax", case["jax_cfg"], jax_run_simulation, {}),
+            ("port", case["torch_cfg"], run_simulation,
+             dict(device="cpu"))):
+        cfg = copy.deepcopy(cfg)
+        if edit == "save_lightrays":
+            cfg.output_data.save_lightrays = True
+            cfg.output_data.image_directory = str(tmp_path / side)
+        else:
+            cfg.camera_design.x_camera_angle = 0.5 * np.pi + 0.1
+            cfg.density_gradients.ray_tracing_algorithm = \
+                3 if edit == "rk45_exact" else 4
+        pair.append(run(cfg, rng=np.random.default_rng(11), **kw))
+    ref, got = pair
+    for name in ref.raw_images:
+        l1 = rel_l1(got.raw_images[name], ref.raw_images[name])
+        print(f"{edit}, {name}: raw L1 {l1:.3g}")
+        assert l1 < 1e-3, l1
+    if edit != "save_lightrays":
+        return
+    jax_files = sorted(p.relative_to(tmp_path / "jax")
+                       for p in (tmp_path / "jax").rglob("*.bin"))
+    assert len(jax_files) == 4          # pos and dir of im1 and im2
+    for rel in jax_files:
+        a = np.fromfile(tmp_path / "port" / rel, np.float32).reshape(-1, 3)
+        b = np.fromfile(tmp_path / "jax" / rel, np.float32).reshape(-1, 3)
+        atol = 0.1 if rel.name.startswith("pos") else 1e-6
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=str(rel))
+    assert sorted(p.relative_to(tmp_path / "port") for p in
+                  (tmp_path / "port").rglob("*.bin")) == jax_files
 
 
 @pytest.mark.parametrize("edit", ["rotated", "rotated_y"])
