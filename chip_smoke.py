@@ -88,7 +88,14 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    ray of both images (60 files a directory), held against the CPU and,
    dot by dot, against the paraxial oracle, then 1000 rays with their
    per-step (intermediate) dumps;
-13. prints one JSON line describing the kernels and, last, one JSON line
+13. drives the bench scene through render_image_fast(mesh=...) (phase 13,
+   after phase 12 and the large volumes): the pair and one step of
+   invert_bos's loss in an NCCL world of this process alone against the
+   same without a mesh, then in a gloo world of two processes sharing the
+   card (each rank's launches held to its share of the particles, the
+   image and the gradient against the unsharded ones, the ms of a render
+   and of the image's all-reduce), then dryrun_multichip(1) on the card;
+14. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 ``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
@@ -96,7 +103,7 @@ runs the build, the splat's two kernels of item 2 (with the same spots also
 scattered over the sensor), and items 3 and 4; ``--configs-only`` runs the
 build and item 9 alone; ``--chain-only`` the build and item 10 alone;
 ``--exact-only`` the build and item 11 alone; ``--menu-only`` the build and
-item 12 alone.
+item 12 alone; ``--mesh-only`` the build and item 13 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -1196,6 +1203,272 @@ def menu_phase(env):
           f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: rendering across devices (photon_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+# the run-to-run limit of the pair (phase 3): float atomics in K3 move the
+# image by 3e-7..8e-7 of its maximum between two renders of the same inputs
+MESH_IMAGE_TOL = 1e-5
+
+
+def mesh_wrappers():
+    """The wrappers of the kernels a rank launches on phase 13's path."""
+    from photon_tpu_torch.ops.fan import fan_stats, fan_stats_backward
+    from photon_tpu_torch.ops.march_dense_fused import (
+        march_backward_remarch, march_backward_stage, march_chief_fused)
+    from photon_tpu_torch.ops.splat import splat_backward, splat_particles
+    return dict(march_dense=march_chief_fused,
+                march_bwd_stage=march_backward_stage,
+                march_bwd_remarch=march_backward_remarch,
+                fan_stats=fan_stats, fan_stats_bwd=fan_stats_backward,
+                splat=splat_particles, splat_bwd=splat_backward)
+
+
+def mesh_step(b, dev, target, mesh=None):
+    """invert_bos's first step on the bench scene from 80% of the ramp,
+    against ``target`` (numpy): ``(loss, d_rho)``, the renderer on ``mesh``
+    or on ``dev`` alone."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.inverse import volume_from_rho
+    from photon_tpu_torch.models.render_fast import render_image_fast
+
+    rho_true = b.rho.astype(np.float32)
+    rho_uniform = np.full_like(rho_true, b.cfg.density_gradients.rho_0)
+    rho0 = rho_uniform + 0.8 * (rho_true - rho_uniform)
+    rho_t = torch.as_tensor(rho0, device=dev).requires_grad_(True)
+    vol = volume_from_rho(rho_t, b.vol,
+                          b.cfg.density_gradients.gladstone_dale)
+    img = render_image_fast(b.cfg, b.setup, b.source, b.r1, b.r2, vol=vol,
+                            mesh=mesh,
+                            device=None if mesh is not None else dev)
+    loss = torch.mean((img - torch.as_tensor(target, device=dev)) ** 2)
+    (g,) = torch.autograd.grad(loss, rho_t)
+    return float(loss.detach()), g.cpu().numpy()
+
+
+def host_ms(fn, dev, reps):
+    """Median host-clock ms of fn(), the device synchronised around it."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fn()
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def mesh_work(dev, sizes, chunk, target, reps):
+    """One rank of phase 13's worlds (the parent's world of one too): the
+    bench scene at ``sizes`` (sensor, dots, rays) through
+    ``render_image_fast(mesh=make_mesh())``: the pair in chunks of ``chunk``
+    particles and invert_bos's first step against ``target``, each with the
+    launch counts of this rank's kernels; the ms of the mesh's im2 (median
+    of ``reps``) and of its all-reduce alone.  Returns host data."""
+    global BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS
+    BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS = sizes
+    import torch
+
+    from photon_tpu_torch.models.render_fast import render_image_fast
+    from photon_tpu_torch.parallel.shard import (make_mesh, mesh_place,
+                                                 shard_bounds, sum_over)
+
+    b = bench_inputs(dev)
+    mesh = make_mesh(device=dev)
+    rank, size, _ = mesh_place(mesh)
+    wrappers = mesh_wrappers()
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, {k: int(w.launches) for k, w in wrappers.items()}
+
+    def render(vol):
+        return render_image_fast(b.cfg, b.setup, b.source, b.r1, b.r2,
+                                 vol=vol, mesh=mesh,
+                                 particles_per_chunk=chunk)
+
+    im1, c1 = counted(lambda: render(None))
+    im2, c2 = counted(lambda: render(b.vol))
+    (loss, g), cs = counted(lambda: mesh_step(b, dev, target, mesh))
+    return dict(
+        rank=rank, size=size,
+        bounds=shard_bounds(b.source.num_particles, rank, size),
+        im1=im1.cpu().numpy(), im2=im2.cpu().numpy(), loss=loss, d_rho=g,
+        counts=dict(im1=c1, im2=c2, step=cs),
+        render_ms=host_ms(lambda: render(b.vol), dev, reps),
+        allreduce_ms=host_ms(lambda: sum_over(mesh, im2), dev, reps))
+
+
+def mesh_phase(env):
+    """Phase 13: the bench scene through render_image_fast(mesh=...).
+
+    (a) An NCCL world of this process alone (``make_mesh()``): the pair in
+    the pipeline's chunks and invert_bos's first step, against the same
+    without a mesh: the all-reduce of one rank returns its input bit for
+    bit; the images within MESH_IMAGE_TOL of the maximum (two renders
+    without a mesh differ by float atomics alone, printed beside), the
+    loss to 1e-6, d_rho to 1e-5 of its maximum; launch counts; the ms of
+    im2 with and without the mesh and of the all-reduce.  (b) A gloo world
+    of two processes sharing the card (``spawn_world(..., device=dev)``,
+    CUDA tensors through gloo; the kernels built in phase 1): each rank's
+    launches held to its share, the image within MESH_IMAGE_TOL of the
+    maximum of the unsharded one, d_rho at cosine 0.9999, the ms of each
+    rank's im2 and of the all-reduce.  (c) ``dryrun_multichip(1)`` on the
+    card (NCCL in a child process).
+
+    ``env``: dev, card, reps.  Returns the world of one's counts
+    (``{"im2": ..., "step": ...}``) for the kernels line.  Rehearse it on
+    the CPU with ``env.dev`` the CPU and ``BENCH_*`` lowered: the worlds are
+    then gloo worlds on the CPU and no launch is counted."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from photon_tpu_torch.models.render_fast import render_image_fast
+    from photon_tpu_torch.parallel.dryrun import dryrun_multichip, spawn_world
+    from photon_tpu_torch.parallel.shard import (make_mesh, shard_bounds,
+                                                 sum_over)
+    from photon_tpu_torch.pipeline import _ray_budget
+
+    t_phase = time.perf_counter()
+    dev, card, reps = env.dev, env.card, env.reps
+    on_card = dev.type == "cuda"
+    sizes = (BENCH_SENSOR, BENCH_DOTS, BENCH_RAYS)
+    b = bench_inputs(dev)
+    P = b.source.num_particles
+    chunk = max(1, _ray_budget(b.cfg) // BENCH_RAYS)
+    print(f"rendering across devices: render_image_fast(mesh=...) on the "
+          f"bench scene, {P} particles in chunks of {chunk}")
+
+    def render(vol):
+        return render_image_fast(b.cfg, b.setup, b.source, b.r1, b.r2,
+                                 vol=vol, particles_per_chunk=chunk,
+                                 device=dev)
+
+    ref1 = render(None).cpu().numpy()
+    ref2 = render(b.vol).cpu().numpy()
+    again = render(b.vol).cpu().numpy()
+    peak = float(np.abs(ref2).max())
+    run_to_run = float(np.abs(again - ref2).max()) / peak
+    loss_ref, g_ref = mesh_step(b, dev, ref2)
+
+    def cosine(a, c):
+        a, c = a.ravel().astype(np.float64), c.ravel().astype(np.float64)
+        return float(a @ c / (np.linalg.norm(a) * np.linalg.norm(c)))
+
+    def expect(n, part):
+        """The launches of a rank that renders ``n`` particles: the pair in
+        chunks, the step in one chunk."""
+        if part == "step":
+            return dict(march_dense=1, march_bwd_stage=1, march_bwd_remarch=0,
+                        fan_stats=1, fan_stats_bwd=1, splat=1, splat_bwd=1)
+        per = -(-n // chunk)
+        return dict(march_dense=int(part == "im2"), march_bwd_stage=0,
+                    march_bwd_remarch=0, fan_stats=per, fan_stats_bwd=0,
+                    splat=per, splat_bwd=0)
+
+    def hold_rank(label, r):
+        lo, hi = r["bounds"]
+        for part in ("im1", "im2", "step"):
+            want = expect(hi - lo, part)
+            print(f"    {label}, rank {r['rank']} of {r['size']} "
+                  f"(particles {lo}-{hi - 1}), {part}: launches "
+                  f"{r['counts'][part]}")
+            if on_card:
+                expect_counts(f"{label} rank {r['rank']} {part}",
+                              r["counts"][part], want)
+        for nm, ref in (("im1", ref1), ("im2", ref2)):
+            err = float(np.abs(r[nm] - ref).max()) / float(
+                np.abs(ref).max())
+            print(f"    {label}, rank {r['rank']}: {nm} against the render "
+                  f"without a mesh: {err:.3e} of the maximum (tolerance "
+                  f"{MESH_IMAGE_TOL:.0e}), {int((r[nm] != ref).sum())} "
+                  f"pixels differ")
+            require(np.isfinite(r[nm]).all() and err <= MESH_IMAGE_TOL,
+                    f"{label}: {nm} is {err} of the maximum from the render "
+                    f"without a mesh")
+        cos = cosine(r["d_rho"], g_ref)
+        rel = float(np.abs(r["d_rho"] - g_ref).max() / np.abs(g_ref).max())
+        print(f"    {label}, rank {r['rank']}: loss {r['loss']:.7g} "
+              f"against {loss_ref:.7g}; d_rho cosine {cos:.7f}, largest "
+              f"difference {rel:.3e} of the maximum; im2 in "
+              f"{r['render_ms']:.2f} ms, the all-reduce of one "
+              f"{r['im2'].nbytes / 1e6:.1f} MB image {r['allreduce_ms']:.3f} "
+              f"ms (median of {reps})  [{card}]")
+        require(np.isfinite(r["d_rho"]).all() and cos >= 0.9999,
+                f"{label}: d_rho cosine {cos}")
+        return rel
+
+    # (a) an NCCL world of this process alone
+    print(f"    two renders of im2 without a mesh differ by {run_to_run:.3e} "
+          f"of the maximum")
+    one = mesh_work(dev, sizes, chunk, ref2, reps)
+    mesh1 = make_mesh(device=dev)
+    x = torch.as_tensor(ref2, device=dev)
+    require(torch.equal(sum_over(mesh1, x), x),
+            "(a) the all-reduce of a world of one changed its input")
+    label = f"(a) {dist.get_backend()} world of one"
+    rel1 = hold_rank(label, one)
+    require(abs(one["loss"] - loss_ref) <= 1e-6 * loss_ref and rel1 <= 1e-5,
+            f"(a) the step differs from the step without a mesh: loss "
+            f"{one['loss']} against {loss_ref}, d_rho {rel1}")
+    # im2 without and with the mesh in turns (the chunk loop is host-bound,
+    # and the host drifts between readings taken apart)
+    turns = {"without": [], "with": []}
+    fns = {"without": lambda: render(b.vol),
+           "with": lambda: render_image_fast(
+               b.cfg, b.setup, b.source, b.r1, b.r2, vol=b.vol, mesh=mesh1,
+               particles_per_chunk=chunk)}
+    for k in range(2 * reps):
+        for name in (("without", "with") if k % 2 == 0
+                     else ("with", "without")):
+            turns[name].append(host_ms(fns[name], dev, 1))
+    print(f"    (a) im2 in turns, median of {2 * reps} each: "
+          f"{statistics.median(turns['with']):.2f} ms with the mesh "
+          f"(quartiles {np.percentile(turns['with'], 25):.2f}-"
+          f"{np.percentile(turns['with'], 75):.2f}), "
+          f"{statistics.median(turns['without']):.2f} ms without it "
+          f"({np.percentile(turns['without'], 25):.2f}-"
+          f"{np.percentile(turns['without'], 75):.2f})  [{card}]")
+    dist.destroy_process_group()
+
+    # (b) a gloo world of two processes sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn_world(mesh_work, 2, sizes, chunk, ref2, reps, device=dev)
+    print(f"    (b) gloo world of two on {dev}: spawned, ran and joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    require([r["bounds"] for r in ranks]
+            == [shard_bounds(P, i, 2) for i in range(2)],
+            "(b) the ranks' shares")
+    for r in ranks:
+        hold_rank("(b) gloo world of two", r)
+    for nm in ("im1", "im2", "d_rho"):
+        require(np.array_equal(ranks[0][nm], ranks[1][nm]),
+                f"(b) the ranks hold different {nm}")
+
+    # (c) the dry run on the card (NCCL), a child process
+    t0 = time.perf_counter()
+    res = dryrun_multichip(1, device=None if on_card else "cpu")
+    print(f"    (c) dryrun_multichip(1): {res} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"    phase 13 took {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]")
+    return one["counts"]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1231,6 +1504,13 @@ def main(argv=None) -> int:
                       "path's RK45, Adams-Bashforth, differentiable RK45 and "
                       "ray dumps at full size); it launches no kernel, so the "
                       "kernels line is empty")
+    only.add_argument("--mesh-only", action="store_true",
+                      help="after the build, run phase 13 alone (the bench "
+                      "pair and an inversion step through "
+                      "render_image_fast(mesh=...) in an NCCL world of one "
+                      "and a gloo world of two processes on the card, then "
+                      "dryrun_multichip(1)); its launch counts are printed "
+                      "per rank and the kernels line is empty")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3741,6 +4021,13 @@ def main(argv=None) -> int:
         menu(None)
         return finish([])
 
+    def mesh():
+        return mesh_phase(types.SimpleNamespace(dev=dev, card=card, reps=5))
+
+    if args.mesh_only:
+        mesh()
+        return finish([])
+
     whole = slice(0, P)
     first = slice(0, chunk)
     if not args.splat_only:
@@ -5246,6 +5533,19 @@ def main(argv=None) -> int:
     chain_phase(kernel_rows)
     menu(exact_phase())
     kernel_rows.extend(large_tier())
+    # phase 13: the world of one's launches of the main path's kernels, im2
+    # for the forward kernels and the step for the backward ones
+    mesh_counts = mesh()
+    where = dict(march_dense=("im2", "march_dense"),
+                 fan_stats=("im2", "fan_stats"), splat=("im2", "splat"),
+                 march_dense_residual=("step", "march_dense"),
+                 march_bwd_stage=("step", "march_bwd_stage"),
+                 fan_stats_bwd=("step", "fan_stats_bwd"),
+                 splat_bwd=("step", "splat_bwd"))
+    for row in kernel_rows:
+        if row["name"] in where:
+            part, key = where[row["name"]]
+            row["launches_mesh_world_of_one"] = mesh_counts[part][key]
     return finish(kernel_rows)
 
 

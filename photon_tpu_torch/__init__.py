@@ -11,7 +11,6 @@ launch, see ``kernels.py``).  Module and function names follow
                         the port's objects on a device
   device.py             the device rule (the card unless the caller says cpu)
   kernels.py            nvcc build + ctypes loading of csrc/*.cu
-  roadmap.py            the NotImplementedError of what later slices bring
   volume.py             DensityVolume, gradient precompute, NRRD ingest
   models/optics.py      camera / lens construction
   models/scenes.py      light-field sources: BOS dot patterns, PIV particle
@@ -47,6 +46,11 @@ launch, see ``kernels.py``).  Module and function names follow
                         save_result, routing each case to a renderer; the
                         ray dumps (save_lightrays)
   cli.py                batch command line
+  parallel/             multi-device rendering over torch.distributed, one
+                        process a device: make_mesh, multihost_init,
+                        render_image_fast(mesh=...)'s two collectives, the
+                        scaling harness (shard.py); the multi-device dry run
+                        (dryrun.py)
   utils/                NRRD, TIFF and PNG I/O, GlibcRand, phase timers,
                         ray_statistics
   analysis/             ray-dump loading, per-dot BOS displacements, the
@@ -58,7 +62,8 @@ the whole march menu on volumes of any size, PIV with Mie scattering and
 calibration grids, the per-ray chain (rotated cameras, the bilinear sensor,
 position noise), and the exact-semantics path (any lens train, dispersion,
 absorbance, gradient-index noise, cameras rotated past 90 degrees, the
-whole march menu, the ray dumps and their analysis).
+whole march menu, the ray dumps and their analysis), and rendering across
+devices (the particles split over a torch.distributed world).
 Nothing here imports ``jax`` or ``photon_tpu``.
 """
 

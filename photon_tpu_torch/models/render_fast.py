@@ -30,8 +30,8 @@ slab size marched with any integrator of the menu under trilinear or cubic
 B-spline interpolation.  A tilted or multi-element train and a camera
 rotated by 90 degrees or more with a volume raise ``NotImplementedError``:
 ``pipeline.can_use_fast_renderer`` sends them to the exact renderer
-(``models/render.py``).  A device mesh raises naming the ROADMAP.md item
-that brings it.
+(``models/render.py``).  With a device mesh (``parallel/shard.py``) each
+rank renders its share of the particles and one all-reduce sums the images.
 """
 from __future__ import annotations
 
@@ -56,7 +56,8 @@ from photon_tpu_torch.ops.march_dense import (check_march_options,
 from photon_tpu_torch.ops.march_fast import apply_chief_deltas
 from photon_tpu_torch.ops.sensor_fast import (bilinear_patch_splat,
                                               particle_splat, patch_splat)
-from photon_tpu_torch.roadmap import MULTI_DEVICE, later
+from photon_tpu_torch.parallel.shard import (mesh_place, replicated,
+                                             shard_bounds, sum_over)
 from photon_tpu_torch.volume import DensityVolume
 
 
@@ -273,6 +274,15 @@ def _chunk_normals(gen: torch.Generator, n: int, R: int) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The noise seed of a mesh rank: ``seed`` itself on rank 0 (so a mesh of
+    one renders as no mesh), a stream of its own on every other rank."""
+    if rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), rank]).generate_state(
+        1, np.uint64)[0])
+
+
 def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
                       source: LightfieldSource, r1, r2,
                       vol: Optional[DensityVolume] = None,
@@ -287,7 +297,8 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
                       noise_seed: Optional[int] = None,
                       dense_march: Optional[bool] = None,
                       march_substeps: Optional[int] = None,
-                      device: DeviceLike = None) -> torch.Tensor:
+                      device: DeviceLike = None,
+                      _mesh_reduce: bool = True) -> torch.Tensor:
     """Render the raw (ny, nx) float32 image with the (P, R) pipeline.
 
     ``r1``/``r2``: (R,) lens-aperture samples shared by all particles
@@ -315,14 +326,31 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     other (L1 2e-3 of the image sum; tests/test_torch_large_volume.py).
     ``device``: None is the CUDA device (raises without one); the tests
     pass "cpu".
+
+    ``mesh``: a 1-D ``DeviceMesh`` of ``parallel.shard.make_mesh``, and
+    every rank of it calls with the whole source.  Rank r of N renders the
+    particles ``[r P // N, (r + 1) P // N)`` on the mesh's device (``device``
+    may only name it) and returns the sum of the N images, on every rank;
+    under autograd the volume's field enters as replicated, so its gradient
+    is summed over the ranks too.  Algorithm 3 chooses its substeps from the
+    whole source's chief rays, alike on every rank; the position noise draws
+    ``noise_seed`` on rank 0 and a stream of its own on every other rank
+    (:func:`rank_seed`).  ``_mesh_reduce=False`` returns the rank's own
+    (1, ny, nx) image without the all-reduce (the scaling harness's
+    reference).
     """
+    rank = size = None
+    if mesh is not None:
+        rank, size, mesh_dev = mesh_place(mesh)
+        if device is not None and resolve_device(device) != mesh_dev:
+            raise ValueError(f"device {device}: this rank of the mesh renders "
+                             f"on {mesh_dev}")
+        device = mesh_dev
     dev = resolve_device(device)
     params = RenderParams.from_setup(cfg, setup, source)
     if not _axis_aligned(setup):
         raise NotImplementedError("fast path requires the axis-aligned "
                                   "single-lens train")
-    if mesh is not None:
-        raise later("rendering across devices (mesh)", MULTI_DEVICE)
     if params.lens_model not in ("apparent", "thin-lens", "general"):
         raise ValueError(f"unknown lens_model {params.lens_model!r}")
     if vol is not None:
@@ -365,6 +393,13 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     r1 = as_f32(r1, dev)
     r2 = as_f32(r2, dev)
     P, R = xs.shape[0], r1.shape[0]
+    if mesh is not None:
+        if P < size:
+            raise ValueError(f"{P} particles over a mesh of {size}: every "
+                             "rank needs one")
+        if vol is not None and vol.field.requires_grad \
+                and torch.is_grad_enabled():
+            vol = vol._replace(field=replicated(mesh, vol.field))
 
     st = setup.elements
     lens_params = (float(setup.z_lens), float(st.pitch[0]),
@@ -388,6 +423,11 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     if params.lens_model == "general":
         amp_scale = amp_scale * lens_params[6]          # transmission
     amp0 = rad * float(np.float32(amp_scale))
+    whole_xyz = (xs, ys, zs)
+    own = slice(None)
+    if mesh is not None:
+        own = slice(*shard_bounds(P, rank, size))
+        xs, ys, zs, amp0 = xs[own], ys[own], zs[own], amp0[own]
 
     # density march: per-particle chief deltas, computed once for all
     # particles; they chunk like any other per-particle array
@@ -397,7 +437,9 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
                     substeps=march_substeps)
     if vol is not None and chief_march:
         inv_rot = as_f32(setup.inverse_rotation_matrix, dev)
-        chief = _chief_geometry(xs, ys, zs, inv_rot, params.z_offset,
+        # the whole source's chief rays: on a mesh every rank probes them
+        # all for the substeps and marches its own
+        chief = _chief_geometry(*whole_xyz, inv_rot, params.z_offset,
                                 params.image_distance)
         if algorithm == 3 and march_substeps is None:
             # the substep count comes from the data (a Richardson estimate
@@ -408,7 +450,8 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
             if march_kw["substeps"] is None:
                 march_kw["substeps"] = _substep_cache[key] = choose_substeps(
                     vol, *chief, interpolation_scheme=interpolation_scheme)
-        deltas6 = chief_deltas_dense(vol, *chief, **march_kw)
+        deltas6 = chief_deltas_dense(
+            vol, *(c[own].contiguous() for c in chief), **march_kw)
 
     render_fraction = 1.0 if params.lens_model == "apparent" else 0.75
     splat_kw = dict(nx=params.nx, ny=params.ny, patch=patch)
@@ -420,7 +463,8 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     gen = noise_scale = None
     if params.add_pos_noise:
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(cfg.seed if noise_seed is None else noise_seed))
+        seed = int(cfg.seed if noise_seed is None else noise_seed)
+        gen.manual_seed(seed if mesh is None else rank_seed(seed, rank))
         # N(0, 1) * std * pixel_pitch on the sensor-plane intersection
         noise_scale = float(np.float32(params.pos_noise_std
                                        * params.pixel_pitch))
@@ -460,10 +504,15 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
         return render_chunk(slice(s, e), None if gen is None
                             else _chunk_normals(gen, e - s, R))
 
-    if particles_per_chunk is None or particles_per_chunk >= P:
-        return chunk_image(0, P)
-    pc = max(1, int(particles_per_chunk))
-    img = torch.zeros((params.ny, params.nx), dtype=torch.float32, device=dev)
-    for s in range(0, P, pc):
-        img += chunk_image(s, min(s + pc, P))             # in place
-    return img
+    n = xs.shape[0]                          # the rank's own on a mesh
+    if particles_per_chunk is None or particles_per_chunk >= n:
+        img = chunk_image(0, n)
+    else:
+        pc = max(1, int(particles_per_chunk))
+        img = torch.zeros((params.ny, params.nx), dtype=torch.float32,
+                          device=dev)
+        for s in range(0, n, pc):
+            img += chunk_image(s, min(s + pc, n))         # in place
+    if mesh is None:
+        return img
+    return sum_over(mesh, img) if _mesh_reduce else img[None]

@@ -177,7 +177,7 @@ def _opts(name):
         return camera_setup(cfg, assembly)
     match = {"camera rotated by 90 degrees or more": "render_image",
              "tilted train": "axis-aligned single-lens train",
-             "mesh": "ROADMAP.md"}[name]
+             "mesh": "DeviceMesh"}[name]
     return setup_of, {"mesh": dict(mesh=object())}.get(name, {}), match
 
 
@@ -185,12 +185,14 @@ def _opts(name):
     "camera rotated by 90 degrees or more", "tilted train", "mesh"])
 def test_unsupported_option_raises(general, option):
     """The first two belong to the exact renderer, where the pipeline sends
-    them (tests/test_torch_exact_render.py); a mesh is a later slice."""
+    them (tests/test_torch_exact_render.py); a mesh must be a DeviceMesh of
+    parallel.shard.make_mesh (tests/test_torch_shard.py renders on one)."""
     import copy
     cfg, _setup, src, r1, r2 = general["torch"]
     cfg = copy.deepcopy(cfg)
     setup_of, kw, match = _opts(option)
-    with pytest.raises(NotImplementedError, match=match):
+    error = TypeError if option == "mesh" else NotImplementedError
+    with pytest.raises(error, match=match):
         render_image_fast(cfg, setup_of(cfg), src, r1, r2,
                           vol=general["torch_vol"], device="cpu", **kw)
 
