@@ -16,7 +16,8 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    and the four backward kernels (march over the residual, march by
    re-marching, fan, splat transpose) against torch.autograd through the
    plain forward versions; the march kernels at both interpolation schemes,
-   and the per-stage slab sampler with its backward;
+   the per-stage slab sampler with its backward, and the stagewise march
+   (Adams-Bashforth, RK4 with substeps) with its backward;
 3. drives the rendering path once through the command line entry point
    (photon_tpu_torch.cli.main -> run_simulation -> run_bos -> save_result):
    the BOS image pair at 1024 x 1024, 1000 dots x ~100 source points,
@@ -31,13 +32,16 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
 5. drives the rest of the dense march's menu through the same entry points
    at the same size: the pair with tricubic interpolation and algorithm 3
    (the prefilter, choose_substeps, the cubic march kernel) and the pair with
-   Adams-Bashforth (the per-stage route over the sampler kernel); launch
-   counts, im2 against a render through the plain versions;
+   Adams-Bashforth (the stagewise march kernel); launch counts, im2 against
+   a render through the plain versions, the Adams-Bashforth pair and the
+   same through the per-stage route (the sampler kernel) in turns;
 6. takes one forward and backward of invert_bos's render loss through each
-   new gradient route at full size (RK4 with substeps and Adams-Bashforth
-   over the sampler kernels; tricubic RK4 over the cubic march kernels, by
+   other gradient route at full size (RK4 with substeps and Adams-Bashforth
+   over the stagewise kernels, and over the sampler kernels with the
+   residual's budget at 0; tricubic RK4 over the cubic march kernels, by
    stage residual and by re-march) and holds each d_rho against the plain
-   versions at every tenth particle;
+   versions at every tenth particle; the stagewise and per-stage steps in
+   turns;
 7. holds the same march kernels on volumes whose slab exceeds 256 x 256
    voxels (phase 2j: the counterpart of the TPU's windowed march and its
    backward): random 320 x 224 x 6 and 140 x 116 x 8 volumes with rays that
@@ -49,11 +53,13 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    pair;
 8. drives such volumes through the entry points (phase 7: the pair through
    the command line on a 288 x 288 x 64 NRRD; render_image_fast through the
-   512^3 volume with RK4, tricubic RK4 and Adams-Bashforth) and
-   differentiates through them (phase 8: one forward and backward of
-   mean(img^2) with respect to the 512^3 field by stage residual and by
-   re-march, with Adams-Bashforth and with tricubic interpolation; two steps
-   of invert_bos on the 512^3 density grid), with launch counts per tier and
+   512^3 volume with RK4, tricubic RK4 and Adams-Bashforth, the last also
+   through the per-stage route in turns) and differentiates through them
+   (phase 8: one forward and backward of mean(img^2) with respect to the
+   512^3 field by stage residual and by re-march, with Adams-Bashforth by
+   the stagewise kernels and, in turns, by the per-stage route, and with
+   tricubic interpolation; two steps of invert_bos on the 512^3 density
+   grid), with launch counts per tier and
    peak device memory;
 9. drives the PIV and calibration configurations through the command line
    (phase 9, before the large volumes): the CLI's PIV sample (1024 x 1024,
@@ -130,6 +136,9 @@ H100_BYTES_PER_S = 3.35e12    # published HBM3 rate, SXM part
 # formulas in the kernels' sources, per unit of work
 MARCH_OPS_PER_RHS = 100       # coordinates 15, weights 10, 8-voxel blend 68, rhs 7
 MARCH_OPS_PER_RK4_COMBINE = 65
+# an Adams-Bashforth step's combination: h / 24, and a component's four
+# products, three sums, the product by h / 24 and the add
+AB4_OPS_PER_STEP = 1 + 5 * 9
 FAN_OPS_PER_PAIR = {"general": 200, "thin-lens": 90, "apparent": 70}
 FAN_OPS_MARCH = 25
 # the splat's weights are separable: a spot needs one erff (~20) a row and
@@ -379,6 +388,19 @@ def ptxas_lines(procs, nvcc):
             out = [(n, re.sub(r"'(_Z\w+)'",
                               lambda m: "'" + table[m.group(1)] + "'", line))
                    for n, line in out]
+    return out
+
+
+def ptxas_stagewise(report):
+    """The lines of ptxas_lines's report that belong to the stagewise
+    kernels: each one's entry line and the lines after it up to the next
+    entry."""
+    out, keep = [], False
+    for src, line in report:
+        if line.startswith("Compiling") or "Compiling entry" in line:
+            keep = "stagewise" in line
+        if keep:
+            out.append((src, line))
     return out
 
 
@@ -778,6 +800,31 @@ def subset(src, sel):
     return dataclasses.replace(
         src, x=src.x[sel], y=src.y[sel], z=src.z[sel],
         radiance=src.radiance[sel], diameter_index=src.diameter_index[sel])
+
+
+@contextlib.contextmanager
+def per_stage_route():
+    """The fast renderer's chief-ray march through
+    ``march_chief_per_stage`` (the sampler kernels once a stage: the route
+    of Adams-Bashforth before the stagewise kernels), for a comparison in
+    turns: render_fast's ``chief_deltas_dense`` swapped for the same deltas
+    over that march."""
+    from photon_tpu_torch.models import render_fast
+    from photon_tpu_torch.ops.march_dense import march_chief_per_stage
+    saved = render_fast.chief_deltas_dense
+
+    def deltas(vol, xs, ys, zs, dcx, dcy, dcz, **kw):
+        x1, y1, z1, dx1, dy1, dz1 = march_chief_per_stage(
+            vol, xs, ys, zs, dcx, dcy, dcz, **kw)
+        t = (z1 - zs) / dcz
+        return (z1, x1 - (xs + dcx * t), y1 - (ys + dcy * t),
+                dx1 - dcx, dy1 - dcy, dz1 - dcz)
+
+    render_fast.chief_deltas_dense = deltas
+    try:
+        yield
+    finally:
+        render_fast.chief_deltas_dense = saved
 
 
 def rel_l1(a, b):
@@ -1537,10 +1584,12 @@ def main(argv=None) -> int:
     from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
                                                   chief_deltas_dense,
                                                   march_chief_dense,
+                                                  march_chief_per_stage,
                                                   march_geometry)
     from photon_tpu_torch.ops.march_dense_fused import (
-        march_backward_remarch, march_backward_stage, march_chief_fused,
-        march_forward_residual)
+        march_backward_remarch, march_backward_stage,
+        march_backward_stagewise, march_chief_fused, march_forward_residual,
+        march_forward_stagewise)
     from photon_tpu_torch.ops.march_dense_sampler import (
         slab_sample_backward, slab_sample_forward, slab_sample_plain)
     from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
@@ -1570,7 +1619,8 @@ def main(argv=None) -> int:
               f"{os.path.basename(kernels.nvcc_path())} in "
               f"{kernels.build_seconds:.1f} s: "
               f"{', '.join(sorted(kernels.SIGNATURES))}")
-        for name, line in ptxas_lines(reports, kernels.nvcc_path()):
+        ptxas_report = ptxas_lines(reports, kernels.nvcc_path())
+        for name, line in ptxas_report:
             print(f"    ptxas, {name}: {line}")
         issue = sass_issue(cubin_dir, kernels.nvcc_path())
     clock_mhz = float(subprocess.run(
@@ -1602,6 +1652,8 @@ def main(argv=None) -> int:
         "march_bwd_remarch_kernel": march_backward_remarch,
         "slab_sample_kernel": slab_sample_forward,
         "slab_sample_bwd_kernel": slab_sample_backward,
+        "march_stagewise_kernel": march_forward_stagewise,
+        "march_stagewise_bwd_kernel": march_backward_stagewise,
         "fan_stats_kernel": fan_stats,
         "fan_stats_bwd_kernel": fan_stats_backward,
         "splat_kernel": splat_particles, "splat_bwd_kernel": splat_backward}
@@ -1776,7 +1828,8 @@ def main(argv=None) -> int:
     def nerr(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
-    def march_grads(fn, v, rays, cts, alg, scheme=1, ray_slice=None):
+    def march_grads(fn, v, rays, cts, alg, scheme=1, ray_slice=None,
+                    substeps=None):
         """Gradients of the march with respect to the field and the rays;
         `ray_slice` rays at a time (the field's sums over the slices, the
         rays' concatenate), which bounds the graph of the plain cubic
@@ -1788,7 +1841,7 @@ def main(argv=None) -> int:
             fld = v.field.detach().clone().requires_grad_(True)
             rr = [r[sl].detach().clone().requires_grad_(True) for r in rays]
             outs = fn(v._replace(field=fld), *rr, algorithm=alg,
-                      interpolation_scheme=scheme)
+                      interpolation_scheme=scheme, substeps=substeps)
             g = torch.autograd.grad(outs, [fld] + rr,
                                     grad_outputs=[c[sl] for c in cts])
             d_fld = g[0] if d_fld is None else d_fld + g[0]
@@ -1954,12 +2007,15 @@ def main(argv=None) -> int:
         wrappers = dict(
             march=march_chief_fused, march_bwd_stage=march_backward_stage,
             march_bwd_remarch=march_backward_remarch,
+            march_stagewise=march_forward_stagewise,
+            march_stagewise_bwd=march_backward_stagewise,
             slab_sample=slab_sample_forward,
             slab_sample_bwd=slab_sample_backward, fan_stats=fan_stats,
             fan_stats_bwd=fan_stats_backward, splat=splat_particles,
             splat_bwd=splat_backward)
         tiered = ("march", "march_bwd_stage", "march_bwd_remarch",
-                  "slab_sample", "slab_sample_bwd")
+                  "march_stagewise", "march_stagewise_bwd", "slab_sample",
+                  "slab_sample_bwd")
 
         def counted(fn):
             """fn's result, the launches of every wrapper during it, and of
@@ -2161,6 +2217,35 @@ def main(argv=None) -> int:
         require(float((got5[3] - chief[3]).abs().max()) > 1e-6,
                 "the 512^3 volume does not bend the rays")
         del ref5
+        # the stagewise march (Adams-Bashforth) through the same volume: one
+        # launch for all 511 slabs, against the plain march; event time, and
+        # device time from a trace of ten launches
+        sw5, _, _ = march_forward_stagewise(vol5.field, chief, gnp5, 4, 1, 1)
+        sync()
+        ref5 = torch.stack(march_chief_dense(vol5, *chief, algorithm=4))
+        pe, de = march_err(sw5, ref5)
+        sw5_err = max(pe / scale5, de)
+        hold(f"stagewise Adams-Bashforth {P} rays, {n5}^3 (normalised)",
+             sw5_err, K1_TOL)
+        del ref5, sw5
+        sw5_ms = time_ms(lambda: march_forward_stagewise(
+            vol5.field, chief, gnp5, 4, 1, 1))
+        sw5r_ms = time_ms(lambda: march_forward_stagewise(
+            vol5.field, chief, gnp5, 4, 1, 1, save_residual=True))
+        _, held_sw5 = traced(lambda: [march_forward_stagewise(
+            vol5.field, chief, gnp5, 4, 1, 1) for _ in range(10)])
+        h5 = held_sw5.get("march_stagewise_kernel", NOT_MEASURED)
+        sw5_dev = h5 if h5 == NOT_MEASURED else h5[0] / h5[1]
+        print(f"    stagewise Adams-Bashforth through {n5}^3: time "
+              f"{sw5_ms:.4f} ms (with the {steps5 * 20 / 1e9:.2f} GB "
+              f"residual {sw5r_ms:.4f} ms), device {ms_or_not(sw5_dev, 4)} "
+              f"a launch  [{card}]")
+        for row in kernel_rows:
+            if row["name"] == "march_stagewise":
+                row["large"] = dict(
+                    shape=f"{P} rays, {n5}^3 field, Adams-Bashforth, "
+                    f"trilinear", max_abs_err=sw5_err, ms=sw5_ms,
+                    residual_ms=sw5r_ms, device_ms=sw5_dev)
 
         rays6 = torch.stack(chief).contiguous()
         (out_t, texit5, traj5), traj_gb = with_peak(
@@ -2574,6 +2659,7 @@ def main(argv=None) -> int:
                   + (f"; substeps chosen {chosen}" if alg == 3 else ""))
             expect_counts(label, counts_m, dict(
                 march=n_march, march_bwd_stage=0, march_bwd_remarch=0,
+                march_stagewise=0, march_stagewise_bwd=0,
                 slab_sample=0, slab_sample_bwd=0, fan_stats=2 * n_chunks,
                 splat=2 * n_chunks))
             expect_counts(label + " (large tier)", large_m,
@@ -2614,11 +2700,12 @@ def main(argv=None) -> int:
         n_s5 = n5 - 1
         for label, kw, plain_kw, want, reps in (
                 ("RK4, trilinear", {}, dict(algorithm=2),
-                 dict(march=1, slab_sample=0), 3),
+                 dict(march=1, march_stagewise=0, slab_sample=0), 3),
                 ("RK4, tricubic", dict(interpolation_scheme=2),
-                 dict(algorithm=2, scheme=2), dict(march=1, slab_sample=0), 2),
+                 dict(algorithm=2, scheme=2),
+                 dict(march=1, march_stagewise=0, slab_sample=0), 2),
                 ("Adams-Bashforth", dict(algorithm=4), dict(algorithm=4),
-                 dict(march=0, slab_sample=4 * n_s5), 2)):
+                 dict(march=0, march_stagewise=1, slab_sample=0), 2)):
             ((img5, counts5, large5), peak5) = with_peak(
                 lambda: counted(lambda: render5(**kw)))
             secs5 = timed(lambda: render5(**kw), reps)
@@ -2632,7 +2719,7 @@ def main(argv=None) -> int:
                   f"{l1_5:.3e} of the sum (tolerance 1.0e-03)  [{card}]")
             expect_counts(label, counts5, dict(
                 fan_stats=1, splat=1, march_bwd_stage=0, march_bwd_remarch=0,
-                slab_sample_bwd=0, **want))
+                march_stagewise_bwd=0, slab_sample_bwd=0, **want))
             expect_counts(label + " (large tier)", large5, want)
             require(bool(torch.isfinite(img5).all()) and l1_5 < 1e-3,
                     f"{label}: the 512^3 image is {l1_5} (L1) from the plain "
@@ -2655,8 +2742,37 @@ def main(argv=None) -> int:
         on_render = f"render_image_fast through the {n5}^3 volume"
         rows[0]["launches"] = menu5["RK4, trilinear"]["counts"]["march"]
         rows[0]["launches_on"] = on_render + ", RK4, one chunk"
-        rows[3]["launches"] = menu5["Adams-Bashforth"]["counts"]["slab_sample"]
-        rows[3]["launches_on"] = on_render + ", Adams-Bashforth"
+        for row in kernel_rows:
+            if row["name"] == "march_stagewise":
+                row["launches_large"] = menu5["Adams-Bashforth"]["counts"][
+                    "march_stagewise"]
+                row["launches_large_on"] = on_render + ", Adams-Bashforth"
+        # the Adams-Bashforth render through the stagewise kernel and through
+        # the per-stage route (K8 once a stage, 2,044 launches) in turns
+        turns5 = {"stagewise": [], "per-stage": []}
+        imgs5 = []
+        for route in ("per-stage", "stagewise", "stagewise", "per-stage"):
+            ctx = (per_stage_route() if route == "per-stage"
+                   else contextlib.nullcontext())
+            with ctx:
+                sync()
+                ta = time.perf_counter()
+                img_t = render5(algorithm=4)
+                sync()
+                turns5[route].append(time.perf_counter() - ta)
+            if route == "stagewise":
+                imgs5.append(img_t)
+            del img_t
+        rr5 = float((imgs5[0] - imgs5[1]).abs().max() / imgs5[0].abs().max())
+        del imgs5
+        print(f"    render_image_fast through {n5}^3 with Adams-Bashforth in "
+              f"turns: " + "; ".join(
+                  f"{route} " + ", ".join(f"{v:.4f}" for v in runs) + " s"
+                  for route, runs in turns5.items()) + f"; two stagewise "
+              f"renders differ by {rr5:.3e} of the maximum (bound 1.0e-05)  "
+              f"[{card}]")
+        require(rr5 <= 1e-5, f"two Adams-Bashforth renders through {n5}^3 "
+                f"differ by {rr5}")
 
         # --------------------------------------------------------------
         # phase 8: gradients at 512^3
@@ -2752,29 +2868,75 @@ def main(argv=None) -> int:
         if got_ms != NOT_MEASURED:
             rows[0]["residual_head"]["device_ms_on_main_path"] = got_ms
 
-        # the per-stage route at this size: Adams-Bashforth under autograd
-        # (K8 and K9 on 512 x 512 slabs), held against the RK4 gradient here
-        # and against the plain versions on the 288 x 288 x 64 volume
+        # Adams-Bashforth under autograd at this size: the stagewise kernels
+        # (a 1.23 GB residual), held against the RK4 gradient here and
+        # against the plain versions on the 288 x 288 x 64 volume, and the
+        # per-stage route with the residual's budget at 0 (K8 and K9 on
+        # 512 x 512 slabs), in turns: per-stage, stagewise, stagewise,
+        # per-stage
+        # (peaks beside what the run holds before each step: the RK4
+        # gradient g_k, and before the second the per-stage one)
+        before_p = torch.cuda.memory_allocated(dev) / 1e9
+        ((res_p, counts_p, large_p), peak_p) = with_budget(0, lambda: with_peak(
+            lambda: counted(lambda: field_step(algorithm=4))))
+        expect_counts("Adams-Bashforth step, residual budget 0", large_p, dict(
+            march=0, march_stagewise=0, march_stagewise_bwd=0,
+            slab_sample=4 * n_s5, slab_sample_bwd=4 * n_s5))
+        before_a = torch.cuda.memory_allocated(dev) / 1e9
         ((res_a, counts_a, large_a), peak_a) = with_peak(
             lambda: counted(lambda: field_step(algorithm=4)))
-        cos_a = cosine(res_a[1], g_k)
+        expect_counts("Adams-Bashforth step", large_a, dict(
+            march=0, march_stagewise=1, march_stagewise_bwd=1, slab_sample=0,
+            slab_sample_bwd=0))
+        cos_ap = cosine(res_a[1], res_p[1])
+        res_p = res_p[2:]               # the times; the gradient can go
+        res_a2 = field_step(algorithm=4)[2:]
+        res_p2 = with_budget(0, lambda: field_step(algorithm=4))[2:]
+        print(f"    one step with Adams-Bashforth in turns, forward + "
+              f"backward: per-stage {res_p[0] * 1e3:.0f} + "
+              f"{res_p[1] * 1e3:.0f} ms, stagewise {res_a[2] * 1e3:.2f} + "
+              f"{res_a[3] * 1e3:.2f} ms, stagewise {res_a2[0] * 1e3:.2f} + "
+              f"{res_a2[1] * 1e3:.2f} ms, per-stage {res_p2[0] * 1e3:.0f} + "
+              f"{res_p2[1] * 1e3:.0f} ms; peak device memory per-stage "
+              f"{peak_p:.2f} GB ({before_p:.2f} GB held before the step), "
+              f"stagewise {peak_a:.2f} GB ({before_a:.2f} GB held before); "
+              f"launches "
+              f"{counts_a}, large tier {large_a}; per-stage {counts_p}  "
+              f"[{card}]")
         _, g_a10, _, _ = field_step(src=sub_src, algorithm=4)
         cos_a10 = cosine(g_a10, g_k)
-        print(f"    one step with Adams-Bashforth: launches {counts_a}, "
-              f"large tier {large_a}; forward {res_a[2] * 1e3:.0f} ms, "
-              f"backward {res_a[3] * 1e3:.0f} ms (one step); peak device "
-              f"memory {peak_a:.2f} GB; d_field at every tenth particle "
-              f"against the RK4 kernels' cosine {cos_a10:.7f}  [{card}]")
-        expect_counts("Adams-Bashforth step", large_a, dict(
-            march=0, slab_sample=4 * n_s5, slab_sample_bwd=4 * n_s5))
+        print(f"    Adams-Bashforth d_field: stagewise against per-stage "
+              f"cosine {cos_ap:.7f}; at every tenth particle against the RK4 "
+              f"kernels' cosine {cos_a10:.7f}")
         require(cos_a10 >= 0.999 and bool(torch.isfinite(res_a[1]).all()),
                 f"Adams-Bashforth d_field: cosine {cos_a10} against RK4's")
-        rows[4]["launches"] = large_a["slab_sample_bwd"]
-        rows[4]["launches_on"] = (
-            f"one forward + backward of mean(img^2) with respect to the "
-            f"{n5}^3 field with Adams-Bashforth")
-        rows[3]["launches_gradient_step"] = large_a["slab_sample"]
-        del res_a, g_a10, g_k, cos_a
+        require(cos_ap >= 0.9999, f"Adams-Bashforth d_field: cosine "
+                f"{cos_ap} between the stagewise and the per-stage route")
+        dev_a, held_a5 = traced(lambda: field_step(algorithm=4))
+        print(f"    traced Adams-Bashforth step: device "
+              f"{ms_or_not(dev_a, 2)} in all; " + ", ".join(
+                  f"{k} {ms_or_not(v if v == NOT_MEASURED else v[0])}"
+                  for k, v in held_a5.items()) + f"  [{card}]")
+        over5 = (f"one forward + backward of mean(img^2) with respect to the "
+                 f"{n5}^3 field with Adams-Bashforth, the residual over its "
+                 f"budget")
+        rows[3]["launches"], rows[3]["launches_on"] = (
+            large_p["slab_sample"], over5)
+        rows[4]["launches"], rows[4]["launches_on"] = (
+            large_p["slab_sample_bwd"], over5)
+        for row in kernel_rows:
+            for nm, tag in (("march_stagewise", "march_stagewise_kernel"),
+                            ("march_stagewise_bwd",
+                             "march_stagewise_bwd_kernel")):
+                if row["name"] != nm:
+                    continue
+                key = "launches_large" if nm == "march_stagewise_bwd" else \
+                    "launches_large_gradient_step"
+                row[key] = large_a[nm]
+                got_h = held_a5.get(tag, NOT_MEASURED)
+                row["device_ms_large_gradient_step"] = (
+                    got_h if got_h == NOT_MEASURED else got_h[0])
+        del res_a, res_a2, g_a10, g_k
         vol288 = build_density_volume(rho288, spac288, orig288, device=dev)
 
         def step288(render):
@@ -2783,17 +2945,27 @@ def main(argv=None) -> int:
             (g,) = torch.autograd.grad(torch.mean(img * img), fld)
             return g
 
-        g_a = step288(lambda v: render_image_fast(
-            cfg, setup, sub_src, r1, r2, vol=v, algorithm=4, device=dev))
         g_ap = step288(lambda v: plain_render(v, tenth, algorithm=4))
-        cos_288 = cosine(g_a, g_ap)
-        print(f"    Adams-Bashforth d_field on the {n_l} x {n_l} x {n_z} "
-              f"volume at every tenth particle against the plain versions: "
-              f"cosine {cos_288:.7f}, relative L2 "
-              f"{float((g_a - g_ap).norm() / g_ap.norm()):.3e}")
-        require(cos_288 >= 0.9999, f"Adams-Bashforth d_field: cosine "
-                f"{cos_288} against the plain versions")
-        del vol288, g_a, g_ap
+        for route, budget in (("stagewise", None),
+                              ("per-stage (residual budget 0)", 0)):
+            run = (lambda f: f()) if budget is None else \
+                (lambda f: with_budget(0, f))
+            g_a, counts_288, _ = run(lambda: counted(lambda: step288(
+                lambda v: render_image_fast(cfg, setup, sub_src, r1, r2,
+                                            vol=v, algorithm=4, device=dev))))
+            cos_288 = cosine(g_a, g_ap)
+            print(f"    Adams-Bashforth d_field on the {n_l} x {n_l} x "
+                  f"{n_z} volume at every tenth particle, {route}, against "
+                  f"the plain versions: cosine {cos_288:.7f}, relative L2 "
+                  f"{float((g_a - g_ap).norm() / g_ap.norm()):.3e}; "
+                  f"launches {counts_288}")
+            require(cos_288 >= 0.9999, f"Adams-Bashforth d_field ({route}): "
+                    f"cosine {cos_288} against the plain versions")
+            require((counts_288["march_stagewise_bwd"] == 1) == (budget is None)
+                    and (counts_288["slab_sample_bwd"] > 0) == (budget == 0),
+                    f"Adams-Bashforth step ({route}): launches {counts_288}")
+            del g_a
+        del vol288, g_ap
 
         # one tricubic step: the prefilter under autograd, K1 and K4 cubic
         ((res_c, counts_c, large_c), peak_c) = with_peak(
@@ -4996,6 +5168,210 @@ def main(argv=None) -> int:
                            max_abs_err=c2[err_key], ms=c2[key + "_ms"],
                            plain_ms=c2[key + "_plain_ms"],
                            bound_ms=c2[key + "_bound"], library_ms=None)))
+
+        # ------------------------------------------------------------------
+        # phase 2i (continued): the stagewise march and its backward, which
+        # take K8 / K9's place on the routes of Adams-Bashforth and of RK4
+        # with substeps under autograd
+        # ------------------------------------------------------------------
+        print("stagewise march (csrc/march_dense.cu) and its backward "
+              "(csrc/march_bwd.cu) against the plain march and autograd "
+              "through it")
+        for src_, line in ptxas_stagewise(ptxas_report):
+            print(f"    ptxas, {src_}: {line}")
+        # this run's work: each ray's in-band slab steps, of them the
+        # Adams-Bashforth bootstrap's RK4 steps (a ray's first three)
+        n_ray = ((z_entry[:, None] > planes[None, :])
+                 & inside[:, None]).sum(1)
+        boot_steps = int(n_ray.clamp(max=3).sum())
+        sw_ss = 2                       # the substeps of the algorithm-3 case
+        per_rhs = {1: MARCH_OPS_PER_RHS, 2: MARCH_OPS_PER_RHS_CUBIC}
+        per_vjp = {1: MARCH_VJP_OPS_PER_STAGE, 2: MARCH_VJP_OPS_PER_STAGE_CUBIC}
+
+        def sw_bounds(alg, scheme):
+            """(forward ops, backward ops) of this run's rays: the forward's
+            samples and combinations; the backward's stage VJPs, the
+            combinations' VJPs and the stages it rebuilds from the entry
+            states (a bootstrap step's k1..k3; every substep's four)."""
+            if alg == 4:
+                fwd = ((steps + 3 * boot_steps) * per_rhs[scheme]
+                       + (steps - boot_steps) * AB4_OPS_PER_STEP
+                       + boot_steps * MARCH_OPS_PER_RK4_COMBINE)
+                bwd = ((steps + 3 * boot_steps) * per_vjp[scheme]
+                       + boot_steps * (MARCH_VJP_OPS_PER_COMBINE
+                                       + 3 * per_rhs[scheme])
+                       + (steps - boot_steps) * AB4_OPS_PER_STEP)
+            else:
+                fwd = steps * sw_ss * (4 * per_rhs[scheme]
+                                       + MARCH_OPS_PER_RK4_COMBINE)
+                bwd = steps * sw_ss * (4 * per_vjp[scheme]
+                                       + MARCH_VJP_OPS_PER_COMBINE) + fwd
+            return fwd, bwd
+
+        sw_res_bytes = steps * 5 * 4
+        sw = {}
+        for scheme in (1, 2):
+            fld_s = coeff if scheme == 2 else vol.field
+            for alg, ss in ((4, 1), (3, sw_ss)):
+                label = ("Adams-Bashforth" if alg == 4 else
+                         f"RK4 x {ss} substeps") + (", tricubic" if scheme == 2
+                                                    else "")
+                got_s, _, _ = march_forward_stagewise(fld_s, chief, gnp, alg,
+                                                      ss, scheme)
+                sync()
+                ref_s = torch.stack(march_chief_dense(
+                    vol, *chief, algorithm=alg, substeps=ss,
+                    interpolation_scheme=scheme))
+                pe, de = march_err(got_s, ref_s)
+                e_s = max(pe / scale, de)
+                hold(f"stagewise {label}, {P} rays (normalised)", e_s, K1_TOL)
+                out_r, texit_s, traj_s = march_forward_stagewise(
+                    fld_s, chief, gnp, alg, ss, scheme, save_residual=True)
+                sync()
+                hold(f"stagewise {label}: values the residual head changes",
+                     float((out_r != got_s).sum()), 0.0)
+                ops_f, ops_b = sw_bounds(alg, scheme)
+                c = dict(err=e_s, fld=fld_s, texit=texit_s, traj=traj_s,
+                         label=label)
+                c["ms"] = time_ms(lambda: march_forward_stagewise(
+                    fld_s, chief, gnp, alg, ss, scheme))
+                c["res_ms"] = time_ms(lambda: march_forward_stagewise(
+                    fld_s, chief, gnp, alg, ss, scheme, save_residual=True))
+                c["plain_ms"] = time_ms(lambda: march_chief_dense(
+                    vol, *chief, algorithm=alg, substeps=ss,
+                    interpolation_scheme=scheme), reps=3, warm=1)
+                c["bound"], c["by"] = bound_ms(12 * P * 4 + field_bytes, ops_f)
+                c["res_bound"], c["res_by"] = bound_ms(
+                    15 * P * 4 + field_bytes + sw_res_bytes, ops_f)
+                ct6_s = torch.randn(6, P, generator=gen, device=dev)
+                c["bwd"] = lambda a=(fld_s, rays6, texit_s, traj_s, ct6_s,
+                                     gnp, alg, ss, scheme): \
+                    march_backward_stagewise(*a)
+                c["bwd_ms"] = time_ms(c["bwd"], reps=5, warm=1)
+                c["bwd_bound"], c["bwd_by"] = bound_ms(
+                    sw_res_bytes + 21 * P * 4 + 2 * field_bytes, ops_b)
+                sw[(scheme, alg)] = c
+                print(f"    {label}: time {c['ms']:.4f} ms (with the "
+                      f"residual {c['res_ms']:.4f} ms)  plain "
+                      f"{c['plain_ms']:.2f} ms  bound {c['bound']:.4f} ms "
+                      f"({c['by']}; with the residual {c['res_bound']:.4f} "
+                      f"ms, {c['res_by']}, {sw_res_bytes / 1e6:.1f} MB "
+                      f"written); backward {c['bwd_ms']:.4f} ms  bound "
+                      f"{c['bwd_bound']:.4f} ms ({c['bwd_by']})  [{card}]")
+        # the backward against autograd through the plain march: the limits
+        # of K4 (d_field to MARCH_FIELD_TOL of its maximum, the rays'
+        # cotangents to MARCH_STATE_TOL of theirs); one launch each way and
+        # no sampler launch on these routes
+        for v, rays_, alg, scheme, ss, vname, rs in (
+                (vol, chief, 4, 1, 1, "bench 64^3", 60000),
+                (vol, chief, 3, 1, sw_ss, "bench 64^3", 40000),
+                (vol, chief, 4, 2, 1, "bench 64^3", 30000),
+                (vol_rand, rand_rays, 4, 1, 1, "random 12^3", 60000),
+                (vol_rand, rand_rays, 3, 2, 3, "random 12^3", 30000)):
+            label = (("Adams-Bashforth" if alg == 4 else
+                      f"RK4 x {ss} substeps")
+                     + (", tricubic" if scheme == 2 else "") + f", {vname}")
+            cts_s = [torch.randn(P, generator=gen, device=dev) * sc_
+                     for sc_ in (1.0, 1.0, 1.0, 1e5, 1e5, 1e5)]
+            for w_ in counters.values():
+                w_.launches = 0
+            g_s = march_grads(march_chief_fused, v, rays_, cts_s, alg, scheme,
+                              substeps=ss)
+            sync()
+            got_n = (march_forward_stagewise.launches,
+                     march_backward_stagewise.launches,
+                     slab_sample_forward.launches,
+                     slab_sample_backward.launches)
+            require(got_n == (1, 1, 0, 0), f"stagewise {label}: launches "
+                    f"{got_n} of the stagewise forward and backward and of "
+                    f"K8 / K9, expected (1, 1, 0, 0)")
+            g_p = march_grads(march_chief_dense, v, rays_, cts_s, alg, scheme,
+                              ray_slice=rs, substeps=ss)
+            e_f = nerr(g_s[0], g_p[0])
+            e_r = max(nerr(a, b) for a, b in zip(g_s[1:], g_p[1:]))
+            hold(f"stagewise backward {label}: d_field (of its maximum)", e_f,
+                 MARCH_FIELD_TOL)
+            hold(f"stagewise backward {label}: cotangents of the rays (of "
+                 f"their maxima)", e_r, MARCH_STATE_TOL)
+            if v is vol and (scheme, alg) in sw:
+                sw[(scheme, alg)]["bwd_err"] = (e_f, e_r)
+            del g_s, g_p
+        # autograd through the plain Adams-Bashforth march (the backward's
+        # plain version), and the device times of one trace each
+        c1s = sw[(1, 4)]
+        fld_p = vol.field.detach().clone().requires_grad_(True)
+        outs_p = march_chief_dense(vol._replace(field=fld_p), *chief,
+                                   algorithm=4)
+        diff_p = [i for i, o in enumerate(outs_p) if o.requires_grad]
+        ct6_p = torch.randn(6, P, generator=gen, device=dev)
+        c1s["bwd_plain_ms"] = time_ms(
+            lambda: torch.autograd.grad([outs_p[i] for i in diff_p], fld_p,
+                                        grad_outputs=[ct6_p[i] for i in diff_p],
+                                        retain_graph=True), reps=3, warm=1)
+        del outs_p, fld_p
+        n_tr = 10
+        for key in ((1, 4), (1, 3), (2, 4)):
+            c = sw[key]
+            fld_s = c["fld"]
+            alg = key[1]
+            ss = 1 if alg == 4 else sw_ss
+            _, held_a = traced(lambda: [march_forward_stagewise(
+                fld_s, chief, gnp, alg, ss, key[0]) for _ in range(n_tr)]
+                + [c["bwd"]() for _ in range(n_tr)])
+            _, held_b = traced(lambda: [march_forward_stagewise(
+                fld_s, chief, gnp, alg, ss, key[0], save_residual=True)
+                for _ in range(n_tr)])
+            for nm_, held_, tag in (("dev", held_a, "march_stagewise_kernel"),
+                                    ("bwd_dev", held_a,
+                                     "march_stagewise_bwd_kernel"),
+                                    ("res_dev", held_b,
+                                     "march_stagewise_kernel")):
+                h_ = held_.get(tag, NOT_MEASURED)
+                c[nm_] = h_ if h_ == NOT_MEASURED else h_[0] / h_[1]
+            print(f"    {c['label']}: device time a launch (one trace, "
+                  f"{n_tr} launches each): forward {ms_or_not(c['dev'], 4)} "
+                  f"(bound {c['bound']:.4f} ms), with the residual "
+                  f"{ms_or_not(c['res_dev'], 4)} (bound {c['res_bound']:.4f} "
+                  f"ms), backward {ms_or_not(c['bwd_dev'], 4)} (bound "
+                  f"{c['bwd_bound']:.4f} ms)  [{card}]")
+        print(f"    autograd through the plain Adams-Bashforth march "
+              f"{c1s['bwd_plain_ms']:.2f} ms  [{card}]")
+
+        def sw_extra(c, bwd):
+            """A case's readings beside the row's main case."""
+            return dict(
+                shape=f"{P} rays, 64^3 field, {c['label']}",
+                max_abs_err=c["bwd_err"][0] if bwd else c["err"],
+                ms=c["bwd_ms"] if bwd else c["ms"],
+                device_ms=c["bwd_dev"] if bwd else c["dev"],
+                bound_ms=c["bwd_bound"] if bwd else c["bound"],
+                plain_ms=None if bwd else c["plain_ms"], library_ms=None)
+
+        c3s, c2s = sw[(1, 3)], sw[(2, 4)]
+        kernel_rows.append(dict(
+            name="march_stagewise", route="cuda",
+            source="photon_tpu_torch/csrc/march_dense.cu",
+            replaces="photon_tpu/ops/march_dense_pallas.py:166",
+            shape=f"{P} rays, 64^3 field, Adams-Bashforth, trilinear",
+            max_abs_err=c1s["err"], tolerance=K1_TOL, ms=c1s["ms"],
+            plain_ms=c1s["plain_ms"], bound_ms=c1s["bound"],
+            bound_by=c1s["by"], library_ms=None, device_ms=c1s["dev"],
+            residual=dict(ms=c1s["res_ms"], device_ms=c1s["res_dev"],
+                          bound_ms=c1s["res_bound"],
+                          bound_by=c1s["res_by"]),
+            substeps=sw_extra(c3s, False), cubic=sw_extra(c2s, False)))
+        kernel_rows.append(dict(
+            name="march_stagewise_bwd", route="cuda",
+            source="photon_tpu_torch/csrc/march_bwd.cu",
+            replaces="photon_tpu/ops/march_dense_pallas.py:181",
+            shape=f"{P} rays, 64^3 field, Adams-Bashforth, trilinear",
+            max_abs_err=c1s["bwd_err"][0], state_err=c1s["bwd_err"][1],
+            tolerance=MARCH_FIELD_TOL, ms=c1s["bwd_ms"],
+            plain_ms=c1s["bwd_plain_ms"], bound_ms=c1s["bwd_bound"],
+            bound_by=c1s["bwd_by"], library_ms=None,
+            device_ms=c1s["bwd_dev"], substeps=sw_extra(c3s, True),
+            cubic=sw_extra(c2s, True)))
+        del sw, c1s, c2s, c3s, c
         del sampler, c1, c2, coeff
 
     if failures:
@@ -5333,6 +5709,8 @@ def main(argv=None) -> int:
     menu_wrappers = dict(
         march_dense=march_chief_fused, march_bwd_stage=march_backward_stage,
         march_bwd_remarch=march_backward_remarch,
+        march_stagewise=march_forward_stagewise,
+        march_stagewise_bwd=march_backward_stagewise,
         slab_sample=slab_sample_forward, slab_sample_bwd=slab_sample_backward,
         fan_stats=fan_stats, splat=splat_particles)
 
@@ -5345,8 +5723,8 @@ def main(argv=None) -> int:
 
     n_slabs = n - 1
     pair_rest = dict(march_bwd_stage=0, march_bwd_remarch=0,
-                     slab_sample_bwd=0, fan_stats=2 * n_chunks,
-                     splat=2 * n_chunks)
+                     march_stagewise_bwd=0, slab_sample_bwd=0,
+                     fan_stats=2 * n_chunks, splat=2 * n_chunks)
     menu_counts = {}
     for label, alg, scheme in (("tricubic, algorithm 3, substeps from the "
                                 "data", 3, 2), ("Adams-Bashforth", 4, 1)):
@@ -5377,12 +5755,12 @@ def main(argv=None) -> int:
                     f"choose_substeps gave {chosen}")
             # two probe marches of choose_substeps and the march itself, all
             # through the cubic march kernel; no per-stage sampling
-            expect_m = dict(march_dense=3, slab_sample=0, **pair_rest)
+            expect_m = dict(march_dense=3, march_stagewise=0, slab_sample=0,
+                            **pair_rest)
             substeps_m = chosen[0]
         else:
-            # a slab step samples four RK4 stages; the first is also the
-            # Adams-Bashforth right-hand side at the step's entry
-            expect_m = dict(march_dense=0, slab_sample=4 * n_slabs,
+            # the whole march in one launch of the stagewise kernel
+            expect_m = dict(march_dense=0, march_stagewise=1, slab_sample=0,
                             **pair_rest)
             substeps_m = None
         if counts_m != expect_m:
@@ -5409,9 +5787,50 @@ def main(argv=None) -> int:
             row["launches_on"] = ("cli.main, the BOS pair with tricubic "
                                   "interpolation and algorithm 3: the march "
                                   "and the two probes of choose_substeps")
-        elif row["name"] == "slab_sample":
-            row["launches"] = menu_counts[4]["slab_sample"]
+        elif row["name"] == "march_stagewise":
+            row["launches"] = menu_counts[4]["march_stagewise"]
             row["launches_on"] = "cli.main, the BOS pair with Adams-Bashforth"
+
+    # the Adams-Bashforth pair through the stagewise kernel and through the
+    # per-stage route (K8 once a stage) in turns: per-stage, stagewise,
+    # stagewise, per-stage
+    cfg_ab = dataclasses.replace(cfg, density_gradients=dataclasses.replace(
+        cfg.density_gradients, ray_tracing_algorithm=4))
+    ab_turns = {"stagewise": [], "per-stage": []}
+    ab_im2 = []
+    with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
+        case, _ = write_bench_case(tmp, cfg_ab, rho, spacings, origin)
+        for route in ("per-stage", "stagewise", "stagewise", "per-stage"):
+            buf = io.StringIO()
+            ctx = (per_stage_route() if route == "per-stage"
+                   else contextlib.nullcontext())
+            with ctx, contextlib.redirect_stdout(buf):
+                rc, counts_t = counted_menu(lambda: cli_main(
+                    [case, "--out", os.path.join(tmp, "out"), "--verbose"]))
+            require(rc == 0, f"the CLI returned {rc} (Adams-Bashforth, "
+                    f"{route})")
+            want_t = (dict(march_stagewise=0, slab_sample=4 * n_slabs)
+                      if route == "per-stage" else
+                      dict(march_stagewise=1, slab_sample=0))
+            expect_counts(f"Adams-Bashforth pair, {route} route", counts_t,
+                          want_t)
+            secs = print_phases(f"Adams-Bashforth pair, {route} route",
+                                buf.getvalue(), card, r"render:\S+")
+            ab_turns[route].append(secs)
+            if route == "stagewise":
+                ab_im2.append(np.fromfile(os.path.join(
+                    tmp, "out", "raw", "bos_pattern_image_2.bin"), np.float32))
+    for route, runs in ab_turns.items():
+        im2_s = [r.get("render:bos_pattern_image_2", float("nan"))
+                 for r in runs]
+        print(f"    Adams-Bashforth pair in turns, {route} route: render:im2 "
+              f"{', '.join(f'{v:.4f}' for v in im2_s)} s  [{card}]")
+    # float atomics in the splat: two runs agree to the pair's run-to-run
+    # bound of phase 3
+    ab_rr = float(np.abs(ab_im2[0] - ab_im2[1]).max() / np.abs(ab_im2[0]).max())
+    print(f"    two Adams-Bashforth im2 through the stagewise route differ by "
+          f"{ab_rr:.3e} of the maximum (bound 1.0e-05)")
+    require(ab_rr <= 1e-5, f"two Adams-Bashforth im2 differ by {ab_rr}")
 
     # ------------------------------------------------------------------
     # phase 6: gradients through the new routes, one chunk at full size
@@ -5463,23 +5882,50 @@ def main(argv=None) -> int:
         return lambda: first_step(kernel_render(source, **kw))[0]
 
     # RK4 with substeps under autograd: choose_substeps probes twice through
-    # the fused kernel, then every stage of the march samples through K8 and
-    # its backward through K9 (substeps x 4 stages a slab)
+    # the fused kernel, then the march is one launch of the stagewise kernel
+    # each way; with the residual's budget at 0, every stage of the march
+    # samples through K8 and its backward through K9 (substeps x 4 stages a
+    # slab).  Adams-Bashforth the same, its per-stage route four stages a
+    # slab.
     sub2 = 2 * 4 * n_slabs
+    no_k1 = dict(march_bwd_stage=0, march_bwd_remarch=0)
+    one_each = dict(march_stagewise=1, march_stagewise_bwd=1, slab_sample=0,
+                    slab_sample_bwd=0, **no_k1)
     counts_s, held_s = grad_route(
         "algorithm 3 (substeps from the data)",
-        dict(march_dense=2, slab_sample=sub2, slab_sample_bwd=sub2,
-             march_bwd_stage=0, march_bwd_remarch=0),
+        dict(march_dense=2, **one_each),
         dict(algorithm=3, substeps=2), step_fn=one_invert_step(3),
         algorithm=3)
     require(list(render_fast._substep_cache.values()) == [2] * len(
         render_fast._substep_cache), "choose_substeps did not pick 2 here")
-    counts_a, _ = grad_route(
-        "algorithm 4 (Adams-Bashforth)",
-        dict(march_dense=0, slab_sample=4 * n_slabs,
-             slab_sample_bwd=4 * n_slabs, march_bwd_stage=0,
-             march_bwd_remarch=0),
+    counts_a, held_a = grad_route(
+        "algorithm 4 (Adams-Bashforth)", dict(march_dense=0, **one_each),
         dict(algorithm=4), step_fn=one_invert_step(4), algorithm=4)
+    counts_s8, held_s8 = with_budget(0, lambda: grad_route(
+        "algorithm 3 (substeps from the data), residual budget 0: the "
+        "per-stage route",
+        dict(march_dense=2, march_stagewise=0, march_stagewise_bwd=0,
+             slab_sample=sub2, slab_sample_bwd=sub2, **no_k1),
+        dict(algorithm=3, substeps=2), step_fn=one_invert_step(3),
+        algorithm=3))
+    counts_a8, _ = with_budget(0, lambda: grad_route(
+        "algorithm 4 (Adams-Bashforth), residual budget 0: the per-stage "
+        "route",
+        dict(march_dense=0, march_stagewise=0, march_stagewise_bwd=0,
+             slab_sample=4 * n_slabs, slab_sample_bwd=4 * n_slabs, **no_k1),
+        dict(algorithm=4), step_fn=one_invert_step(4), algorithm=4))
+    # the two routes in turns (per-stage, stagewise, stagewise, per-stage)
+    for alg in (3, 4):
+        turns = {"stagewise": [], "per-stage": []}
+        for route in ("per-stage", "stagewise", "stagewise", "per-stage"):
+            budget = 0 if route == "per-stage" else mdf.TRAJ_MAX_BYTES
+            turns[route].append(with_budget(
+                budget, lambda: timed_step(algorithm=alg)))
+        print(f"    algorithm {alg} steps in turns (forward + backward, "
+              f"ms): " + "; ".join(
+                  f"{route} " + ", ".join(f"{f * 1e3:.2f} + {b * 1e3:.2f}"
+                                          for f, b in runs)
+                  for route, runs in turns.items()) + f"  [{card}]")
     counts_c, held_c = grad_route(
         "tricubic RK4, stage residual",
         dict(march_dense=1, march_bwd_stage=1, march_bwd_remarch=0,
@@ -5494,8 +5940,12 @@ def main(argv=None) -> int:
         dict(algorithm=2, scheme=2),
         step_fn=one_render_step(interpolation_scheme=2),
         interpolation_scheme=2))
-    for tag, held_ in (("slab_sample_kernel", held_s),
-                       ("slab_sample_bwd_kernel", held_s),
+    for tag, held_ in (("march_stagewise_kernel", held_s),
+                       ("march_stagewise_bwd_kernel", held_s),
+                       ("march_stagewise_kernel", held_a),
+                       ("march_stagewise_bwd_kernel", held_a),
+                       ("slab_sample_kernel", held_s8),
+                       ("slab_sample_bwd_kernel", held_s8),
                        ("march_dense_kernel", held_c),
                        ("march_bwd_stage_kernel", held_c)):
         got_h = held_.get(tag, NOT_MEASURED)
@@ -5506,13 +5956,19 @@ def main(argv=None) -> int:
                   f"{got_h[0]:.3f} ms on the device, "
                   f"{got_h[0] / got_h[1] * 1e3:.1f} us a launch  [{card}]")
     step3 = "one step of invert_bos with algorithm 3 (substeps 2)"
+    over = step3 + ", the stage residual over its budget"
     cubic_step = ("one forward and backward of the render loss with tricubic "
                   "interpolation")
     for row in kernel_rows:
         nm = row["name"]
-        if nm == "slab_sample":
-            row["launches_gradient_step"] = counts_s["slab_sample"]
-        elif nm == "slab_sample_bwd":
+        if nm in ("slab_sample", "slab_sample_bwd"):
+            row["launches"], row["launches_on"] = (counts_s8[nm], over)
+            row["launches_adams_bashforth_step"] = counts_a8[nm]
+            row["launches_default_budget"] = counts_s[nm]
+        elif nm == "march_stagewise":
+            row["launches_gradient_step"] = counts_s[nm]
+            row["launches_adams_bashforth_step"] = counts_a[nm]
+        elif nm == "march_stagewise_bwd":
             row["launches"], row["launches_on"] = (counts_s[nm], step3)
             row["launches_adams_bashforth_step"] = counts_a[nm]
         elif nm == "march_dense_residual_cubic":

@@ -30,7 +30,8 @@ launch, see ``kernels.py``).  Module and function names follow
   ops/sensor.py         erf diffraction and bilinear sensors (exact path)
   ops/march_dense.py    plain dense chief-ray march, the B-spline prefilter
   ops/march_dense_fused.py  the march kernels' wrappers, forward and
-                        backward (csrc/march_dense.cu, csrc/march_bwd.cu)
+                        backward, the stagewise ones for Adams-Bashforth and
+                        substeps (csrc/march_dense.cu, csrc/march_bwd.cu)
   ops/march_dense_sampler.py  the per-stage slab sampler's wrappers
                         (csrc/slab_sample.cu) and its plain version
   ops/march_fast.py     apply_chief_deltas: a march's deltas on a ray fan

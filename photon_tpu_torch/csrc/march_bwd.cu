@@ -1,4 +1,6 @@
-// Backward of the dense chief-ray march: two kernels over one VJP chain.
+// Backward of the dense chief-ray march: two kernels over one VJP chain, and
+// the stagewise backward of Adams-Bashforth and substeps over the same
+// chain (its own section below).
 //
 // photon_march_bwd_stage replaces the TPU kernel
 // photon_tpu/ops/march_dense_fused.py::_bwd_stage_kernel: the backward over
@@ -170,8 +172,66 @@ __device__ __forceinline__ StageVjp vjp_stage(
   return r;
 }
 
-__device__ __forceinline__ State5 scale5(float c, const Cot6& d) {
+__device__ __forceinline__ State5 scale_s5(float c, const State5& d) {
   return {c * d.x, c * d.y, c * d.tx, c * d.ty, c * d.tz};
+}
+
+// The VJP of one RK4 step's stages k4, k3 and k2 from their input states,
+// for the cotangent `ct` of the step's output; every lane of the warp calls
+// it.  The stage k1 is left to the caller (rk4_k1_cot, rk4_step_vjp).
+struct Rk4Tail {
+  StageVjp r2, r3, r4;
+};
+
+template <int SCHEME, bool STEP_SUMS>
+__device__ __forceinline__ Rk4Tail rk4_vjp_tail(
+    const float4* __restrict__ lo, const float4* __restrict__ hi,
+    float4* __restrict__ dlo, float4* __restrict__ dhi, const MarchGeom& g,
+    float z_plane, float z0, float h, const Stages& sg, const State5& ct,
+    bool live, SlabAcc* acc) {
+  auto stage = [&](const State5& s, float z_at, const State5& d5) {
+    return vjp_stage<SCHEME, STEP_SUMS>(lo, hi, dlo, dhi, g, z_plane, s, z_at,
+                                        d5, live, acc);
+  };
+  const float h2 = h / 2.0f;
+  Rk4Tail t;
+  t.r4 = stage(sg.s4, z0 + h, scale_s5(h / 6.0f, ct));
+  t.r3 = stage(sg.s3, z0 + h2, axpy(scale_s5(h / 3.0f, ct), h, t.r4.v));
+  t.r2 = stage(sg.s2, z0 + h2, axpy(scale_s5(h / 3.0f, ct), h2, t.r3.v));
+  return t;
+}
+
+// the cotangent that the step's output gives its first stage k1
+__device__ __forceinline__ State5 rk4_k1_cot(float h, const State5& ct,
+                                             const Rk4Tail& t) {
+  return axpy(scale_s5(h / 6.0f, ct), h / 2.0f, t.r2.v);
+}
+
+// The VJP of one RK4 step with its four stages pulled back: the cotangents
+// of its input state, of its start z0 and of its length h, each alone.
+struct StepVjp {
+  State5 d_s;
+  float d_z0, d_h;
+};
+
+__device__ __forceinline__ StepVjp rk4_step_vjp(const State5& ct,
+                                                const Rk4Tail& t,
+                                                const StageVjp& r1) {
+  StepVjp v;
+  v.d_s = axpy(axpy(axpy(axpy(ct, 1.0f, t.r4.v), 1.0f, t.r3.v), 1.0f,
+                    t.r2.v),
+               1.0f, r1.v);
+  const State5 combo = {
+      r1.k.x + 2.0f * t.r2.k.x + 2.0f * t.r3.k.x + t.r4.k.x,
+      r1.k.y + 2.0f * t.r2.k.y + 2.0f * t.r3.k.y + t.r4.k.y,
+      r1.k.tx + 2.0f * t.r2.k.tx + 2.0f * t.r3.k.tx + t.r4.k.tx,
+      r1.k.ty + 2.0f * t.r2.k.ty + 2.0f * t.r3.k.ty + t.r4.k.ty,
+      r1.k.tz + 2.0f * t.r2.k.tz + 2.0f * t.r3.k.tz + t.r4.k.tz};
+  v.d_h = dot5(ct, combo) / 6.0f + dot5(t.r4.v, t.r3.k) + t.r4.d_z +
+          0.5f * dot5(t.r3.v, t.r2.k) + 0.5f * t.r3.d_z +
+          0.5f * dot5(t.r2.v, r1.k) + 0.5f * t.r2.d_z;
+  v.d_z0 = t.r4.d_z + t.r3.d_z + t.r2.d_z + r1.d_z;
+  return v;
 }
 
 // Backward of one slab step given its stage input states; updates the
@@ -194,28 +254,16 @@ __device__ __forceinline__ void slab_backward(
   State5 d_st;
   float d_z;
   if (algorithm == 1) {
-    StageVjp r1 = stage(sg.s1, z_entry, scale5(h, ct));
+    StageVjp r1 = stage(sg.s1, z_entry, scale_s5(h, d_new));
     d_st = axpy(d_new, 1.0f, r1.v);
     d_z = r1.d_z - dot5(d_new, r1.k);
   } else {
-    float h2 = h / 2.0f;
-    StageVjp r4 = stage(sg.s4, z_entry + h, scale5(h / 6.0f, ct));
-    StageVjp r3 =
-        stage(sg.s3, z_entry + h2, axpy(scale5(h / 3.0f, ct), h, r4.v));
-    StageVjp r2 =
-        stage(sg.s2, z_entry + h2, axpy(scale5(h / 3.0f, ct), h2, r3.v));
-    StageVjp r1 = stage(sg.s1, z_entry, axpy(scale5(h / 6.0f, ct), h2, r2.v));
-    d_st = axpy(axpy(axpy(axpy(d_new, 1.0f, r4.v), 1.0f, r3.v), 1.0f, r2.v),
-                1.0f, r1.v);
-    State5 combo = {r1.k.x + 2.0f * r2.k.x + 2.0f * r3.k.x + r4.k.x,
-                    r1.k.y + 2.0f * r2.k.y + 2.0f * r3.k.y + r4.k.y,
-                    r1.k.tx + 2.0f * r2.k.tx + 2.0f * r3.k.tx + r4.k.tx,
-                    r1.k.ty + 2.0f * r2.k.ty + 2.0f * r3.k.ty + r4.k.ty,
-                    r1.k.tz + 2.0f * r2.k.tz + 2.0f * r3.k.tz + r4.k.tz};
-    float d_h = dot5(d_new, combo) / 6.0f + dot5(r4.v, r3.k) + r4.d_z +
-                0.5f * dot5(r3.v, r2.k) + 0.5f * r3.d_z +
-                0.5f * dot5(r2.v, r1.k) + 0.5f * r2.d_z;
-    d_z = r4.d_z + r3.d_z + r2.d_z + r1.d_z - d_h;
+    const Rk4Tail t = rk4_vjp_tail<SCHEME, STEP_SUMS>(
+        lo, hi, dlo, dhi, g, z_plane, z_entry, h, sg, d_new, live, acc);
+    const StepVjp v =
+        rk4_step_vjp(d_new, t, stage(sg.s1, z_entry, rk4_k1_cot(h, d_new, t)));
+    d_st = v.d_s;
+    d_z = v.d_z0 - v.d_h;
   }
   // the step lands on a fixed plane, so the cotangent of its exit z ends
   // here and that of its entry z takes its place
@@ -413,6 +461,163 @@ __global__ void __launch_bounds__(kThreads, 3)
   if (real) entry_bwd(g, r, e, ct, d_rays, P, p);
 }
 
+// ---------------------------------------------------------------------------
+// The stagewise backward: the VJP of march_dense.cu's stagewise march
+// (Adams-Bashforth, RK4 with substeps) in one launch.
+//
+// Replaces, on the routes it serves, the per-stage loop over the sampler's
+// backward photon_slab_sample_bwd (csrc/slab_sample.cu, the port of the TPU
+// kernel photon_tpu/ops/march_dense_pallas.py::_bwd_kernel), one launch a
+// stage with the stages' VJP in array code between launches.  Here one thread
+// owns one ray, as in K4: the reversed slab loop runs inside the thread with
+// the cotangent state in registers, starting from each slab step's entry
+// state (the forward's 5-row residual), and the field's cotangent goes out
+// through the same stage VJP (vjp_stage) and warp-merged scatter (SlabAcc
+// under scheme 1, which sums all stages of a slab step first; scatter8 under
+// scheme 2) as K4's.  What bounds it: the stages it samples again and their
+// atomics, as K4, plus the replay of each step's stages from its entry state.
+//
+// Algorithm 3: each slab step replays its S substeps from the entry state
+// (substep i from the entry by i RK4 steps, then once more with the stage
+// states recorded: S (S + 1) / 2 RK4 steps a slab, no local memory for any
+// S) and pulls the cotangent back through them in reverse.  Algorithm 4: a
+// step's output is linear in the three stored right-hand sides, so the
+// backward needs no values of them, only their cotangents: three State5
+// slots that the reverse loop shifts as the forward shifted the history.
+// Each step's entry right-hand side f_now is pulled back through vjp_stage at
+// the stored entry state with its whole cotangent (55 h/24 of the output's
+// and what the three later steps' formulas gave it); the stages k4, k3, k2 of
+// a bootstrap step (a ray's first three) run only in warps that hold one.
+// A step's length h and its entry z are constants of the grid for every step
+// but a ray's first (it enters on a landing plane), so only the first step's
+// cotangent reaches the ray's z, and the first step is always RK4.  Every
+// lane of a warp reaches every merge, masked by `live` (or `boot`).
+// ---------------------------------------------------------------------------
+
+// rays, ct_out, d_rays: (6, P); texit: (3, P) raw exit T of the forward;
+// traj: its (S, 5, P) entry states; d_field: zeroed (D, H, W) float4.
+// Trilinear: registers for three blocks an SM, as K4.  Left to itself
+// ptxas takes 216 a thread (two blocks); capped at 168, with 264 bytes of
+// spills, it ran 6-10% faster at the bench's 120,000 rays.  Tricubic: the
+// 255 ptxas takes; capped at 168 (412 bytes of spills) it ran Adams-Bashforth
+// as fast and 2 substeps 21% slower (PERF.md).
+template <int SCHEME>
+__global__ void __launch_bounds__(kThreads, SCHEME == 1 ? 3 : 2)
+    march_stagewise_bwd_kernel(const float* __restrict__ rays,
+                               const float* __restrict__ texit,
+                               const float* __restrict__ traj,
+                               const float* __restrict__ ct_out,
+                               const float4* __restrict__ field,
+                               float4* __restrict__ d_field,
+                               float* __restrict__ d_rays, long long P,
+                               MarchGeom g, int algorithm, int substeps) {
+  // lanes past the last ray and the uniform slab loop: as the stage kernel
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool real = p < P;
+  const long long q = real ? p : P - 1;
+  const ChiefRay r = load_ray(rays, P, q);
+  const Entry e = entry_advance(g, r.x0, r.y0, r.z0, r.cx, r.cy, r.cz);
+  Cot6 ct = load_cot(ct_out, P, q);
+  const bool inside = real && e.inside;
+  if (__any_sync(kFullMask, inside)) {
+    if (inside) normalise_bwd(texit[q], texit[P + q], texit[2 * P + q], ct);
+    const int S = g.D - 1;
+    const long long slab = (long long)g.H * g.W;
+    // the ray's in-band steps are every slab step from its first down to the
+    // last, so the forward's step number of slab ks is steps - 1 - ks
+    int steps = 0;
+    for (int ks = 0; ks < S; ++ks)
+      steps += (inside && fminf(e.z, plane_above(g, ks)) >
+                              landing_plane(g, ks)) ? 1 : 0;
+    // Adams-Bashforth: the cotangents of the entry right-hand sides of the
+    // step at hand (d_f0) and of the one (d_f1) and two (d_f2) before it
+    State5 d_f0 = {}, d_f1 = {}, d_f2 = {};
+    SlabAcc acc;
+    acc.reset();
+    for (int ks = 0; ks < S; ++ks) {       // forward step s = S-1-ks
+      const float z_plane = landing_plane(g, ks);
+      const float z_entry = fminf(e.z, plane_above(g, ks));
+      const bool live = inside && z_entry > z_plane;
+      if (!__any_sync(kFullMask, live)) continue;
+      const long long off = (long long)ks * slab;
+      const float4* lo = field + off;
+      const float4* hi = lo + slab;
+      float4* dlo = d_field + off;
+      float4* dhi = dlo + slab;
+      const float h = z_plane - z_entry;
+      State5 s_in = {};
+      if (live) s_in = load_state5(traj + (long long)(S - 1 - ks) * 5 * P + q, P);
+      const State5 c5 = {ct.x, ct.y, ct.tx, ct.ty, ct.tz};
+      auto stage1 = [&](const State5& d5) {
+        return vjp_stage<SCHEME, SCHEME == 1>(lo, hi, dlo, dhi, g, z_plane,
+                                              s_in, z_entry, d5, live, &acc);
+      };
+      if (algorithm == 4) {
+        const bool boot = live && steps - 1 - ks < 3;
+        const float c = h / 24.0f;
+        Rk4Tail t = {};
+        if (__any_sync(kFullMask, boot)) {
+          Stages sg = {};
+          if (boot) rk4<SCHEME>(lo, hi, g, z_plane, s_in, h, z_entry, &sg);
+          t = rk4_vjp_tail<SCHEME, SCHEME == 1>(lo, hi, dlo, dhi, g, z_plane,
+                                                z_entry, h, sg, c5, boot,
+                                                &acc);
+        }
+        const State5 d_k1 = boot ? axpy(rk4_k1_cot(h, c5, t), 1.0f, d_f0)
+                                 : axpy(d_f0, 55.0f * c, c5);
+        const StageVjp r1 = stage1(d_k1);
+        if (live) {
+          if (boot) {
+            const StepVjp v = rk4_step_vjp(c5, t, r1);
+            ct = {v.d_s.x, v.d_s.y, v.d_z0 - v.d_h, v.d_s.tx, v.d_s.ty,
+                  v.d_s.tz};
+            d_f0 = d_f1;
+            d_f1 = d_f2;
+            d_f2 = {};
+          } else {
+            // the entry z of a step past a ray's first is a landing plane
+            const State5 d_s = axpy(c5, 1.0f, r1.v);
+            ct = {d_s.x, d_s.y, 0.0f, d_s.tx, d_s.ty, d_s.tz};
+            d_f0 = axpy(d_f1, -59.0f * c, c5);
+            d_f1 = axpy(d_f2, 37.0f * c, c5);
+            d_f2 = scale_s5(-9.0f * c, c5);
+          }
+        }
+      } else {
+        // z0 of substep i is z_entry + i hs, and hs = (z_plane - z_entry) / S
+        const float hs = h / (float)substeps;
+        State5 d = c5;
+        float d_z0s = 0.0f, d_hs = 0.0f;
+        for (int i = substeps - 1; i >= 0; --i) {
+          Stages sg = {};
+          if (live) {
+            State5 sub = s_in;
+            for (int k = 0; k < i; ++k)
+              sub = rk4<SCHEME>(lo, hi, g, z_plane, sub, hs,
+                                z_entry + (float)k * hs);
+            rk4<SCHEME>(lo, hi, g, z_plane, sub, hs, z_entry + (float)i * hs,
+                        &sg);
+          }
+          const float z0 = z_entry + (float)i * hs;
+          const Rk4Tail t = rk4_vjp_tail<SCHEME, SCHEME == 1>(
+              lo, hi, dlo, dhi, g, z_plane, z0, hs, sg, d, live, &acc);
+          const StageVjp r1 = vjp_stage<SCHEME, SCHEME == 1>(
+              lo, hi, dlo, dhi, g, z_plane, sg.s1, z0, rk4_k1_cot(hs, d, t),
+              live, &acc);
+          const StepVjp v = rk4_step_vjp(d, t, r1);
+          d = v.d_s;
+          d_z0s += v.d_z0;
+          d_hs += v.d_h + (float)i * v.d_z0;
+        }
+        if (live)
+          ct = {d.x, d.y, d_z0s - d_hs / (float)substeps, d.tx, d.ty, d.tz};
+      }
+      if constexpr (SCHEME == 1) acc.flush(TrilinearTaps{dlo, dhi, g.W});
+    }
+  }
+  if (real) entry_bwd(g, r, e, ct, d_rays, P, p);
+}
+
 }  // namespace
 
 // Both return cudaGetLastError() after the launch.  The wrapper zeroes
@@ -455,5 +660,31 @@ extern "C" int photon_march_bwd_remarch(const float* rays, const float* texit,
       rays, texit, out, ct_out, reinterpret_cast<const float4*>(field),
       reinterpret_cast<float4*>(d_field), d_rays, P, g, algorithm,
       defect_iters);
+  return (int)cudaGetLastError();
+}
+
+// The backward of photon_march_stagewise from its (S, 5, P) residual
+// `traj`: algorithm 3 with `substeps`, or 4.  The wrapper zeroes d_field.
+extern "C" int photon_march_stagewise_bwd(const float* rays,
+                                          const float* texit,
+                                          const float* traj,
+                                          const float* ct_out,
+                                          const float* field, float* d_field,
+                                          float* d_rays, long long P, int W,
+                                          int H, int D, const float* geom,
+                                          int algorithm, int substeps,
+                                          int scheme, void* stream) {
+  if (scheme != 1 && scheme != 2) return (int)cudaErrorInvalidValue;
+  if ((algorithm != 3 && algorithm != 4) || substeps < 1)
+    return (int)cudaErrorInvalidValue;
+  if (P <= 0) return 0;
+  MarchGeom g = make_geom(geom, W, H, D);
+  const int threads = kThreads;
+  long long blocks = (P + threads - 1) / threads;
+  auto kernel = scheme == 2 ? march_stagewise_bwd_kernel<2>
+                            : march_stagewise_bwd_kernel<1>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      rays, texit, traj, ct_out, reinterpret_cast<const float4*>(field),
+      reinterpret_cast<float4*>(d_field), d_rays, P, g, algorithm, substeps);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,6 @@
-// Dense chief-ray march through a (D, H, W, 4) refractive-index field, forward.
+// Dense chief-ray march through a (D, H, W, 4) refractive-index field, forward
+// (K1; the stagewise march of Adams-Bashforth and substeps has its own
+// section below).
 //
 // Replaces the TPU kernel photon_tpu/ops/march_dense_fused.py::_fused_kernel_impl
 // (both heads, both interpolation schemes): the plain head, and the `_traj`
@@ -303,6 +305,153 @@ int launch_march(const float* rays[6], const float* field, float* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The stagewise march: Adams-Bashforth (algorithm 4) and RK4 with substeps
+// (algorithm 3), a whole march in one launch.
+//
+// Replaces, on the routes it serves, the per-stage loop over the sampler
+// kernel photon_slab_sample (csrc/slab_sample.cu, the port of the TPU kernel
+// photon_tpu/ops/march_dense_pallas.py::_fwd_kernel): the JAX package samples
+// every integrator stage of these two integrators with a launch of its own,
+// with the stage arithmetic in array code between launches, because its fused
+// kernel covers neither Adams-Bashforth nor a stage residual with substeps.
+// On a GPU none of that is needed: one thread owns one ray, its state and
+// its Adams-Bashforth history (the last three right-hand sides, 15 floats)
+// stay in registers through all slabs, and each stage samples the field as
+// K1 does (march_common.cuh: rhs, rk4, sample), so the RK4 arithmetic is
+// K1's.  What bounds it on an H100 is K1's bound: the latency of each ray's
+// chain of stages and the instructions they issue (48 bytes of rays a ray),
+// or, with the residual, bytes: one entry state (5 floats) a ray and in-band
+// slab step, a fifth of K1's stage residual for RK4.
+//
+// Algorithm 4: RK4 for a ray's first three committed steps, then the
+// four-step Adams-Bashforth formula over the right-hand side at the step's
+// entry and the three before it; the first stage of an RK4 step is also the
+// step's entry right-hand side.  A ray past its bootstrap samples once a
+// step.  The history and the step count move only where a step is taken.
+// Algorithm 3: `substeps` RK4 steps a slab, as K1.  The outputs are those of
+// the plain march (ops/march_dense.py::_march_chief) to the order of f32
+// roundings; the two heads (GRAD) return bit-equal outputs.  GRAD also writes
+// the raw exit T and the entry state of every in-band slab step, (S, 5, P),
+// from which photon_march_stagewise_bwd (march_bwd.cu) replays the stages.
+// ---------------------------------------------------------------------------
+
+// RK4 from a first stage k1 = rhs(s, z0) that the caller has sampled: rk4's
+// arithmetic, in its order.
+template <int SCHEME>
+__device__ __forceinline__ State5 rk4_from_k1(const float4* __restrict__ lo,
+                                              const float4* __restrict__ hi,
+                                              const MarchGeom& g,
+                                              float z_plane, const State5& s,
+                                              const State5& k1, float h,
+                                              float z0) {
+  float h2 = h / 2.0f;
+  State5 k2 = rhs<SCHEME>(lo, hi, g, z_plane, axpy(s, h2, k1), z0 + h2);
+  State5 k3 = rhs<SCHEME>(lo, hi, g, z_plane, axpy(s, h2, k2), z0 + h2);
+  State5 k4 = rhs<SCHEME>(lo, hi, g, z_plane, axpy(s, h, k3), z0 + h);
+  return rk4_combine(s, h, k1, k2, k3, k4);
+}
+
+// s + h/24 (55 f - 59 f1 + 37 f2 - 9 f3); f1 is the newest of the history
+__device__ __forceinline__ State5 adams4(const State5& s, float h,
+                                         const State5& f, const State5& f1,
+                                         const State5& f2, const State5& f3) {
+  const float h24 = h / 24.0f;
+#define PHOTON_AB(c) \
+  s.c + h24 * (55.0f * f.c - 59.0f * f1.c + 37.0f * f2.c - 9.0f * f3.c)
+  return {PHOTON_AB(x), PHOTON_AB(y), PHOTON_AB(tx), PHOTON_AB(ty),
+          PHOTON_AB(tz)};
+#undef PHOTON_AB
+}
+
+// out: (6, P); texit: (3, P) and traj: (S, 5, P), both GRAD only (rays that
+// never entered, and slab steps out of a ray's band, leave theirs unwritten)
+template <int SCHEME, bool GRAD>
+__global__ void march_stagewise_kernel(const float* __restrict__ xs,
+                                       const float* __restrict__ ys,
+                                       const float* __restrict__ zs,
+                                       const float* __restrict__ dcx,
+                                       const float* __restrict__ dcy,
+                                       const float* __restrict__ dcz,
+                                       const float4* __restrict__ field,
+                                       float* __restrict__ out,
+                                       float* __restrict__ texit,
+                                       float* __restrict__ traj, long long P,
+                                       MarchGeom g, int algorithm,
+                                       int substeps) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const float cx = dcx[p], cy = dcy[p], cz = dcz[p];
+  const Entry e = entry_advance(g, xs[p], ys[p], zs[p], cx, cy, cz);
+  float x = e.x, y = e.y, z = e.z;
+  float dirx = cx, diry = cy, dirz = cz;
+  if (e.inside) {
+    State5 st = {x, y, g.n0 * cx, g.n0 * cy, g.n0 * cz};
+    State5 f1 = {}, f2 = {}, f3 = {};   // Adams-Bashforth history
+    int nstep = 0;
+    const int S = g.D - 1;
+    const long long slab = (long long)g.H * g.W;
+    for (int s = 0; s < S; ++s) {
+      const int ks = S - 1 - s;
+      const float z_plane = landing_plane(g, ks);
+      if (!(z > z_plane)) continue;   // not yet in this slab's band
+      const float4* lo = field + (long long)ks * slab;
+      const float4* hi = lo + slab;
+      const float hstep = -(z - z_plane);
+      if (GRAD) store_state5(traj + (long long)s * 5 * P + p, P, st);
+      if (algorithm == 4) {
+        const State5 f = rhs<SCHEME>(lo, hi, g, z_plane, st, z);
+        st = nstep < 3 ? rk4_from_k1<SCHEME>(lo, hi, g, z_plane, st, f, hstep,
+                                             z)
+                       : adams4(st, hstep, f, f1, f2, f3);
+        f3 = f2;
+        f2 = f1;
+        f1 = f;
+        ++nstep;
+      } else {
+        const float hs = hstep / (float)substeps;
+        for (int si = 0; si < substeps; ++si)
+          st = rk4<SCHEME>(lo, hi, g, z_plane, st, hs, z + (float)si * hs);
+      }
+      z = z_plane;
+    }
+    x = st.x;
+    y = st.y;
+    const float tn = sqrtf(st.tx * st.tx + st.ty * st.ty + st.tz * st.tz);
+    dirx = st.tx / tn;
+    diry = st.ty / tn;
+    dirz = st.tz / tn;
+    if (GRAD) {
+      texit[p] = st.tx;
+      texit[P + p] = st.ty;
+      texit[2 * P + p] = st.tz;
+    }
+  }
+  out[p] = x;
+  out[P + p] = y;
+  out[2 * P + p] = z;
+  out[3 * P + p] = dirx;
+  out[4 * P + p] = diry;
+  out[5 * P + p] = dirz;
+}
+
+template <int SCHEME>
+void launch_stagewise(const float* const rays[6], const float4* field,
+                      float* out, float* texit, float* traj, long long P,
+                      const MarchGeom& g, int algorithm, int substeps,
+                      cudaStream_t st) {
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((P + threads - 1) / threads);
+  if (texit != nullptr)
+    march_stagewise_kernel<SCHEME, true><<<blocks, threads, 0, st>>>(
+        rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], field, out,
+        texit, traj, P, g, algorithm, substeps);
+  else
+    march_stagewise_kernel<SCHEME, false><<<blocks, threads, 0, st>>>(
+        rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], field, out,
+        nullptr, nullptr, P, g, algorithm, substeps);
+}
+
 }  // namespace
 
 // geom: host array [min_x, min_y, sx, sy, z_min, z_max, dz_slab, n0];
@@ -332,4 +481,33 @@ extern "C" int photon_march_dense_grad(const float* rays6, const float* field,
                           rays6 + 3 * P, rays6 + 4 * P, rays6 + 5 * P};
   return launch_march<true>(rays, field, out, texit, traj, P, W, H, D, geom,
                             algorithm, 1, scheme, stream);
+}
+
+// The stagewise march (algorithm 3 with `substeps`, or 4): six (P,) ray
+// rows in, out (6, P).  texit (3, P) and traj (S, 5, P) both null (no
+// residual), or both given (the gradient route's head).
+extern "C" int photon_march_stagewise(const float* xs, const float* ys,
+                                      const float* zs, const float* dcx,
+                                      const float* dcy, const float* dcz,
+                                      const float* field, float* out,
+                                      float* texit, float* traj, long long P,
+                                      int W, int H, int D, const float* geom,
+                                      int algorithm, int substeps, int scheme,
+                                      void* stream) {
+  if (scheme != 1 && scheme != 2) return (int)cudaErrorInvalidValue;
+  if (algorithm != 3 && algorithm != 4) return (int)cudaErrorInvalidValue;
+  if (substeps < 1 || (texit == nullptr) != (traj == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (P <= 0) return 0;
+  const MarchGeom g = make_geom(geom, W, H, D);
+  const float* rays[6] = {xs, ys, zs, dcx, dcy, dcz};
+  const float4* f4 = reinterpret_cast<const float4*>(field);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (scheme == 2)
+    launch_stagewise<2>(rays, f4, out, texit, traj, P, g, algorithm,
+                        substeps, st);
+  else
+    launch_stagewise<1>(rays, f4, out, texit, traj, P, g, algorithm,
+                        substeps, st);
+  return (int)cudaGetLastError();
 }

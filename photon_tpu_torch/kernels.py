@@ -52,12 +52,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                            _vp],
         "photon_march_dense_grad": [_vp] * 5 + [_ll, _i, _i, _i, _vp, _i, _i,
                                                 _vp],
+        "photon_march_stagewise": [_vp] * 10 + [_ll, _i, _i, _i, _vp, _i, _i,
+                                                _i, _vp],
     },
     "march_bwd": {
         "photon_march_bwd_stage": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _i,
                                                _vp],
         "photon_march_bwd_remarch": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i, _i,
                                                  _i, _vp],
+        "photon_march_stagewise_bwd": [_vp] * 7 + [_ll, _i, _i, _i, _vp, _i,
+                                                   _i, _i, _vp],
     },
     "slab_sample": {
         "photon_slab_sample": [_vp] * 6 + [_ll, _i, _i, _i, _vp],

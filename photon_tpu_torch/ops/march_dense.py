@@ -31,7 +31,8 @@ version of the march kernels: always the PyTorch gather
 the on-card comparisons use it.  :func:`march_chief_per_stage` runs the same
 loop over ``march_dense_sampler.dense_slab_sample`` (the sampler kernels for
 tensors on the card) and is what ``march_dense_fused.march_chief_fused`` takes
-where no fused kernel covers the integrator.
+for Adams-Bashforth, or RK4 with substeps, under autograd where the
+stagewise kernels' residual exceeds its budget.
 """
 from __future__ import annotations
 

@@ -42,17 +42,33 @@ reverse reconstruction converges on this field (:func:`remarch_contraction`:
 more defect corrections where it does slowly, ``ValueError`` where it does
 not).
 
-Dispatch on the card, as the JAX package's: Euler, RK4 and RK4 with substeps
-without gradients run the plain head; Euler and RK4 under autograd run the
-residual head and a backward kernel; Adams-Bashforth always, and RK4 with
-substeps under autograd, run ``march_dense.march_chief_per_stage``: the plain
-march's loop in PyTorch with every integrator stage sampled by the kernels of
-``march_dense_sampler.py``.
+Stagewise kernels: ``photon_march_stagewise`` (``csrc/march_dense.cu``) and
+``photon_march_stagewise_bwd`` (``csrc/march_bwd.cu``) run Adams-Bashforth
+(algorithm 4) and RK4 with substeps (algorithm 3) in one launch each way: one
+thread a ray through all slabs, every stage and substep, its state and its
+Adams-Bashforth history in registers.  Under autograd the forward saves each
+slab step's entry state, 5 floats a ray and step
+(:func:`stagewise_residual_bytes`), and the backward replays the step's
+stages from it.  They replace, on these routes, the per-stage loop over the
+sampler kernels of ``march_dense_sampler.py`` (the ports of the TPU kernels
+``photon_tpu/ops/march_dense_pallas.py::_fwd_kernel`` and ``_bwd_kernel``),
+which the JAX package runs because its fused kernels cover neither
+integrator's residual.
+
+Dispatch on the card: Euler, RK4 and RK4 with substeps without gradients run
+K1's plain head; Euler and RK4 under autograd run its residual head and a
+backward kernel (algorithm 3 with one substep is RK4); Adams-Bashforth
+without gradients runs the stagewise forward; Adams-Bashforth, and RK4 with
+substeps, under autograd run the stagewise forward with its residual and the
+stagewise backward while the residual fits :func:`traj_max_bytes`, and past
+it ``march_dense.march_chief_per_stage``: the plain march's loop in PyTorch
+with every integrator stage sampled by the sampler kernels.
 
 Plain version: ``march_dense.march_chief_dense`` (re-exported here as
 ``march_chief_plain``) and ``torch.autograd`` through it.
-``march_chief_fused.launches``, ``march_backward_stage.launches`` and
-``march_backward_remarch.launches`` count kernel launches; each has a
+``march_chief_fused.launches``, ``march_backward_stage.launches``,
+``march_backward_remarch.launches``, ``march_forward_stagewise.launches`` and
+``march_backward_stagewise.launches`` count kernel launches; each has a
 ``launches_large`` beside it that counts those on a slab over 256 x 256.
 """
 from __future__ import annotations
@@ -97,6 +113,12 @@ def traj_max_bytes(w: int, h: int) -> int:
 def stage_rows(algorithm: int) -> int:
     """Floats of stage residual per ray and slab step."""
     return 5 if algorithm == 1 else 20
+
+
+def stagewise_residual_bytes(P: int, d: int) -> int:
+    """Bytes of the stagewise march's residual for P rays through a volume
+    of d slabs in z: one entry state (5 floats) a ray and slab step."""
+    return int(P) * (int(d) - 1) * 5 * 4
 
 
 # The re-march backward rebuilds each step's entry state from its exit state:
@@ -154,21 +176,25 @@ def defect_iterations(geom, contraction: float = 0.0) -> int:
 
 
 def _check_march_tensors(field, algorithm: int, interpolation_scheme: int,
-                         **tensors):
+                         *, algorithms=(1, 2), traj_rows=None, **tensors):
     """Field (D, H, W, 4); rays, outputs and cotangents (6, P); the raw exit
     T (3, P); the stage residual (D - 1, rows, P): contiguous float32 on the
-    field's device."""
-    if algorithm not in (1, 2):
-        raise ValueError(f"no gradient-route kernel for algorithm {algorithm}")
+    field's device.  ``algorithms``: those the kernel takes; ``traj_rows``:
+    the residual's rows (by default ``stage_rows(algorithm)``)."""
+    if algorithm not in algorithms:
+        raise ValueError(f"no march kernel of this route for algorithm "
+                         f"{algorithm}")
     check_scheme(interpolation_scheme)
     kernels.check_kernel_input("field", field, None, torch.float32)
     if field.dim() != 4 or field.shape[-1] != 4:
         raise ValueError(f"field: expected (D, H, W, 4), got "
                          f"{tuple(field.shape)}")
     check_slab_extent(field.shape[2], field.shape[1])
+    if not tensors:
+        return
     P = tensors["rays"].shape[-1]
-    shapes = {"texit": (3, P),
-              "traj": (field.shape[0] - 1, stage_rows(algorithm), P)}
+    rows = stage_rows(algorithm) if traj_rows is None else traj_rows
+    shapes = {"texit": (3, P), "traj": (field.shape[0] - 1, rows, P)}
     for name, t in tensors.items():
         kernels.check_kernel_input(name, t, field.device, torch.float32)
         want = shapes.get(name, (6, P))
@@ -177,25 +203,27 @@ def _check_march_tensors(field, algorithm: int, interpolation_scheme: int,
                              f"{tuple(t.shape)}")
 
 
+def _check_ray_rows(field, rays) -> None:
+    """Six (P,) chief-ray tensors: contiguous float32 on the field's
+    device."""
+    if len(rays) != 6:
+        raise ValueError(f"rays: expected six tensors, got {len(rays)}")
+    for t in rays:
+        kernels.check_kernel_input("rays", t, field.device, torch.float32)
+        if t.shape != rays[0].shape or t.dim() != 1:
+            raise ValueError(f"rays: expected six tensors of shape "
+                             f"{tuple(rays[0].shape)}, got {tuple(t.shape)}")
+
+
 def march_forward_noresidual(field, rays, geom, algorithm: int,
                              substeps: int, interpolation_scheme: int = 1):
     """Launch the head that keeps no residual: six (P,) chief-ray tensors -> the (6, P)
     outputs of the march.  Euler, RK4, or RK4 with ``substeps``; ``field``
     holds B-spline coefficients for scheme 2 (here and in the launchers
     below)."""
-    if algorithm not in (1, 2, 3):
-        raise ValueError(f"no fused march kernel for algorithm {algorithm}")
-    check_scheme(interpolation_scheme)
-    kernels.check_kernel_input("field", field, None, torch.float32)
-    if field.dim() != 4 or field.shape[-1] != 4:
-        raise ValueError(f"field: expected (D, H, W, 4), got "
-                         f"{tuple(field.shape)}")
-    check_slab_extent(field.shape[2], field.shape[1])
-    for t in rays:
-        kernels.check_kernel_input("rays", t, field.device, torch.float32)
-        if t.shape != rays[0].shape or t.dim() != 1:
-            raise ValueError(f"rays: expected six tensors of shape "
-                             f"{tuple(rays[0].shape)}, got {tuple(t.shape)}")
+    _check_march_tensors(field, algorithm, interpolation_scheme,
+                         algorithms=(1, 2, 3))
+    _check_ray_rows(field, rays)
     d, h, w, _ = field.shape
     P = rays[0].shape[0]
     out = torch.empty((6, P), dtype=torch.float32, device=field.device)
@@ -281,8 +309,71 @@ def march_backward_remarch(field, rays, texit, out, ct, geom, algorithm: int,
     return d_field, d_rays
 
 
+def march_forward_stagewise(field, rays, geom, algorithm: int, substeps: int,
+                            interpolation_scheme: int = 1,
+                            save_residual: bool = False):
+    """Launch the stagewise march: six (P,) chief-ray tensors -> ``(out,
+    texit, traj)``: the (6, P) outputs, and with ``save_residual`` the
+    (3, P) raw exit T and the (S, 5, P) entry states of the slab steps
+    (else None, None).  Algorithm 4, or 3 with ``substeps``."""
+    if int(substeps) < 1:
+        raise ValueError(f"substeps must be >= 1, got {substeps}")
+    _check_march_tensors(field, algorithm, interpolation_scheme,
+                         algorithms=(3, 4))
+    _check_ray_rows(field, rays)
+    d, h, w, _ = field.shape
+    P = rays[0].shape[0]
+    out = torch.empty((6, P), dtype=torch.float32, device=field.device)
+    texit = traj = None
+    if save_residual:
+        texit = torch.empty((3, P), dtype=torch.float32, device=field.device)
+        traj = torch.empty((d - 1, 5, P), dtype=torch.float32,
+                           device=field.device)
+    lib = kernels.load("march_dense")
+    with torch.cuda.device(field.device):
+        code = lib.photon_march_stagewise(
+            *(t.data_ptr() for t in rays), field.data_ptr(), out.data_ptr(),
+            None if texit is None else texit.data_ptr(),
+            None if traj is None else traj.data_ptr(), P, w, h, d,
+            geom.ctypes.data, int(algorithm), int(substeps),
+            int(interpolation_scheme), kernels.current_stream(field.device))
+    kernels.check_launch(code, "photon_march_stagewise")
+    count_launch(march_forward_stagewise, w, h)
+    return out, texit, traj
+
+
+def march_backward_stagewise(field, rays, texit, traj, ct, geom,
+                             algorithm: int, substeps: int,
+                             interpolation_scheme: int = 1):
+    """Launch the stagewise backward: ``(d_field, d_rays)`` from the
+    cotangent ``ct`` (6, P) of the march's outputs, the (6, P) chief rays
+    and what :func:`march_forward_stagewise` saved."""
+    if int(substeps) < 1:
+        raise ValueError(f"substeps must be >= 1, got {substeps}")
+    _check_march_tensors(field, algorithm, interpolation_scheme,
+                         algorithms=(3, 4), traj_rows=5, rays=rays,
+                         texit=texit, traj=traj, ct=ct)
+    d, h, w, _ = field.shape
+    d_field = torch.zeros_like(field)
+    d_rays = torch.empty_like(rays)
+    lib = kernels.load("march_bwd")
+    with torch.cuda.device(field.device):
+        code = lib.photon_march_stagewise_bwd(
+            rays.data_ptr(), texit.data_ptr(), traj.data_ptr(), ct.data_ptr(),
+            field.data_ptr(), d_field.data_ptr(), d_rays.data_ptr(),
+            rays.shape[1], w, h, d, geom.ctypes.data, int(algorithm),
+            int(substeps), int(interpolation_scheme),
+            kernels.current_stream(field.device))
+    kernels.check_launch(code, "photon_march_stagewise_bwd")
+    count_launch(march_backward_stagewise, w, h)
+    return d_field, d_rays
+
+
 march_backward_stage.launches = march_backward_stage.launches_large = 0
 march_backward_remarch.launches = march_backward_remarch.launches_large = 0
+march_forward_stagewise.launches = march_forward_stagewise.launches_large = 0
+march_backward_stagewise.launches = 0
+march_backward_stagewise.launches_large = 0
 
 
 class _March(torch.autograd.Function):
@@ -315,6 +406,31 @@ class _March(torch.autograd.Function):
                 field, rays, texit, res, ct, ctx.geom, ctx.algorithm,
                 ctx.defect_iters, ctx.scheme)
         return d_field, d_rays, None, None, None, None, None
+
+
+class _MarchStagewise(torch.autograd.Function):
+    """The stagewise march on the card with its backward kernel: field
+    (B-spline coefficients for scheme 2) and (6, P) chief rays -> (6, P)
+    outputs; algorithm 4, or 3 with ``substeps``."""
+
+    @staticmethod
+    def forward(ctx, field, rays, geom, algorithm, substeps, scheme):
+        out, texit, traj = march_forward_stagewise(
+            field, rays.unbind(0), geom, algorithm, substeps, scheme,
+            save_residual=True)
+        ctx.geom, ctx.algorithm, ctx.substeps, ctx.scheme = (
+            geom, algorithm, substeps, scheme)
+        ctx.save_for_backward(field, rays, texit, traj)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        field, rays, texit, traj = ctx.saved_tensors
+        d_field, d_rays = march_backward_stagewise(
+            field, rays, texit, traj, ct.contiguous(), ctx.geom,
+            ctx.algorithm, ctx.substeps, ctx.scheme)
+        return d_field, d_rays, None, None, None, None
 
 
 def march_chief_fused(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
@@ -353,8 +469,11 @@ def march_chief_fused(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     if P == 0:
         return tuple(torch.empty((6, 0), dtype=torch.float32,
                                  device=dev).unbind(0))
-    if algorithm == 4 or (needs_grad and substeps > 1):
-        # no fused kernel covers these: the per-stage sampler kernels
+    w, h, d = (int(n) for n in vol.sizes)
+    stagewise = algorithm == 4 or (needs_grad and substeps > 1)
+    if stagewise and needs_grad and (stagewise_residual_bytes(P, d)
+                                     > traj_max_bytes(w, h)):
+        # past the residual's budget: the per-stage sampler kernels
         return march_chief_per_stage(
             vol, *rays, algorithm=algorithm,
             interpolation_scheme=interpolation_scheme, substeps=substeps)
@@ -362,12 +481,22 @@ def march_chief_fused(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     field = vol.field
     if interpolation_scheme == 2:
         field = bspline_prefilter(field)
+    if stagewise and not needs_grad:
+        out, _, _ = march_forward_stagewise(field, rays, geom, algorithm,
+                                            substeps, interpolation_scheme)
+        return tuple(out.unbind(0))
+    if stagewise:
+        out = _MarchStagewise.apply(field, torch.stack(rays), geom,
+                                    int(algorithm), int(substeps),
+                                    int(interpolation_scheme))
+        return tuple(out.unbind(0))
     if not needs_grad:
         out = march_forward_noresidual(field, rays, geom, algorithm, substeps,
                                   interpolation_scheme)
         return tuple(out.unbind(0))
 
-    w, h, d = (int(n) for n in vol.sizes)
+    # RK4 with one substep is RK4
+    algorithm = 2 if algorithm == 3 else algorithm
     save_residual = (P * (d - 1) * stage_rows(algorithm) * 4
                      <= traj_max_bytes(w, h))
     # the re-march backward is taken only after a look at its conditioning

@@ -5,9 +5,12 @@ Counterpart of ``photon_tpu/ops/march_dense_pallas.py``.
 ``(ux, uy)`` between one pair of z slabs of the (D, H, W, 4) field, blended
 linearly by ``uz``; interpolation scheme 1 is bilinear in the slab, scheme 2
 the cubic B-spline over prefiltered coefficients (4 x 4 x 2 taps).  The
-dense march calls it once per integrator stage where no fused kernel covers
-the integrator: Adams-Bashforth (algorithm 4) always, RK4 with substeps under
-autograd (``march_dense.march_chief_per_stage``).
+dense march calls it once per integrator stage on the per-stage route
+(``march_dense.march_chief_per_stage``): Adams-Bashforth (algorithm 4), or
+RK4 with substeps, under autograd where the stagewise kernels' residual
+exceeds its budget (``march_dense_fused.traj_max_bytes``); everywhere else
+the stagewise kernels of ``csrc/march_dense.cu`` and ``csrc/march_bwd.cu``
+march these integrators in one launch.
 
 Kernels: ``csrc/slab_sample.cu``.  ``photon_slab_sample`` replaces the TPU
 kernel ``march_dense_pallas._fwd_kernel`` and ``photon_slab_sample_bwd``

@@ -1,6 +1,9 @@
 """The port's kernels against their plain versions on the card, at a small
 size: the march (K1, both heads, both schemes, two rays a thread under the
 trilinear one) against the plain march, rays in input order and shuffled;
+the stagewise march (Adams-Bashforth, RK4 with substeps) and its backward
+against the plain march and autograd through it, both schemes, one slab over
+256 x 256;
 the fan statistics (K2) against the plain fan, three lens models; the
 march's stage and re-march backward (K4, K5) against autograd through the
 plain march, both schemes, rays in bunches that share voxels (the merged
@@ -27,7 +30,8 @@ from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
                                               march_chief_dense,
                                               march_geometry)
 from photon_tpu_torch.ops.march_dense_fused import (march_chief_fused,
-                                                    march_forward_residual)
+                                                    march_forward_residual,
+                                                    march_forward_stagewise)
 from photon_tpu_torch.ops.march_dense_sampler import (slab_sample_backward,
                                                       slab_sample_plain)
 from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
@@ -48,15 +52,30 @@ def _nerr(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _march_scene(dev, p=3000, n=12, seed=3):
+def _march_scene(dev, p=3000, n=12, seed=3, nxy=None):
     """A random 12^3 volume; rays in bunches of 40 that share their voxels
     (the source points of a dot), then scattered ones, some starting inside
-    or below the volume or travelling up; p is no multiple of 32."""
+    or below the volume or travelling up; p is no multiple of 32.  With
+    `nxy`, an nxy x nxy x n volume of a smooth density instead: on voxel
+    noise at 260 voxels across, the rays cross a voxel face of the
+    trilinear gradient at every few microns, and the plain march's own f32
+    gradient differs from its f64 one by 6e-3..8e-2 of the maximum (K4's
+    from the plain march by 4.8e-2; NVIDIA H100 80GB HBM3, 700 W), so no
+    kernel can be held to 5e-4 there."""
     rng = np.random.default_rng(seed)
-    rx = np.linspace(-6e4, 6e4, n)
+    nxy = nxy or n
+    rx = np.linspace(-6e4, 6e4, nxy)
     rz = np.linspace(4.0e5, 9.0e5, n)
+    if nxy == n:
+        rho = 1.2 + 0.8 * rng.random((n, n, n))
+    else:
+        u = np.linspace(0.0, 1.0, nxy)
+        w = np.linspace(0.0, 1.0, n)
+        rho = 1.2 + 0.4 * (1.0 + np.sin(2.0 * np.pi * (1.3 * u + 0.2))[
+            :, None, None] * np.cos(2.0 * np.pi * 0.9 * u)[None, :, None]
+            * (0.6 + 0.4 * np.sin(2.0 * np.pi * w))[None, None, :])
     vol = build_density_volume(
-        1.2 + 0.8 * rng.random((n, n, n)), [rx[1] - rx[0]] * 2
+        rho, [rx[1] - rx[0]] * 2
         + [rz[1] - rz[0]], [rx[0], rx[0], rz[0]], device=dev)
     b = p // 40 + 1
     x0 = np.repeat(rng.uniform(-4e4, 4e4, b), 40)[:p] + rng.uniform(-200, 200, p)
@@ -79,11 +98,11 @@ def _march_scene(dev, p=3000, n=12, seed=3):
     return vol, rays, cts
 
 
-def _grads(march, vol, rays, cts, algorithm, scheme):
+def _grads(march, vol, rays, cts, algorithm, scheme, substeps=None):
     fld = vol.field.detach().clone().requires_grad_(True)
     rr = [r.detach().clone().requires_grad_(True) for r in rays]
     outs = march(vol._replace(field=fld), *rr, algorithm=algorithm,
-                 interpolation_scheme=scheme)
+                 interpolation_scheme=scheme, substeps=substeps)
     g = torch.autograd.grad(outs, [fld] + rr, grad_outputs=cts)
     return g[0], torch.stack(g[1:])
 
@@ -120,6 +139,71 @@ def test_march_kernel_matches_the_plain_march(algorithm, substeps, scheme):
             field, torch.stack(rays).contiguous(),
             np.asarray(g, dtype=np.float32), algorithm, True, scheme)
         assert torch.equal(out, got)
+
+
+_STAGEWISE = [(3, 2, 1, None), (3, 3, 1, None), (4, 1, 1, None),
+              (3, 2, 2, None), (3, 3, 2, None), (4, 1, 2, None),
+              (4, 1, 1, 260)]
+
+
+@pytest.mark.parametrize("algorithm,substeps,scheme,nxy", _STAGEWISE)
+def test_stagewise_march_kernel_matches_the_plain_march(algorithm, substeps,
+                                                        scheme, nxy):
+    """The stagewise forward (Adams-Bashforth, RK4 with substeps) against
+    the plain march at K1's limits (positions to 5e-6 of the volume's
+    largest coordinate, directions to 5e-6), on the 12^3 scene and on a
+    260 x 260 x 12 one (a slab over 256 x 256); the head that saves the
+    residual gives the other head's bits, and shuffled rays their own (the
+    large slab's density is smooth: _march_scene)."""
+    dev = _card()
+    vol, rays, _ = _march_scene(dev, p=3001, nxy=nxy)
+    g = march_geometry(vol)
+    scale = max(abs(float(v)) for v in (g.min_x, g.min_y, g.z_min, g.z_max))
+    field = bspline_prefilter(vol.field) if scheme == 2 else vol.field
+    geom = np.asarray(g, dtype=np.float32)
+    got, _, _ = march_forward_stagewise(field, rays, geom, algorithm,
+                                        substeps, scheme)
+    ref = torch.stack(march_chief_dense(
+        vol, *rays, algorithm=algorithm, substeps=substeps,
+        interpolation_scheme=scheme))
+    assert bool(torch.isfinite(got).all())
+    assert float((got[:3] - ref[:3]).abs().max()) / scale <= 5e-6
+    assert float((got[3:] - ref[3:]).abs().max()) <= 5e-6
+    with_res, texit, traj = march_forward_stagewise(
+        field, rays, geom, algorithm, substeps, scheme, save_residual=True)
+    assert torch.equal(with_res, got)
+    assert traj.shape == (field.shape[0] - 1, 5, rays[0].shape[0])
+    perm = torch.randperm(rays[0].shape[0], device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    shuffled, _, _ = march_forward_stagewise(
+        field, [r[perm].contiguous() for r in rays], geom, algorithm,
+        substeps, scheme)
+    assert torch.equal(shuffled, got[:, perm])
+
+
+@pytest.mark.parametrize("algorithm,substeps,scheme,nxy", _STAGEWISE)
+def test_stagewise_backward_kernel_matches_autograd(algorithm, substeps,
+                                                    scheme, nxy):
+    """The stagewise backward against autograd through the plain march:
+    d_field to 5e-4 of its maximum and the rays' cotangents to 1e-3 of
+    theirs, the limits of the backward kernels K4 and K5.  One launch each
+    way and no sampler launch."""
+    dev = _card()
+    from photon_tpu_torch.ops import march_dense_fused as mdf
+    from photon_tpu_torch.ops import march_dense_sampler as mds
+    vol, rays, cts = _march_scene(dev, nxy=nxy)
+    ref_f, ref_r = _grads(march_chief_dense, vol, rays, cts, algorithm,
+                          scheme, substeps)
+    fin = torch.isfinite(ref_r)
+    wrappers = (mdf.march_forward_stagewise, mdf.march_backward_stagewise,
+                mds.slab_sample_forward, mds.slab_sample_backward)
+    before = [w.launches for w in wrappers]
+    d_f, d_r = _grads(march_chief_fused, vol, rays, cts, algorithm, scheme,
+                      substeps)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 0, 0]
+    assert _nerr(d_f, ref_f) <= 5e-4
+    assert max(_nerr(a[f], b[f]) for a, b, f in zip(d_r, ref_r, fin)
+               if bool(f.any())) <= 1e-3
 
 
 @pytest.mark.parametrize("lens_model", ["general", "thin-lens", "apparent"])

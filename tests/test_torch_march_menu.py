@@ -332,21 +332,113 @@ def meta_scene(small, monkeypatch):
     return tv._replace(field=field), ts, calls
 
 
+@pytest.fixture
+def stagewise_calls(monkeypatch):
+    """Replaces the stagewise forward's launcher: records (algorithm,
+    substeps, scheme, save_residual) and raises."""
+    calls = []
+
+    def stagewise(field, rays, geom, algorithm, substeps,
+                  interpolation_scheme=1, save_residual=False):
+        calls.append((algorithm, substeps, interpolation_scheme,
+                      save_residual))
+        raise _Reached
+
+    monkeypatch.setattr(mdf, "march_forward_stagewise", stagewise)
+    return calls
+
+
 @pytest.mark.parametrize("scheme", [1, 2])
-def test_card_route_of_ab4_reaches_the_sampler_kernel(meta_scene, scheme):
+def test_card_route_of_ab4_reaches_the_sampler_kernel(meta_scene, monkeypatch,
+                                                      stagewise_calls, scheme):
+    """Under autograd with the residual's budget at 0, Adams-Bashforth takes
+    the per-stage route: the sampler kernel, not the stagewise march."""
     vol, ts, calls = meta_scene
+    vol = vol._replace(field=vol.field.requires_grad_(True))
+    monkeypatch.setattr(mdf, "TRAJ_MAX_BYTES", 0)
     with pytest.raises(_Reached):
         march_chief_fused(vol, *ts, algorithm=4, interpolation_scheme=scheme)
-    assert calls == [scheme]
+    assert calls == [scheme] and stagewise_calls == []
 
 
 def test_card_route_of_substeps_with_gradient_reaches_the_sampler_kernel(
-        meta_scene):
+        meta_scene, monkeypatch, stagewise_calls):
+    """As above for RK4 with substeps under autograd."""
+    vol, ts, calls = meta_scene
+    vol = vol._replace(field=vol.field.requires_grad_(True))
+    monkeypatch.setattr(mdf, "TRAJ_MAX_BYTES", 0)
+    with pytest.raises(_Reached):
+        march_chief_fused(vol, *ts, algorithm=3, substeps=2)
+    assert calls == [1] and stagewise_calls == []
+
+
+@pytest.mark.parametrize("scheme", [1, 2])
+def test_card_route_of_ab4_without_gradient_reaches_the_stagewise_march(
+        meta_scene, stagewise_calls, scheme):
+    vol, ts, calls = meta_scene
+    with pytest.raises(_Reached):
+        march_chief_fused(vol, *ts, algorithm=4, interpolation_scheme=scheme)
+    assert stagewise_calls == [(4, 1, scheme, False)] and calls == []
+
+
+@pytest.mark.parametrize("algorithm,scheme,substeps",
+                         [(4, 1, None), (4, 2, None), (3, 1, 2), (3, 2, 3)])
+def test_card_route_with_gradient_reaches_the_stagewise_march_with_residual(
+        meta_scene, stagewise_calls, algorithm, scheme, substeps):
+    """Adams-Bashforth, and RK4 with substeps, under autograd while the
+    residual fits its budget: the stagewise forward, saving its residual."""
     vol, ts, calls = meta_scene
     vol = vol._replace(field=vol.field.requires_grad_(True))
     with pytest.raises(_Reached):
-        march_chief_fused(vol, *ts, algorithm=3, substeps=2)
-    assert calls == [1]
+        march_chief_fused(vol, *ts, algorithm=algorithm,
+                          interpolation_scheme=scheme, substeps=substeps)
+    assert stagewise_calls == [(algorithm, substeps or 1, scheme, True)]
+    assert calls == []
+
+
+def test_stagewise_residual_bytes_is_the_hand_count():
+    """One entry state, 5 float32, a ray and slab step: the bench's 120,000
+    chief rays through 64^3 (63 slab steps) and 512^3 (511)."""
+    assert mdf.stagewise_residual_bytes(120_000, 64) == 151_200_000
+    assert mdf.stagewise_residual_bytes(120_000, 512) == 1_226_400_000
+    assert mdf.stagewise_residual_bytes(9, 8) == 9 * 7 * 5 * 4
+
+
+def test_card_route_of_substeps_one_with_gradient_reaches_the_residual_head(
+        meta_scene, monkeypatch):
+    """Algorithm 3 with one substep under autograd is RK4: K1's residual
+    head (its launcher takes algorithms 1 and 2 only)."""
+    vol, ts, calls = meta_scene
+    vol = vol._replace(field=vol.field.requires_grad_(True))
+
+    def load(name):
+        raise _Reached(name)
+
+    monkeypatch.setattr(mdf.kernels, "load", load)
+    with pytest.raises(_Reached, match="march_dense"):
+        march_chief_fused(vol, *ts, algorithm=3, substeps=1)
+    assert calls == []
+
+
+def test_stagewise_launchers_reach_their_libraries(meta_scene, monkeypatch):
+    """With inputs they take, the stagewise launchers load their kernel's
+    library (what they refuse: tests/test_torch_package.py)."""
+    vol, ts, _ = meta_scene
+
+    def load(name):
+        raise _Reached(name)
+
+    monkeypatch.setattr(mdf.kernels, "load", load)
+    geom = np.asarray(md.march_geometry(vol), np.float32)
+    field, P = vol.field, ts[0].shape[0]
+    with pytest.raises(_Reached, match="march_dense"):
+        mdf.march_forward_stagewise(field, ts, geom, 4, 1, 2, True)
+    rays = torch.empty(6, P, device="meta")
+    with pytest.raises(_Reached, match="march_bwd"):
+        mdf.march_backward_stagewise(
+            field, rays, torch.empty(3, P, device="meta"),
+            torch.empty(field.shape[0] - 1, 5, P, device="meta"), rays, geom,
+            3, 2)
 
 
 @pytest.mark.parametrize("algorithm,scheme,substeps",
