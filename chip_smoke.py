@@ -78,11 +78,13 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    shares, the per-ray deposits' device time, the gradient against the
    plain versions and the peak device memory of the step;
 11. drives the exact-semantics renderer at the bench's size (phase 11,
-   after phase 10; plain PyTorch, no kernel of the port launches): the
-   reference sample scene's camera (rotated by 5 pi / 6, the thin lens,
-   Euler) through the command line with a 64^3 ramp across its world-frame
-   rays, the unrotated bench pair forced onto the exact path against the
-   fast renderer, a tilted train with a stop (the bench source, then the
+   after phase 10; plain PyTorch, no kernel of the port launches but K11
+   where the cubic scheme prefilters): the reference sample scene's camera
+   (rotated by 5 pi / 6, the thin lens, Euler) through the command line
+   with a 64^3 ramp across its world-frame rays, the unrotated bench pair
+   forced onto the exact path against the fast renderer, and its im2 with
+   the cubic scheme on every tenth particle (one K11 launch), a tilted
+   train with a stop (the bench source, then the
    PIV sample's frame 1 with Mie and dispersion), and the exact march's
    gradient on the bench's chief rays; seconds, rays/s, a traced busy
    share, peak memory, each against the same work on the CPU;
@@ -101,7 +103,20 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    card (each rank's launches held to its share of the particles, the
    image and the gradient against the unsharded ones, the ms of a render
    and of the image's all-reduce), then dryrun_multichip(1) on the card;
-14. prints one JSON line describing the kernels and, last, one JSON line
+14. holds the volume's preparation on the card (phase 14, after phase 13;
+   ``photon_tpu_torch/native.py``, ``csrc/volume_prep.cu``): the gradient
+   precompute (K10) bit for bit against its plain float64 stencil on the CPU
+   on the bench's 64^3 n-1, the 288 x 288 x 64 NRRD's and, on eight z-slabs
+   with a one-voxel halo, the 512^3 grid's; the B-spline prefilter (K11)
+   against the plain prefilter and against an independent float64
+   prefilter on the host, and its transpose (K12) against autograd through
+   the plain one, at 64^3 and 512^3, with the dot-product identity and two
+   runs of each; times, bounds, peak memory, torch.gradient's time beside
+   K10, the plain prefilter's as it stood before K11 beside K11's; under
+   ``--native-only`` then the tricubic pair through the command line and
+   one step of a tricubic render's gradient, with the launches of all three
+   (the full run reads them on items 3, 5 and 6);
+15. prints one JSON line describing the kernels and, last, one JSON line
    {"ok": true, "device": {...}}.
 
 ``--large-only`` runs the build and items 7 and 8 alone; ``--splat-only``
@@ -109,7 +124,8 @@ runs the build, the splat's two kernels of item 2 (with the same spots also
 scattered over the sensor), and items 3 and 4; ``--configs-only`` runs the
 build and item 9 alone; ``--chain-only`` the build and item 10 alone;
 ``--exact-only`` the build and item 11 alone; ``--menu-only`` the build and
-item 12 alone; ``--mesh-only`` the build and item 13 alone.
+item 12 alone; ``--mesh-only`` the build and item 13 alone; ``--native-only``
+the build and item 14 alone.
 
 Any failed phase raises: the exit code is then not 0 and no result line is
 printed.  Without a CUDA device it exits with code 2 before anything else.
@@ -651,6 +667,100 @@ def bench_volume_512(setup, dev, n=512):
         grid_spacing=spac.astype(np.float32), data_min=float(K * 1.225),
         step_size=float(spac.min()), max_step_size=float(spac.max()))
     return vol, (gx, gz, amp)
+
+
+def prefilter_f64(field):
+    """An independent prefilter for phase 14's check of K11: the same
+    function (pole sqrt(3) - 2, the causal start over min(n, 13) terms, the
+    mirrored anticausal start) in float64 on the host, with the constants
+    unrounded, each line run in place on an axis moved to the front.
+    (D, H, W, C) tensor -> float64 CPU tensor."""
+    import torch
+
+    z = math.sqrt(3.0) - 2.0
+    lam = (1.0 - z) * (1.0 - 1.0 / z)
+    out = field.detach().cpu().double()
+    for axis in range(3):
+        a = out.movedim(axis, 0).contiguous()
+        n = a.shape[0]
+        zk = torch.tensor([z ** k for k in range(min(n, 13))],
+                          dtype=torch.float64)
+        start = torch.tensordot(zk, a[:len(zk)], dims=1)
+        a.mul_(lam)
+        a[0] = lam * start
+        for i in range(1, n):
+            a[i].add_(a[i - 1], alpha=z)
+        a[n - 1] = z / (z * z - 1.0) * (z * a[n - 2] + a[n - 1])
+        for i in range(n - 2, -1, -1):
+            a[i] = z * (a[i + 1] - a[i])
+        out = a.movedim(0, axis)
+    return out
+
+
+def prefilter_stacked(field):
+    """The port's plain prefilter as it stood before K11 (it summed the
+    causal start over a stacked axis, in an order of PyTorch's choosing):
+    phase 14 times it as the plain version's earlier cost and reads its
+    distance from prefilter_f64.  Not used by the port."""
+    import numpy as np
+    import torch
+
+    pole = float(np.sqrt(3.0) - 2.0)
+    f = np.float32
+    z = f(pole)
+    lam = float(f((1.0 - pole) * (1.0 - 1.0 / pole)))
+    last = float(z / (z * z - f(1.0)))
+    z = float(z)
+    out = field
+    for axis in (0, 1, 2):
+        xs = out.movedim(axis, 0).unbind(0)
+        n = len(xs)
+        horizon = min(n, max(12, int(math.ceil(math.log(1e-7)
+                                               / math.log(abs(pole))))))
+        zk = torch.as_tensor((pole ** np.arange(horizon)).astype(f),
+                             device=out.device)
+        zk = zk.reshape((horizon,) + (1,) * (out.dim() - 1))
+        causal = [lam * (zk * torch.stack(xs[:horizon])).sum(0)]
+        for i in range(1, n):
+            causal.append(lam * xs[i] + z * causal[-1])
+        res = [None] * n
+        res[n - 1] = last * (z * causal[n - 2] + causal[n - 1])
+        for i in range(n - 2, -1, -1):
+            res[i] = z * (res[i + 1] - causal[i])
+        out = torch.stack(res).movedim(0, axis)
+    return out.contiguous()
+
+
+def nrrd_288(setup):
+    """The 288 x 288 x 64 volume of phase 7's NRRD: the 512^3 bench field's
+    Gaussian (bench_volume_512) on a coarser grid.  Returns (rho (W, H, D)
+    float64, spacings, origin) in the NRRD frame."""
+    import numpy as np
+
+    n_l, n_z = 288, 64
+    xh = np.linspace(-1.5e5, 1.5e5, n_l)
+    zh = np.linspace(setup.object_distance - 5e5,
+                     setup.object_distance - 1e2, n_z)
+    gxh = np.exp(-(xh / (0.35 * (xh.max() - xh.min()))) ** 2 / 2.0)
+    gzh = np.exp(-((zh - 0.5 * (zh.min() + zh.max()))
+                   / (0.35 * (zh.max() - zh.min()))) ** 2 / 2.0)
+    rho = 1.225 + 2.0 * gxh[:, None, None] * gxh[None, :, None] \
+        * gzh[None, None, :]
+    return rho, [xh[1] - xh[0], xh[1] - xh[0], zh[1] - zh[0]], \
+        [xh[0], xh[0], zh[0]]
+
+
+def with_peak_above(fn, dev):
+    """fn()'s result and the device memory it held at its peak above what
+    was allocated before it, in GB."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (torch.cuda.max_memory_allocated(dev) - base) / 1e9
 
 
 def volume_across_rays(setup, half, n=64, fracs=(0.1, 0.6)):
@@ -1558,6 +1668,13 @@ def main(argv=None) -> int:
                       "and a gloo world of two processes on the card, then "
                       "dryrun_multichip(1)); its launch counts are printed "
                       "per rank and the kernels line is empty")
+    only.add_argument("--native-only", action="store_true",
+                      help="after the build, run phase 14 alone (the volume's "
+                      "preparation: K10, K11 and K12 against their plain "
+                      "versions and K11 against a float64 prefilter, then "
+                      "the tricubic pair and a tricubic gradient step through "
+                      "the entry points); the kernels line then lists "
+                      "K10-K12")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1571,7 +1688,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from photon_tpu_torch import kernels
+    from photon_tpu_torch import kernels, native
     from photon_tpu_torch.cli import main as cli_main
     from photon_tpu_torch.models.render_fast import auto_patch
 
@@ -1582,6 +1699,7 @@ def main(argv=None) -> int:
     from photon_tpu_torch.ops.fan import (fan_backward_constants, fan_stats,
                                           fan_stats_backward, fan_stats_plain)
     from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
+                                                  bspline_prefilter_plain,
                                                   chief_deltas_dense,
                                                   march_chief_dense,
                                                   march_chief_per_stage,
@@ -2012,7 +2130,10 @@ def main(argv=None) -> int:
             slab_sample=slab_sample_forward,
             slab_sample_bwd=slab_sample_backward, fan_stats=fan_stats,
             fan_stats_bwd=fan_stats_backward, splat=splat_particles,
-            splat_bwd=splat_backward)
+            splat_bwd=splat_backward,
+            gradient_field=native.launch_gradient_field,
+            prefilter=native.launch_prefilter,
+            prefilter_bwd=native.launch_prefilter_bwd)
         tiered = ("march", "march_bwd_stage", "march_bwd_remarch",
                   "march_stagewise", "march_stagewise_bwd", "slab_sample",
                   "slab_sample_bwd")
@@ -2458,13 +2579,18 @@ def main(argv=None) -> int:
         # the bench volume, and noise slabs with coordinates beyond the clamps
         print(f"    K8 / K9 on a {n5} x {n5} slab pair against the plain "
               f"sampler and autograd through it")
-        coeff5, prefilter5_gb = with_peak(lambda: bspline_prefilter(
-            vol5.field))
-        prefilter5_ms = time_ms(lambda: bspline_prefilter(vol5.field), reps=2,
-                                warm=0)
-        print(f"    prefilter of the {n5}^3 field (PyTorch): "
-              f"{prefilter5_ms:.1f} ms, peak device memory "
-              f"{prefilter5_gb:.2f} GB  [{card}]")
+        prefilter5_plain_ms = time_ms(
+            lambda: bspline_prefilter_plain(vol5.field), reps=2, warm=0)
+        prefilter5_plain_gb = with_peak_above(
+            lambda: bspline_prefilter_plain(vol5.field), dev)[1]
+        coeff5, prefilter5_gb = with_peak_above(
+            lambda: bspline_prefilter(vol5.field), dev)
+        prefilter5_ms = time_ms(lambda: bspline_prefilter(vol5.field), reps=3,
+                                warm=1)
+        print(f"    prefilter of the {n5}^3 field: K11 {prefilter5_ms:.2f} ms, "
+              f"peak {prefilter5_gb:.2f} GB above the field; the plain "
+              f"version {prefilter5_plain_ms:.1f} ms, "
+              f"{prefilter5_plain_gb:.2f} GB  [{card}]")
         ks5 = n5 // 2
         on_slab5 = (0.5 + (chief[0] - float(g5.min_x)) / float(g5.sx),
                     0.5 + (chief[1] - float(g5.min_y)) / float(g5.sy))
@@ -2619,16 +2745,7 @@ def main(argv=None) -> int:
         print("phase 7: large volumes through the entry points: cli.main on "
               "a 288 x 288 x 64 NRRD, render_image_fast on the 512^3 volume")
         n_l, n_z = 288, 64
-        xh = np.linspace(-1.5e5, 1.5e5, n_l)
-        zh = np.linspace(setup.object_distance - 5e5,
-                         setup.object_distance - 1e2, n_z)
-        gxh = np.exp(-(xh / (0.35 * (xh.max() - xh.min()))) ** 2 / 2.0)
-        gzh = np.exp(-((zh - 0.5 * (zh.min() + zh.max()))
-                       / (0.35 * (zh.max() - zh.min()))) ** 2 / 2.0)
-        rho288 = 1.225 + 2.0 * gxh[:, None, None] * gxh[None, :, None] \
-            * gzh[None, None, :]
-        spac288 = [xh[1] - xh[0], xh[1] - xh[0], zh[1] - zh[0]]
-        orig288 = [xh[0], xh[0], zh[0]]
+        rho288, spac288, orig288 = nrrd_288(setup)
         for label, alg, scheme in (("RK4, trilinear", 2, 1),
                                    ("algorithm 3, substeps from the data", 3,
                                     1)):
@@ -2661,7 +2778,8 @@ def main(argv=None) -> int:
                 march=n_march, march_bwd_stage=0, march_bwd_remarch=0,
                 march_stagewise=0, march_stagewise_bwd=0,
                 slab_sample=0, slab_sample_bwd=0, fan_stats=2 * n_chunks,
-                splat=2 * n_chunks))
+                splat=2 * n_chunks, gradient_field=1, prefilter=0,
+                prefilter_bwd=0))
             expect_counts(label + " (large tier)", large_m,
                           dict(march=n_march))
             if alg == 3:
@@ -2719,7 +2837,9 @@ def main(argv=None) -> int:
                   f"{l1_5:.3e} of the sum (tolerance 1.0e-03)  [{card}]")
             expect_counts(label, counts5, dict(
                 fan_stats=1, splat=1, march_bwd_stage=0, march_bwd_remarch=0,
-                march_stagewise_bwd=0, slab_sample_bwd=0, **want))
+                march_stagewise_bwd=0, slab_sample_bwd=0, prefilter_bwd=0,
+                prefilter=int(kw.get("interpolation_scheme", 1) == 2),
+                **want))
             expect_counts(label + " (large tier)", large5, want)
             require(bool(torch.isfinite(img5).all()) and l1_5 < 1e-3,
                     f"{label}: the 512^3 image is {l1_5} (L1) from the plain "
@@ -2979,6 +3099,8 @@ def main(argv=None) -> int:
               f"stage against re-march backward cosine {cos_c:.7f}  [{card}]")
         expect_counts("tricubic step", large_c, dict(
             march=1, march_bwd_stage=1, march_bwd_remarch=0))
+        expect_counts("tricubic step", counts_c, dict(prefilter=1,
+                                                      prefilter_bwd=1))
         require(cos_c >= 0.9999 and bool(torch.isfinite(res_c[1]).all()),
                 f"tricubic d_field: cosine {cos_c} between the two backwards")
         del res_c, g_c5
@@ -3017,8 +3139,9 @@ def main(argv=None) -> int:
               f"({rho0_5.numel() * 4 / 1e9:.2f} GB of unknowns): losses "
               f"{', '.join(f'{v:.6g}' for v in res5.losses)}; steps "
               f"{stamps[0] - t0:.3f} s and {stamps[1] - stamps[0]:.3f} s; "
-              f"the recovered volume's precompute on the host and its copy "
-              f"{t_end - stamps[1]:.1f} s; launches {counts_i}, large tier "
+              f"the recovered volume (build_density_volume on the card: "
+              f"K10) {t_end - stamps[1]:.3f} s; launches {counts_i}, large "
+              f"tier "
               f"{large_i}; peak device memory {peak_i:.2f} GB  [{card}]")
         require(all(math.isfinite(v) for v in res5.losses),
                 "a loss of the 512^3 inversion is not finite")
@@ -3030,7 +3153,8 @@ def main(argv=None) -> int:
         expect_counts("invert_bos at 512^3", counts_i, dict(
             march=2, march_bwd_stage=2, march_bwd_remarch=0, fan_stats=2,
             fan_stats_bwd=2, splat=2, splat_bwd=2, slab_sample=0,
-            slab_sample_bwd=0))
+            slab_sample_bwd=0, gradient_field=1, prefilter=0,
+            prefilter_bwd=0))
         expect_counts("invert_bos at 512^3 (large tier)", large_i,
                       dict(march=2, march_bwd_stage=2))
         rows[1]["launches_inversion"] = large_i["march_bwd_stage"]
@@ -3810,7 +3934,9 @@ def main(argv=None) -> int:
         traced im2 (every tenth particle), the peak device memory, im2
         against the CPU on every thousandth particle, two runs.  (b) The unrotated bench pair forced
         onto the exact path (RK4, the general lens) against
-        render_image_fast.  (c) The camera's lens tilted by 0.02 rad behind
+        render_image_fast, and its im2 with the cubic scheme (K11 once) on
+        every tenth particle against render_image_fast's and, on every
+        4000th, the CPU's.  (c) The camera's lens tilted by 0.02 rad behind
         a stop that culls: the bench's source with no volume, then the CLI's
         PIV sample's frame 1 with Mie scattering and a finite Abbe number,
         each against the CPU on a subsample.  (d) march_rays(differentiable=
@@ -4018,6 +4144,50 @@ def main(argv=None) -> int:
         print(f"    (b) exact im2 against exact im1: L1 {moved:.3e}")
         require(moved > 0.05, "(b) the volume does not move im2")
         del e1, e2, f1, f2
+        # (b) the exact path's cubic scheme: make_march_fn prefilters the
+        # field once (K11 on the card), on every tenth particle (the
+        # trilinear im2 of every particle took 42 s), against the fast
+        # renderer's tricubic im2 and against the CPU on every 4000th (every
+        # thousandth took the host 55 s)
+        vol_cpu = vol._replace(field=vol.field.cpu())
+
+        def exact_cubic(source_, device_):
+            return exact.render_image(
+                cfg, setup, source_, r1, r2,
+                march_fn=make_march_fn(vol if device_ == dev else vol_cpu,
+                                       algorithm=2, interpolation_scheme=2),
+                rays_per_chunk=budget, device=device_)
+
+        sub_b = subset(source, slice(0, P, 10))
+        with torch.no_grad():
+            zero()
+            native.launch_prefilter.launches = 0
+            e2c, s_e2c = timed(lambda: exact_cubic(sub_b, dev))
+            counts_b = dict(counts_now(),
+                            prefilter=int(native.launch_prefilter.launches))
+            f2c = render_image_fast(cfg, setup, sub_b, r1, r2, vol=vol,
+                                    algorithm=2, interpolation_scheme=2,
+                                    particles_per_chunk=chunk, device=dev)
+        print(f"    (b) exact tricubic RK4 im2 of every tenth particle "
+              f"({sub_b.num_particles}): launches {counts_b}")
+        require(counts_b == {k: int(k == "prefilter") for k in counts_b}
+                and len(counts_b) > 1,
+                f"(b) the exact tricubic render launched {counts_b}, not "
+                f"K11 once")
+        d = rel_l1(f2c.cpu().numpy(), e2c.cpu().numpy())
+        rays_b = sub_b.num_particles * R
+        print(f"    (b) exact tricubic im2: {s_e2c:.3f} s, "
+              f"{rays_b / s_e2c / 1e6:.2f}M rays/s; the fast renderer's "
+              f"tricubic im2 against it: L1 {d:.3e} of the sum (bound "
+              f"5e-02)  [{card}]")
+        require(float(e2c.sum()) > 0 and d < 5e-2,
+                f"(b) tricubic: fast against exact L1 {d}")
+        del e2c, f2c
+        sub_k = subset(source, slice(0, P, 4000))
+        against_cpu(f"(b) exact tricubic im2 of every 4000th particle "
+                    f"({sub_k.num_particles})",
+                    lambda d_: exact_cubic(sub_k, d_))
+        del vol_cpu
 
         # (c) a tilted train with a stop that culls
         def tilted_train(c, abbe=None, stop=True):
@@ -4159,6 +4329,374 @@ def main(argv=None) -> int:
         print(f"    phase 11 took {wall:.1f} s  [{card}]")
         return euler_im2
 
+    def native_phase(on=None):
+        """Phase 14: the volume's preparation on the card (K10, K11, K12 of
+        csrc/volume_prep.cu) against the plain versions, timed beside their
+        bounds, then driven through the entry points.  Returns the rows it
+        adds to the kernels line."""
+        plain_gradient = native.gradient_field_plain
+
+        print("phase 14: the volume's preparation on the card: K10 the "
+              "gradient precompute, K11 the B-spline prefilter, K12 its "
+              "transpose")
+        t_phase = time.perf_counter()
+        gd = cfg.density_gradients.gladstone_dale
+        launchers = dict(gradient_field=native.launch_gradient_field,
+                         prefilter=native.launch_prefilter,
+                         prefilter_bwd=native.launch_prefilter_bwd)
+
+        def zero():
+            for w in launchers.values():
+                w.launches = 0
+
+        def counts_now():
+            return {k: int(w.launches) for k, w in launchers.items()}
+
+        def traced_ms(run, tag, launches):
+            """Device ms of one traced run() of a kernel that no counter of
+            `counters` counts, held to its launches (else NOT_MEASURED)."""
+            got = traced(run, others={tag: launches})[1].get(tag,
+                                                             NOT_MEASURED)
+            return got if got == NOT_MEASURED else got[0]
+
+        # (a) K10 against the plain float64 stencil on the CPU, bit for bit
+        def library_gradient(nm1, spac):
+            """The same function as one PyTorch call (float32), the
+            yardstick: torch.gradient with second-order faces, stacked with
+            n-1 and laid out as the march reads it."""
+            gx_, gy_, gz_ = torch.gradient(
+                nm1, spacing=tuple(float(s) for s in spac), edge_order=2)
+            return torch.stack([gx_, gy_, gz_, nm1], -1).permute(
+                2, 1, 0, 3).contiguous()
+
+        def k10_case(label, nm1, spac, slabs=None):
+            """K10 on the (W, H, D) float32 n-1 `nm1` (on the card): held to
+            the plain stencil on the CPU, on the whole grid or on `slabs`
+            (z starts of four planes each, with a one-voxel halo), timed."""
+            got = native.launch_gradient_field(nm1, spac)
+            sync()
+            d_ = nm1.shape[2]
+            differ, checked = 0, 0
+            for z0 in (slabs if slabs is not None else [None]):
+                if z0 is None:
+                    ref = plain_gradient(nm1.cpu(), spac)
+                    mine = got.cpu()
+                else:
+                    lo_, hi_ = max(0, z0 - 1), min(d_, z0 + 5)
+                    ref = plain_gradient(nm1[:, :, lo_:hi_].cpu(), spac)[
+                        z0 - lo_:z0 - lo_ + 4]
+                    mine = got[z0:z0 + 4].cpu()
+                differ += int((mine != ref).sum())
+                checked += mine.numel()
+            lib = library_gradient(nm1, spac)
+            lib_err = nerr(lib, got)
+            del lib
+            n_vox = nm1.numel()
+            ms_k = time_ms(lambda: native.launch_gradient_field(nm1, spac))
+            ms_p = time_ms(lambda: plain_gradient(nm1, spac), reps=3, warm=1)
+            ms_l = time_ms(lambda: library_gradient(nm1, spac), reps=3,
+                           warm=1)
+            dev_ms = traced_ms(lambda: native.launch_gradient_field(nm1,
+                                                                    spac),
+                               "gradient_field_kernel", 1)
+            # bytes: 4 in and 16 out a voxel; the double operations (some
+            # 15 a voxel) take a tenth of that at the card's FP64 rate
+            bnd, by = bound_ms(20 * n_vox, 0)
+            where = ("every value" if slabs is None else
+                     f"{len(slabs)} slabs of 4 z-planes")
+            print(f"    K10 {label} (plain stencil on the CPU, {where}, "
+                  f"{checked} values): {differ} differ; time {ms_k:.4f} ms "
+                  f"(device {ms_or_not(dev_ms, 4)}), bound {bnd:.4f} ms "
+                  f"({by}), plain version on the card {ms_p:.3f} ms, "
+                  f"torch.gradient {ms_l:.4f} ms (float32; {lib_err:.2e} of "
+                  f"the maximum from K10)  [{card}]")
+            hold(f"K10 {label}: values that differ from the plain stencil",
+                 float(differ), 0.0)
+            return dict(shape=f"{tuple(nm1.shape)} n-1 (W, H, D)",
+                        values_checked=checked, ms=ms_k, device_ms=dev_ms,
+                        plain_ms=ms_p, library_ms=ms_l, bound_ms=bnd,
+                        bound_by=by, library_err=lib_err), got
+
+        k10 = {}
+        nm1_64 = torch.from_numpy((gd * rho).astype(np.float32)).to(dev)
+        k10["64^3"], _ = k10_case("bench 64^3", nm1_64, spacings)
+        rho288, spac288, _ = nrrd_288(setup)
+        nm1_288 = torch.from_numpy(gd * rho288.astype(np.float32)).to(dev)
+        k10["288 x 288 x 64"], _ = k10_case("288 x 288 x 64 NRRD", nm1_288,
+                                            spac288)
+        del nm1_288
+        vol5, (gx5, gz5, amp5) = bench_volume_512(setup, dev)
+        n5 = int(vol5.sizes[0])
+        spac5 = np.asarray(vol5.grid_spacing, np.float64)
+        rho5 = 1.225 + amp5 * gx5[:, None, None] * gx5[None, :, None] \
+            * gz5[None, None, :]
+        nm1_5 = gd * rho5
+        k10["512^3"], field5 = k10_case(
+            f"{n5}^3 (bench_volume_512's rho)", nm1_5, spac5,
+            slabs=[int(z) for z in np.linspace(0, n5 - 4, 8)])
+        # the entry point: build_density_volume from the device rho
+        sync()
+        t0 = time.perf_counter()
+        zero()
+        vol5b = build_density_volume(rho5, spac5, [0.0, 0.0, 0.0],
+                                     gladstone_dale=gd, device=dev)
+        sync()
+        build5_s = time.perf_counter() - t0
+        hold(f"build_density_volume from the {n5}^3 device rho against K10 "
+             f"on its n-1: values that differ",
+             float((vol5b.field != field5).sum()), 0.0)
+        require(counts_now()["gradient_field"] == 1,
+                f"build_density_volume launched {counts_now()}")
+        k10["512^3"]["build_density_volume_s"] = build5_s
+        print(f"    build_density_volume from a {n5}^3 float32 rho on the "
+              f"card: {build5_s:.4f} s (one K10 launch)  [{card}]")
+        del vol5b, field5, nm1_5, rho5
+
+        # (b)-(d) K11 and K12 against the plain versions, at 64^3 and 512^3;
+        # K11 also against an independent float64 prefilter on the host
+        # (prefilter_f64), the plain version against which it is held having
+        # been shaped to K11's order of summation, and beside the plain
+        # version as it stood before K11 (prefilter_stacked)
+        gen14 = torch.Generator(device=dev)
+        gen14.manual_seed(14)
+        pre = {}
+        for label, fld in (("64^3", vol.field), (f"{n5}^3", vol5.field)):
+            big = fld.numel() > 1e8
+            coeff, gb_k = with_peak_above(lambda: native.launch_prefilter(fld),
+                                          dev)
+            ref, gb_p = with_peak_above(lambda: bspline_prefilter_plain(fld),
+                                        dev)
+            err11 = nerr(coeff, ref)
+            bit11 = torch.equal(coeff, ref)
+            del ref
+            t0 = time.perf_counter()
+            ref64 = prefilter_f64(fld)
+            f64_s = time.perf_counter() - t0
+            scale64 = ref64.abs().amax(dim=(0, 1, 2))
+            got_h = coeff.cpu().double()
+            # per channel, of the channel's maximum (an all-zero channel,
+            # the bench ramp's dn/dy and dn/dz: its largest value)
+            err64_c = ((got_h - ref64).abs().amax(dim=(0, 1, 2))
+                       / torch.where(scale64 > 0, scale64,
+                                     torch.ones_like(scale64))).tolist()
+            err64 = float((got_h - ref64).abs().max() / scale64.max())
+            del got_h
+            old, gb_o = with_peak_above(lambda: prefilter_stacked(fld), dev)
+            old_h = old.cpu().double()
+            del old
+            err64_o = float((old_h - ref64).abs().max() / scale64.max())
+            del old_h, ref64
+            same11 = torch.equal(coeff, native.launch_prefilter(fld))
+            reps = (3, 1) if big else (7, 2)
+            # the two plain versions in turns: earlier, now, now, earlier,
+            # each turn the median of three calls (one call at 512^3 read
+            # 116 and 288 ms in two turns)
+            turns = {"stacked": [], "plain": []}
+            for which in ("stacked", "plain", "plain", "stacked"):
+                fn = (prefilter_stacked if which == "stacked"
+                      else bspline_prefilter_plain)
+                turns[which].append(time_ms(lambda: fn(fld), 3, 1))
+            ms11_p = statistics.median(turns["plain"])
+            ms11_o = statistics.median(turns["stacked"])
+            ct = torch.randn(fld.shape, generator=gen14, device=dev)
+            leaf = fld.detach().clone().requires_grad_(True)
+            out_p = bspline_prefilter_plain(leaf)
+            (g_ref,) = torch.autograd.grad(out_p, leaf, ct, retain_graph=True)
+            g12, gb_b = with_peak_above(
+                lambda: native.launch_prefilter_bwd(ct), dev)
+            err12 = nerr(g12, g_ref)
+            del g_ref
+            same12 = torch.equal(g12, native.launch_prefilter_bwd(ct))
+            lhs = float(torch.sum(coeff.double() * ct.double()))
+            rhs = float(torch.sum(fld.double() * g12.double()))
+            dot = abs(lhs - rhs) / abs(lhs)
+            del coeff, g12
+            ms11 = time_ms(lambda: native.launch_prefilter(fld), reps[0], 1)
+            ms12 = time_ms(lambda: native.launch_prefilter_bwd(ct), reps[0],
+                           1)
+            ms12_p = time_ms(lambda: torch.autograd.grad(
+                out_p, leaf, ct, retain_graph=True), reps[1] + 1, reps[1] - 1)
+            del out_p, leaf
+            dev11 = traced_ms(lambda: native.launch_prefilter(fld),
+                              "prefilter_axis_kernel", 3)
+            dev12 = traced_ms(lambda: native.launch_prefilter_bwd(ct),
+                              "prefilter_axis_bwd_kernel", 3)
+            del ct
+            nbytes = fld.numel() * 4
+            # one read and one write of the field an axis; some 5 operations
+            # an element and axis
+            bnd, by = bound_ms(2 * 3 * nbytes, 5 * 3 * fld.numel())
+            hold(f"K11 {label} against the plain prefilter (of the "
+                 f"coefficients' maximum)", err11, 1e-6)
+            hold(f"K11 {label} against prefilter_f64, float64 on the host "
+                 f"(of its maximum; the CPU tests' limit against the JAX "
+                 f"package's float64 prefilters)", err64, 2e-6)
+            hold(f"K12 {label} against autograd through the plain prefilter "
+                 f"(of its maximum)", err12, 1e-6)
+            hold(f"<K11 x, y> = <x, K12 y> {label} (relative, float64 sums)",
+                 dot, 1e-6)
+            hold(f"K11 and K12 {label}: two runs differ",
+                 float(not (same11 and same12)), 0.0)
+            print(f"    K11 {label}: "
+                  f"{'bit-equal' if bit11 else 'not bit-equal'} to the plain "
+                  f"prefilter; "
+                  f"against prefilter_f64 ({f64_s:.1f} s on the host) "
+                  f"{err64:.3e} of its maximum, per channel "
+                  + ", ".join(f"{e:.3e}" for e in err64_c)
+                  + f"; the plain version as it stood before K11 "
+                  f"{err64_o:.3e}")
+            print(f"    K11 {label}: time {ms11:.4f} ms (device "
+                  f"{ms_or_not(dev11, 4)} in 3 launches), bound {bnd:.4f} ms "
+                  f"({by}), plain version {ms11_p:.2f} ms (runs "
+                  + ", ".join(f"{t:.2f}" for t in turns["plain"])
+                  + f"), the plain version as it stood before K11 "
+                  f"{ms11_o:.2f} ms (runs "
+                  + ", ".join(f"{t:.2f}" for t in turns["stacked"])
+                  + f"); peak above the field {gb_k:.3f} GB against the "
+                  f"plain version's {gb_p:.3f} GB and the earlier one's "
+                  f"{gb_o:.3f} GB  [{card}]")
+            print(f"    K12 {label}: time {ms12:.4f} ms (device "
+                  f"{ms_or_not(dev12, 4)}), bound {bnd:.4f} ms ({by}), "
+                  f"autograd's backward through the plain version "
+                  f"{ms12_p:.2f} ms; peak above the cotangent {gb_b:.3f} GB  "
+                  f"[{card}]")
+            pre[label] = dict(err11=err11, err12=err12, dot=dot, ms11=ms11,
+                              ms12=ms12, dev11=dev11, dev12=dev12,
+                              ms11_p=ms11_p, ms11_o=ms11_o, ms12_p=ms12_p,
+                              err64=err64, err64_o=err64_o, bound=bnd, by=by,
+                              gb_k=gb_k, gb_p=gb_p, gb_o=gb_o, gb_b=gb_b)
+        del vol5
+
+        def native_entry_points():
+            """The entry points, under --native-only (the full run reads
+            these launches on phases 5 and 6): the tricubic BOS pair
+            through cli.main (K10 for its volume, K11 before im2's march),
+            and one forward and backward of a tricubic render's loss with
+            respect to rho (K11, K12).  Returns each kernel's launches and
+            the run they were read on."""
+            cfg_c = dataclasses.replace(
+                cfg, density_gradients=dataclasses.replace(
+                    cfg.density_gradients, interpolation_scheme=2))
+            with tempfile.TemporaryDirectory(prefix="photon_smoke_") as tmp:
+                case, nrrd = write_bench_case(tmp, cfg_c, rho, spacings,
+                                              origin)
+                buf = io.StringIO()
+                zero()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_main([case, "--out", os.path.join(tmp, "out"),
+                                   "--verbose"])
+                sync()
+                pair_counts = counts_now()
+                require(rc == 0, f"the CLI returned {rc} (tricubic pair)")
+                im2_c = np.fromfile(os.path.join(
+                    tmp, "out", "raw", "bos_pattern_image_2.bin"),
+                    np.float32).reshape(sensor, sensor)
+                vol_c = load_density_volume(nrrd, gladstone_dale=gd,
+                                            device=dev)
+            print(f"    the tricubic RK4 pair through cli.main: launches "
+                  f"{pair_counts}")
+            expect_counts("the tricubic pair", pair_counts,
+                          dict(gradient_field=1, prefilter=1,
+                               prefilter_bwd=0))
+            with torch.no_grad():
+                plain_c = plain_render(vol_c, slice(0, P), 2,
+                                       2).cpu().numpy()
+            l1_c = float(np.abs(im2_c - plain_c).sum() / plain_c.sum())
+            print(f"    tricubic RK4 im2 against the plain render (plain "
+                  f"prefilter): L1 {l1_c:.3e} of the sum (tolerance 1.0e-03)")
+            require(np.isfinite(im2_c).all() and l1_c < 1e-3,
+                    f"the tricubic im2 is {l1_c} (L1) from the plain render")
+            print_phases("tricubic pair", buf.getvalue(), card,
+                         r"render:\S+|volume")
+            del vol_c, plain_c
+            rho_t = torch.as_tensor(rho.astype(np.float32), device=dev)
+            rho_t.requires_grad_(True)
+            zero()
+            img = render_image_fast(cfg, setup, source, r1, r2,
+                                    vol=volume_from_rho(rho_t, vol, gd),
+                                    interpolation_scheme=2, device=dev)
+            (g_rho,) = torch.autograd.grad(torch.mean(img * img), rho_t)
+            sync()
+            step_counts = counts_now()
+            print(f"    one forward and backward of mean(img^2) with "
+                  f"tricubic interpolation w.r.t. rho: launches "
+                  f"{step_counts}")
+            expect_counts("a tricubic gradient step", step_counts,
+                          dict(gradient_field=0, prefilter=1,
+                               prefilter_bwd=1))
+            require(bool(torch.isfinite(g_rho).all())
+                    and float(g_rho.abs().max()) > 0,
+                    "the tricubic step's d_rho is zero or not finite")
+            del img, g_rho, rho_t
+            return dict(
+                gradient_field=(pair_counts["gradient_field"], "cli.main, "
+                                "the tricubic BOS pair (its volume)"),
+                prefilter=(pair_counts["prefilter"], "cli.main, the "
+                           "tricubic BOS pair (im2's march)"),
+                prefilter_bwd=(step_counts["prefilter_bwd"],
+                               "one forward and backward of a tricubic "
+                               "render's loss"))
+
+        if on is None:
+            on = native_entry_points()
+        print(f"    phase 14 took {time.perf_counter() - t_phase:.1f} s  "
+              f"[{card}]")
+
+        src = "photon_tpu_torch/csrc/volume_prep.cu"
+        k64 = k10["64^3"]
+        rows = [dict(
+            name="gradient_field", route="cuda", source=src,
+            replaces="photon_tpu/native/photon_native.cpp:89",
+            replaces_is="the JAX package's host C++ gradient_field; no TPU "
+            "kernel (pl.pallas_call) stands behind it",
+            shape="bench 64^3 n-1", launches=on["gradient_field"][0],
+            launches_on=on["gradient_field"][1],
+            max_abs_err=0.0, tolerance=0.0, ms=k64["ms"],
+            device_ms=k64["device_ms"], plain_ms=k64["plain_ms"],
+            plain_ms_is="the plain float64 stencil on the card (it is held "
+            "bit for bit on the CPU)", bound_ms=k64["bound_ms"],
+            bound_by=k64["bound_by"], library_ms=k64["library_ms"],
+            library_is="torch.gradient(edge_order=2), stacked and permuted",
+            other_shapes={k: v for k, v in k10.items() if k != "64^3"})]
+        for name, kk, line, (launches, where) in (
+                ("bspline_prefilter", "11",
+                 "photon_tpu/native/photon_native.cpp:165", on["prefilter"]),
+                ("bspline_prefilter_bwd", "12",
+                 "photon_tpu/ops/march_dense.py:107", on["prefilter_bwd"])):
+            p64, p5 = pre["64^3"], pre[f"{n5}^3"]
+            rows.append(dict(
+                name=name, route="cuda", source=src, replaces=line,
+                replaces_is=("the JAX package's host C++ "
+                             "bspline_prefilter_3d (its fast path runs "
+                             "ops/march_dense.py:107 bspline_prefilter_jax)"
+                             if kk == "11" else "the VJP that jax.grad "
+                             "takes through bspline_prefilter_jax"),
+                shape="bench 64^3 x 4 field", launches=launches,
+                launches_on=where, max_abs_err=p64["err" + kk],
+                tolerance=1e-6, dot_identity=p64["dot"],
+                ms=p64["ms" + kk], device_ms=p64["dev" + kk],
+                plain_ms=p64["ms" + kk + "_p"],
+                plain_ms_is=("the plain prefilter" if kk == "11" else
+                             "autograd's backward through the plain "
+                             "prefilter"),
+                bound_ms=p64["bound"], bound_by=p64["by"], library_ms=None,
+                at_512=dict(max_abs_err=p5["err" + kk], ms=p5["ms" + kk],
+                            device_ms=p5["dev" + kk],
+                            plain_ms=p5["ms" + kk + "_p"],
+                            bound_ms=p5["bound"], peak_gb=p5[
+                                "gb_k" if kk == "11" else "gb_b"],
+                            plain_peak_gb=p5["gb_p"])))
+            if kk == "11":
+                # the independent float64 check, and the plain version as it
+                # stood before K11 (its time and peak, timed in turns)
+                for row, p_ in ((rows[-1], p64), (rows[-1]["at_512"], p5)):
+                    row.update(max_err_against_f64=p_["err64"],
+                               f64_tolerance=2e-6,
+                               earlier_plain_ms=p_["ms11_o"],
+                               earlier_plain_peak_gb=p_["gb_o"],
+                               earlier_plain_err_against_f64=p_["err64_o"])
+        return rows
+
     def finish(rows_) -> int:
         # the comparisons of phases 9 and 10 (and of the large tier) append
         # here too
@@ -4199,6 +4737,8 @@ def main(argv=None) -> int:
     if args.mesh_only:
         mesh()
         return finish([])
+    if args.native_only:
+        return finish(native_phase())
 
     whole = slice(0, P)
     first = slice(0, chunk)
@@ -4871,8 +5411,16 @@ def main(argv=None) -> int:
         # times at the shape the main path gives: the chief rays as they are
         out_c, texit_c, traj_c = march_forward_residual(coeff, rays6, gnp, 2, True,
                                                         2)
+        # the prefilter the march calls (K11 on the card) and its plain
+        # version: ms, and the device memory each holds above the field
         prefilter_ms = time_ms(lambda: bspline_prefilter(vol.field), reps=5,
                                warm=1)
+        prefilter_plain_ms = time_ms(
+            lambda: bspline_prefilter_plain(vol.field), reps=3, warm=1)
+        prefilter_gb = with_peak_above(lambda: bspline_prefilter(vol.field),
+                                       dev)[1]
+        prefilter_plain_gb = with_peak_above(
+            lambda: bspline_prefilter_plain(vol.field), dev)[1]
         k1c_ms = time_ms(lambda: mdf.march_forward_noresidual(coeff, chief, gnp,
                                                               2, 1, 2))
         # the shapes of the pair with algorithm 3 and no substeps given: the
@@ -4939,9 +5487,11 @@ def main(argv=None) -> int:
             (8 + 4 * iters_bench) * MARCH_OPS_PER_RHS_CUBIC
             + (2 + iters_bench) * MARCH_OPS_PER_RK4_COMBINE)
         k5c_bound, k5c_by = bound_ms(27 * P * 4 + 2 * field_bytes, k5c_ops)
-        print(f"    prefilter of the 64^3 field (PyTorch, no kernel of this "
-              f"package) {prefilter_ms:.3f} ms; march_chief_fused with it "
-              f"{k1c_call_ms:.3f} ms  [{card}]")
+        print(f"    prefilter of the 64^3 field: K11 {prefilter_ms:.4f} ms, "
+              f"peak {prefilter_gb:.3f} GB above the field; the plain "
+              f"version {prefilter_plain_ms:.3f} ms, {prefilter_plain_gb:.3f} "
+              f"GB; march_chief_fused with K11 {k1c_call_ms:.3f} ms  "
+              f"[{card}]")
         print(f"    K1 tricubic time {k1c_ms:.4f} ms  plain {k1c_plain_ms:.2f} ms "
               f"(with its prefilter)  bound {k1c_bound:.4f} ms ({k1c_by})  "
               f"residual head {k1tc_ms:.4f} ms  bound {k1tc_bound:.4f} ms "
@@ -4970,6 +5520,7 @@ def main(argv=None) -> int:
             max_abs_err=k1c_err[3], tolerance=K1_TOL, ms=k1c2_ms,
             plain_ms=k1c2_plain_ms, bound_ms=k1c2_bound, bound_by=k1c2_by,
             library_ms=None, prefilter_ms=prefilter_ms,
+            prefilter_plain_ms=prefilter_plain_ms,
             one_substep=dict(shape=cubic_shape, max_abs_err=k1c_err[2],
                              ms=k1c_ms, plain_ms=k1c_plain_ms,
                              bound_ms=k1c_bound, ms_with_prefilter=k1c_call_ms),
@@ -5389,10 +5940,13 @@ def main(argv=None) -> int:
                         splat=splat_particles)
         for w in wrappers.values():
             w.launches = 0
+        native.launch_gradient_field.launches = 0
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli_main([case, "--out", out, "--verbose"])
         counts = {k: int(w.launches) for k, w in wrappers.items()}
+        # the volume phase builds the field on the card: K10 once
+        k10_pair = int(native.launch_gradient_field.launches)
         log = buf.getvalue()
         print("    " + log.strip().replace("\n", "\n    "))
         if rc != 0:
@@ -5401,7 +5955,10 @@ def main(argv=None) -> int:
             if row["name"] in counts:
                 row["launches"] = counts[row["name"]]
                 row["launches_on"] = "cli.main, the BOS pair"
-        print(f"    launches on the rendering path: {counts}")
+        print(f"    launches on the rendering path: {counts}, "
+              f"gradient_field (K10) {k10_pair}")
+        require(k10_pair == 1, f"the pair's volume launched K10 {k10_pair} "
+                f"times, expected 1")
         expect = dict(march_dense=1, fan_stats=2 * n_chunks,
                       splat=2 * n_chunks)
         if counts != expect:
@@ -5712,7 +6269,9 @@ def main(argv=None) -> int:
         march_stagewise=march_forward_stagewise,
         march_stagewise_bwd=march_backward_stagewise,
         slab_sample=slab_sample_forward, slab_sample_bwd=slab_sample_backward,
-        fan_stats=fan_stats, splat=splat_particles)
+        fan_stats=fan_stats, splat=splat_particles,
+        prefilter=native.launch_prefilter,
+        prefilter_bwd=native.launch_prefilter_bwd)
 
     def counted_menu(fn):
         for w in menu_wrappers.values():
@@ -5724,7 +6283,8 @@ def main(argv=None) -> int:
     n_slabs = n - 1
     pair_rest = dict(march_bwd_stage=0, march_bwd_remarch=0,
                      march_stagewise_bwd=0, slab_sample_bwd=0,
-                     fan_stats=2 * n_chunks, splat=2 * n_chunks)
+                     fan_stats=2 * n_chunks, splat=2 * n_chunks,
+                     prefilter_bwd=0)
     menu_counts = {}
     for label, alg, scheme in (("tricubic, algorithm 3, substeps from the "
                                 "data", 3, 2), ("Adams-Bashforth", 4, 1)):
@@ -5754,14 +6314,15 @@ def main(argv=None) -> int:
             require(len(chosen) == 1 and 2 <= chosen[0] <= 16,
                     f"choose_substeps gave {chosen}")
             # two probe marches of choose_substeps and the march itself, all
-            # through the cubic march kernel; no per-stage sampling
+            # through the cubic march kernel, each after its prefilter (K11);
+            # no per-stage sampling
             expect_m = dict(march_dense=3, march_stagewise=0, slab_sample=0,
-                            **pair_rest)
+                            prefilter=3, **pair_rest)
             substeps_m = chosen[0]
         else:
             # the whole march in one launch of the stagewise kernel
             expect_m = dict(march_dense=0, march_stagewise=1, slab_sample=0,
-                            **pair_rest)
+                            prefilter=0, **pair_rest)
             substeps_m = None
         if counts_m != expect_m:
             raise SystemExit(f"chip_smoke: {label}: launch counts {counts_m}, "
@@ -5888,7 +6449,8 @@ def main(argv=None) -> int:
     # slab).  Adams-Bashforth the same, its per-stage route four stages a
     # slab.
     sub2 = 2 * 4 * n_slabs
-    no_k1 = dict(march_bwd_stage=0, march_bwd_remarch=0)
+    no_k1 = dict(march_bwd_stage=0, march_bwd_remarch=0, prefilter=0,
+                 prefilter_bwd=0)
     one_each = dict(march_stagewise=1, march_stagewise_bwd=1, slab_sample=0,
                     slab_sample_bwd=0, **no_k1)
     counts_s, held_s = grad_route(
@@ -5929,14 +6491,14 @@ def main(argv=None) -> int:
     counts_c, held_c = grad_route(
         "tricubic RK4, stage residual",
         dict(march_dense=1, march_bwd_stage=1, march_bwd_remarch=0,
-             slab_sample=0, slab_sample_bwd=0),
+             slab_sample=0, slab_sample_bwd=0, prefilter=1, prefilter_bwd=1),
         dict(algorithm=2, scheme=2),
         step_fn=one_render_step(interpolation_scheme=2),
         interpolation_scheme=2)
     counts_c5, _ = with_budget(0, lambda: grad_route(
         "tricubic RK4, re-march backward",
         dict(march_dense=1, march_bwd_stage=0, march_bwd_remarch=1,
-             slab_sample=0, slab_sample_bwd=0),
+             slab_sample=0, slab_sample_bwd=0, prefilter=1, prefilter_bwd=1),
         dict(algorithm=2, scheme=2),
         step_fn=one_render_step(interpolation_scheme=2),
         interpolation_scheme=2))
@@ -6002,6 +6564,23 @@ def main(argv=None) -> int:
         if row["name"] in where:
             part, key = where[row["name"]]
             row["launches_mesh_world_of_one"] = mesh_counts[part][key]
+    # phase 14, with the launches of K10-K12 on the earlier phases' paths
+    # (the rendering path's volume, phase 5's algorithm-3 tricubic pair,
+    # phase 6's tricubic step)
+    native_rows = native_phase(on=dict(
+        gradient_field=(k10_pair, "cli.main, the BOS pair (its volume)"),
+        prefilter=(menu_counts[3]["prefilter"], "cli.main, the tricubic "
+                   "pair with algorithm 3 (choose_substeps' two probe "
+                   "marches and im2's march)"),
+        prefilter_bwd=(counts_c["prefilter_bwd"], cubic_step)))
+    earlier = dict(
+        gradient_field={},
+        bspline_prefilter=dict(launches_tricubic_step=counts_c["prefilter"]),
+        bspline_prefilter_bwd=dict(
+            launches_tricubic_remarch_step=counts_c5["prefilter_bwd"]))
+    for row in native_rows:
+        row.update(earlier[row["name"]])
+    kernel_rows.extend(native_rows)
     return finish(kernel_rows)
 
 

@@ -11,7 +11,11 @@ launch, see ``kernels.py``).  Module and function names follow
                         the port's objects on a device
   device.py             the device rule (the card unless the caller says cpu)
   kernels.py            nvcc build + ctypes loading of csrc/*.cu
-  volume.py             DensityVolume, gradient precompute, NRRD ingest
+  volume.py             DensityVolume, NRRD ingest, the packed field's build
+  native.py             the volume's preparation: the gradient precompute
+                        and the B-spline prefilter and its transpose, plain
+                        versions and kernels (csrc/volume_prep.cu), the
+                        NRRD probe
   models/optics.py      camera / lens construction
   models/scenes.py      light-field sources: BOS dot patterns, PIV particle
                         fields (random, loaded, image-driven), calibration
@@ -28,7 +32,7 @@ launch, see ``kernels.py``).  Module and function names follow
                         adaptive RK45, Adams-Bashforth, grad-n noise, the
                         differentiable loop, the per-step recorder
   ops/sensor.py         erf diffraction and bilinear sensors (exact path)
-  ops/march_dense.py    plain dense chief-ray march, the B-spline prefilter
+  ops/march_dense.py    plain dense chief-ray march
   ops/march_dense_fused.py  the march kernels' wrappers, forward and
                         backward, the stagewise ones for Adams-Bashforth and
                         substeps (csrc/march_dense.cu, csrc/march_bwd.cu)
@@ -63,8 +67,9 @@ the whole march menu on volumes of any size, PIV with Mie scattering and
 calibration grids, the per-ray chain (rotated cameras, the bilinear sensor,
 position noise), and the exact-semantics path (any lens train, dispersion,
 absorbance, gradient-index noise, cameras rotated past 90 degrees, the
-whole march menu, the ray dumps and their analysis), and rendering across
-devices (the particles split over a torch.distributed world).
+whole march menu, the ray dumps and their analysis), rendering across
+devices (the particles split over a torch.distributed world), and the
+volume's preparation on the card (the JAX package's native/ module).
 Nothing here imports ``jax`` or ``photon_tpu``.
 """
 

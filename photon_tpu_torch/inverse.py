@@ -25,35 +25,26 @@ from photon_tpu_torch.device import DeviceLike, as_f32, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup
 from photon_tpu_torch.models.render_fast import render_image_fast
 from photon_tpu_torch.models.scenes import LightfieldSource
+from photon_tpu_torch.native import grad_axis
 from photon_tpu_torch.volume import (Z_ORIGIN_SHIFT, DensityVolume,
                                      build_density_volume)
-
-
-def _grad_axis(f: torch.Tensor, axis: int, h: float) -> torch.Tensor:
-    """Central differences inside, second-order one-sided at the faces."""
-    n = f.shape[axis]
-    take = lambda i: f.narrow(axis, i, 1)  # noqa: E731
-    lo = (-1.5 * take(0) + 2.0 * take(1) - 0.5 * take(2)) / h
-    interior = (f.narrow(axis, 2, n - 2) - f.narrow(axis, 0, n - 2)) \
-        / (2.0 * h)
-    hi = (1.5 * take(n - 1) - 2.0 * take(n - 2) + 0.5 * take(n - 3)) / h
-    return torch.cat([lo, interior, hi], dim=axis)
 
 
 def volume_from_rho(rho: torch.Tensor, template: DensityVolume,
                     gladstone_dale: float = 0.225e-3) -> DensityVolume:
     """Rebuild the packed (grad n, n-1) field from a rho grid, in PyTorch.
 
-    Differentiable twin of :func:`volume.build_density_volume`'s numpy
-    precompute.  ``rho`` is a (W, H, D) float32 tensor indexed [x, y, z]
-    like the NRRD layout.  Only ``field`` is replaced: the template's
+    Differentiable twin of :func:`volume.build_density_volume`'s
+    precompute, in float32 through the same stencil (``native.grad_axis``).
+    ``rho`` is a (W, H, D) float32 tensor indexed [x, y, z] like the NRRD
+    layout.  Only ``field`` is replaced: the template's
     geometry and ``data_min`` stay (``n0 = 1 + data_min`` enters the march).
     """
     n_minus_1 = gladstone_dale * rho
     sp = [float(s) for s in template.grid_spacing]
-    packed = torch.stack([_grad_axis(n_minus_1, 0, sp[0]),
-                          _grad_axis(n_minus_1, 1, sp[1]),
-                          _grad_axis(n_minus_1, 2, sp[2]),
+    packed = torch.stack([grad_axis(n_minus_1, 0, sp[0]),
+                          grad_axis(n_minus_1, 1, sp[1]),
+                          grad_axis(n_minus_1, 2, sp[2]),
                           n_minus_1], dim=-1)               # (W, H, D, 4)
     field = packed.permute(2, 1, 0, 3).contiguous()         # (D, H, W, 4)
     return template._replace(field=field.to(torch.float32))
@@ -127,10 +118,10 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
         if callback is not None:
             callback(t, losses[-1], rho)
 
-    rho_np = rho.cpu().numpy()
+    # the result volume from the grid where it lies (K10 on the card)
     vol = build_density_volume(
-        rho_np, np.asarray(template.grid_spacing),
+        rho, np.asarray(template.grid_spacing),
         [float(template.min_bound[0]), float(template.min_bound[1]),
          float(template.min_bound[2]) + Z_ORIGIN_SHIFT],
         gladstone_dale=gd, device=dev)
-    return InversionResult(rho=rho_np, losses=losses, volume=vol)
+    return InversionResult(rho=rho.cpu().numpy(), losses=losses, volume=vol)

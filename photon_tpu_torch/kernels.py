@@ -38,11 +38,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ray centroids by ~0.03 px.  The fan backward (fan_stats_bwd.cu) is built
 # with contraction: it traces each ray with the forward's own path, whose
 # rounding fan_common.cuh pins with intrinsics, and pins the cotangents that
-# cancel in the same way; the rest of its sweep contracts.
-EXTRA_NVCC_FLAGS: Dict[str, List[str]] = {"fan_stats": ["-fmad=false"]}
+# cancel in the same way; the rest of its sweep contracts.  The volume
+# preparation (volume_prep.cu) is built without contraction for the same
+# reason: its gradient precompute is then bit-equal to the plain version's
+# float64 stencil, and its prefilter rounds as the plain version's float32
+# recurrence.
+EXTRA_NVCC_FLAGS: Dict[str, List[str]] = {"fan_stats": ["-fmad=false"],
+                                          "volume_prep": ["-fmad=false"]}
 
-_vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_float)
+_vp, _i, _ll, _f, _d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float, ctypes.c_double)
 
 # source name -> {C function: argtypes}; every function returns an int
 # (cudaGetLastError() after its launch)
@@ -78,6 +83,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "splat": {
         "photon_splat": [_vp] * 6 + [_ll, _i, _i, _i, _f, _f, _vp],
         "photon_splat_bwd": [_vp] * 7 + [_ll, _i, _i, _i, _f, _f, _vp],
+    },
+    "volume_prep": {
+        "photon_gradient_field": [_vp, _vp, _ll, _ll, _ll, _d, _d, _d, _vp],
+        "photon_bspline_prefilter": [_vp, _vp] + [_ll] * 4 + [_vp, _vp],
+        "photon_bspline_prefilter_bwd": [_vp, _vp] + [_ll] * 4 + [_vp, _vp],
     },
 }
 

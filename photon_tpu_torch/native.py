@@ -1,0 +1,332 @@
+"""Volume preparation: the gradient precompute, the cubic B-spline
+prefilter and its transpose, and the NRRD header probe.
+
+Counterpart of ``photon_tpu/native/`` (``photon_native.cpp`` and its ctypes
+bindings), the JAX package's host C++ module.  There these run on the host
+before the arrays go to the TPU; here each numerical one is a plain PyTorch
+version, which a tensor on the CPU gets, and a CUDA kernel of
+``csrc/volume_prep.cu``, which a tensor on a CUDA device gets (no TPU
+kernel stands behind them).  Both live in this module, which imports no
+other of the port but ``kernels``; ``volume`` and ``ops/march_dense`` take
+them from here.
+
+* K10 ``photon_gradient_field`` (native ``gradient_field``): the packed
+  (dn/dx, dn/dy, dn/dz, n-1) field, (D, H, W, 4), from float32 n-1 in the
+  NRRD's (W, H, D) layout, in double, rounded once.  Plain version:
+  :func:`gradient_field_plain` (torch float64 over :func:`grad_axis`),
+  bit-equal on the CPU.
+* K11 ``photon_bspline_prefilter`` (native ``bspline_prefilter_3d``; what
+  the JAX fast path runs is ``ops/march_dense.py::bspline_prefilter_jax``):
+  cubic B-spline coefficients of a (D, H, W, C) float32 field.  Plain
+  version: :func:`bspline_prefilter_plain`, the recurrence
+  :func:`_prefilter_axis` along each axis; both take their float32
+  constants from :func:`prefilter_constants`.
+* K12 ``photon_bspline_prefilter_bwd``: K11's transpose, the backward of
+  :class:`_BSplinePrefilter`.  Plain version: ``torch.autograd`` through
+  the plain prefilter.
+
+:func:`gradient_field` and :func:`bspline_prefilter` send a tensor on the
+CPU to the plain version and a tensor on a CUDA device to the kernel; the
+launchers refuse what the kernels do not take before any build, and raise
+if a launch fails.  ``launch_gradient_field.launches``,
+``launch_prefilter.launches`` and ``launch_prefilter_bwd.launches`` count
+the launcher calls (a prefilter call launches its kernel three times, one
+an axis).
+
+Not carried over from the JAX package: ``available()``, ``build()`` and
+their contract that a missing library returns None so that the caller falls
+back to numpy.  Under the port's device rule the kernels build at first
+launch (``kernels.py``) and a failed build raises.  :func:`nrrd_probe`
+needs no library: it is Python with native's return contract.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import re
+
+import numpy as np
+import torch
+
+from photon_tpu_torch import kernels
+
+# ---------------------------------------------------------------------------
+# K10: the gradient precompute
+# ---------------------------------------------------------------------------
+
+
+def grad_axis(f: torch.Tensor, axis: int, h: float) -> torch.Tensor:
+    """Derivative along one axis: central differences inside, second-order
+    one-sided at the faces, in ``f``'s dtype (the stencils of the
+    reference's ``setData``, ref: trace_rays_through_density_gradients.h
+    :1856-1995)."""
+    n = f.shape[axis]
+    take = lambda i: f.narrow(axis, i, 1)  # noqa: E731
+    lo = (-1.5 * take(0) + 2.0 * take(1) - 0.5 * take(2)) / h
+    interior = (f.narrow(axis, 2, n - 2) - f.narrow(axis, 0, n - 2)) \
+        / (2.0 * h)
+    hi = (1.5 * take(n - 1) - 2.0 * take(n - 2) + 0.5 * take(n - 3)) / h
+    return torch.cat([lo, interior, hi], dim=axis)
+
+
+def gradient_field_plain(n_minus_1, spacing) -> torch.Tensor:
+    """The plain version of K10: each axis's :func:`grad_axis` in float64,
+    then one rounding to float32; on the CPU bit-equal to the JAX package's
+    native ``gradient_field`` (and its numpy fallback) on float32 input.
+
+    Args:
+      n_minus_1: (W, H, D) tensor or array indexed [x, y, z] (NRRD axis
+        order); a tensor stays on its device.
+      spacing: (3,) grid spacings (dx, dy, dz).
+
+    Returns:
+      (D, H, W, 4) float32 packed (dn/dx, dn/dy, dn/dz, n-1), [z, y, x].
+    """
+    f = torch.as_tensor(n_minus_1).to(torch.float64)
+    w, h, d = f.shape
+    if min(w, h, d) < 3:
+        raise ValueError(f"n_minus_1: every axis needs >= 3 samples, got "
+                         f"{tuple(f.shape)}")
+    dx, dy, dz = (float(s) for s in np.asarray(spacing).ravel())
+    packed = torch.stack([grad_axis(f, 0, dx), grad_axis(f, 1, dy),
+                          grad_axis(f, 2, dz), f], dim=-1)   # (W, H, D, 4)
+    return packed.permute(2, 1, 0, 3).to(torch.float32).contiguous()
+
+
+def launch_gradient_field(n_minus_1: torch.Tensor, spacing) -> torch.Tensor:
+    """Launch K10: (W, H, D) float32 n-1 on a CUDA device -> the packed
+    (D, H, W, 4) float32 field."""
+    kernels.check_kernel_input("n_minus_1", n_minus_1, None, torch.float32)
+    if n_minus_1.dim() != 3 or min(n_minus_1.shape) < 3:
+        raise ValueError(f"n_minus_1: expected (W, H, D) with every axis >= "
+                         f"3, got {tuple(n_minus_1.shape)}")
+    dx, dy, dz = (float(s) for s in np.asarray(spacing).ravel())
+    w, h, d = n_minus_1.shape
+    out = torch.empty((d, h, w, 4), dtype=torch.float32,
+                      device=n_minus_1.device)
+    lib = kernels.load("volume_prep")
+    with torch.cuda.device(n_minus_1.device):
+        code = lib.photon_gradient_field(
+            n_minus_1.data_ptr(), out.data_ptr(), w, h, d, dx, dy, dz,
+            kernels.current_stream(n_minus_1.device))
+    kernels.check_launch(code, "photon_gradient_field")
+    launch_gradient_field.launches += 1
+    return out
+
+
+launch_gradient_field.launches = 0
+
+
+def gradient_field(n_minus_1: torch.Tensor, spacing) -> torch.Tensor:
+    """Finite-difference gradient of n-1 packed with its values: (W, H, D)
+    float32 [x, y, z] -> (D, H, W, 4) float32 [z, y, x] on the same device:
+    :func:`gradient_field_plain` on the CPU, K10 on a CUDA device."""
+    if n_minus_1.device.type == "cpu":
+        return gradient_field_plain(n_minus_1, spacing)
+    return launch_gradient_field(n_minus_1.contiguous(), spacing)
+
+
+# ---------------------------------------------------------------------------
+# K11 / K12: the cubic B-spline prefilter and its transpose
+# ---------------------------------------------------------------------------
+
+PREFILTER_POLE = float(np.sqrt(3.0) - 2.0)
+
+
+def prefilter_constants(n: int):
+    """(lam, z, last, zk) of the prefilter along an axis of n samples, each
+    rounded to float32 as the plain version rounds it: the gain
+    (1 - z)(1 - 1/z) formed in float64, z / (z^2 - 1) in float32, and z^k
+    formed in float64 for the causal start's terms, ``zk`` (a float32
+    array): down to |z|^k < 1e-7, at least 12 (13 for this pole), at most
+    n."""
+    f = np.float32
+    z = f(PREFILTER_POLE)
+    lam = float(f((1.0 - PREFILTER_POLE) * (1.0 - 1.0 / PREFILTER_POLE)))
+    last = float(z / (z * z - f(1.0)))
+    horizon = min(n, max(12, int(math.ceil(math.log(1e-7)
+                                           / math.log(abs(PREFILTER_POLE))))))
+    zk = (PREFILTER_POLE ** np.arange(horizon)).astype(f)
+    return lam, float(z), last, zk
+
+
+def _prefilter_axis(x, axis: int):
+    """Causal then anticausal recursive filter along one axis, in f32, with
+    the constants of :func:`prefilter_constants`."""
+    # one unbind, not n selects: under autograd its backward is one stack,
+    # where every select would allocate a cotangent the size of the field
+    xs = x.movedim(axis, 0).unbind(0)
+    n = len(xs)
+    lam, z, last, zk = prefilter_constants(n)
+    # the causal start summed in order k = 0, 1, ... on every device (a sum
+    # over a stacked axis adds in an order of PyTorch's choosing, which
+    # differs between the CPU and the card and with the shape)
+    start = float(zk[0]) * xs[0]
+    for k in range(1, len(zk)):
+        start = start + float(zk[k]) * xs[k]
+    causal = [lam * start]
+    for i in range(1, n):
+        causal.append(lam * xs[i] + z * causal[-1])
+    out = [None] * n
+    out[n - 1] = last * (z * causal[n - 2] + causal[n - 1])
+    for i in range(n - 2, -1, -1):
+        out[i] = z * (out[i + 1] - causal[i])
+    return torch.stack(out).movedim(0, axis)
+
+
+def bspline_prefilter_plain(field):
+    """The plain version of K11: (D, H, W, C) samples -> cubic B-spline
+    coefficients, along axes 0, 1 and 2 (``torch.autograd`` through it is
+    K12's), on the field's device.  Pole sqrt(3) - 2, the causal start
+    summed over a horizon of at most 13 .. n terms."""
+    out = field
+    for axis in (0, 1, 2):
+        out = _prefilter_axis(out, axis)
+    return out.contiguous()
+
+
+class _Pole(ctypes.Structure):
+    """csrc/volume_prep.cu's ``Pole``: one axis's constants."""
+    _fields_ = [("zk", ctypes.c_float * 16), ("lam", ctypes.c_float),
+                ("z", ctypes.c_float), ("last", ctypes.c_float),
+                ("horizon", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=16)
+def _poles(d: int, h: int, w: int):
+    """The three axes' constants for a (d, h, w, C) field, made once a
+    shape (the kernels only read them)."""
+    poles = (_Pole * 3)()
+    for axis, n in enumerate((d, h, w)):
+        lam, z, last, zk = prefilter_constants(n)
+        p = poles[axis]
+        p.lam, p.z, p.last, p.horizon = lam, z, last, len(zk)
+        for k, v in enumerate(zk):
+            p.zk[k] = float(v)
+    return poles
+
+
+def _check_field(name: str, t) -> None:
+    kernels.check_kernel_input(name, t, None, torch.float32)
+    if t.dim() != 4 or min(t.shape[:3]) < 2:
+        raise ValueError(f"{name}: expected (D, H, W, C) with D, H, W >= 2, "
+                         f"got {tuple(t.shape)}")
+
+
+def _launch_prefilter(fn: str, t: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    poles = _poles(*(int(n) for n in t.shape[:3]))
+    lib = kernels.load("volume_prep")
+    with torch.cuda.device(t.device):
+        code = getattr(lib, fn)(t.data_ptr(), out.data_ptr(), *t.shape,
+                                ctypes.addressof(poles),
+                                kernels.current_stream(t.device))
+    kernels.check_launch(code, fn)
+    return out
+
+
+def launch_prefilter(field: torch.Tensor) -> torch.Tensor:
+    """Launch K11 (three launches, axes 0, 1, 2): B-spline coefficients of a
+    (D, H, W, C) float32 field on a CUDA device."""
+    _check_field("field", field)
+    out = _launch_prefilter("photon_bspline_prefilter", field)
+    launch_prefilter.launches += 1
+    return out
+
+
+def launch_prefilter_bwd(ct: torch.Tensor) -> torch.Tensor:
+    """Launch K12 (three launches, axes 2, 1, 0): the field's cotangent from
+    the coefficients' cotangent ``ct``."""
+    _check_field("ct", ct)
+    out = _launch_prefilter("photon_bspline_prefilter_bwd", ct)
+    launch_prefilter_bwd.launches += 1
+    return out
+
+
+launch_prefilter.launches = 0
+launch_prefilter_bwd.launches = 0
+
+
+class _BSplinePrefilter(torch.autograd.Function):
+    """The prefilter on the card, K11 forward and K12 backward."""
+
+    @staticmethod
+    def forward(ctx, field):
+        return launch_prefilter(field)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        return launch_prefilter_bwd(ct.contiguous())
+
+
+def bspline_prefilter(field: torch.Tensor) -> torch.Tensor:
+    """(D, H, W, C) samples -> cubic B-spline coefficients along axes 0, 1
+    and 2, differentiable, on the field's device: the plain version on the
+    CPU, K11 (backward K12) on a CUDA device."""
+    if field.device.type == "cpu":
+        return bspline_prefilter_plain(field)
+    return _BSplinePrefilter.apply(field.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The NRRD header probe
+# ---------------------------------------------------------------------------
+
+_INT = re.compile(r"\s*([+-]?\d+)")
+_REAL = re.compile(r"\s*([+-]?(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?)")
+
+
+def _scan(value: str, pattern, convert):
+    """Three reads of C++'s ``istringstream >> x``: each takes the next
+    number; from the first that fails on, every slot reads 0."""
+    out, pos = [], 0
+    for _ in range(3):
+        m = pattern.match(value, pos)
+        if m is None:
+            break
+        out.append(convert(m.group(1)))
+        pos = m.end()
+    return out + [convert("0")] * (3 - len(out))
+
+
+def nrrd_probe(path: str):
+    """NRRD header probe -> ``(sizes, spacings, origin, payload_offset)``,
+    or None for a file the probe does not take: missing, not NRRD, or other
+    than raw float32 (then ``utils.nrrd_io.read_nrrd`` reads it).  Sizes are
+    ints, spacings (default 1) and origin (default 0) floats, the offset the
+    payload's first byte."""
+    try:
+        f = open(path, "rb")
+    except OSError:
+        return None
+    with f:
+        first = f.readline()
+        if not first.startswith(b"NRRD"):
+            return None
+        raw = floats = False
+        sizes, spacings, origin = [0, 0, 0], [1.0] * 3, [0.0] * 3
+        offset = -1
+        for line in iter(f.readline, b""):
+            text = line.decode("latin-1").rstrip("\n").removesuffix("\r")
+            if not text:
+                offset = f.tell()
+                break
+            if text.startswith("#") or ":" not in text:
+                continue
+            key, _, value = text.partition(":")
+            value = value.lstrip("= ")
+            if key == "type":
+                floats = value in ("float", "f4", "float32")
+            elif key == "encoding":
+                raw = value == "raw"
+            elif key == "sizes":
+                sizes = _scan(value, _INT, int)
+            elif key == "spacings":
+                spacings = _scan(value, _REAL, float)
+            elif key == "space origin":
+                origin = _scan(re.sub(r"[(),]", " ", value), _REAL, float)
+    if not (raw and floats and sizes[0] > 0):
+        return None
+    return tuple(sizes), tuple(spacings), tuple(origin), offset

@@ -14,8 +14,9 @@ the vendored CubicInterpolationCUDA):
 * tricubic B-spline interpolation of prefiltered coefficients over the
   4 x 4 x 4 neighbourhood with clamped addressing.  The coefficients come
   from the port's one prefilter, ``ops/march_dense.bspline_prefilter``
-  (float32, on the field's device), where the JAX package's exact path
-  prefilters in float64 numpy.
+  (float32, on the field's device: the kernel K11 of ``native.py`` on a
+  CUDA device, its plain version on the CPU), where the JAX package's exact
+  path prefilters in float64 numpy.
 
 A march calls these once or more a step on every ray, so its points are
 component-major, (3, N) (each row contiguous on the card), and

@@ -21,8 +21,11 @@ with one step per z slab.  Integrators: 1 = Euler, 2 = RK4, 3 = RK4 with
 ``substeps`` substeps per slab (2 unless given; :func:`choose_substeps`
 picks the count from the data), 4 = Adams-Bashforth-4 with a per-ray RK4
 bootstrap.  Interpolation schemes: 1 = trilinear, 2 = cubic B-spline in x
-and y over coefficients prefiltered along all three axes
-(:func:`bspline_prefilter`), blended linearly in z.
+and y over coefficients prefiltered along all three axes, blended linearly
+in z.  The marches take the prefilter from here as ``bspline_prefilter``,
+which is ``native.bspline_prefilter``: its plain version
+(``native.bspline_prefilter_plain``) for a field on the CPU, the kernel K11
+(backward K12) on a CUDA device.
 
 One loop (:func:`_march_chief`) serves two entries that differ in the
 sampler each integrator stage calls.  :func:`march_chief_dense` is the plain
@@ -36,12 +39,13 @@ stagewise kernels' residual exceeds its budget.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from photon_tpu_torch.native import (bspline_prefilter,  # noqa: F401
+                                     bspline_prefilter_plain)
 from photon_tpu_torch.ops.march_dense_sampler import (check_scheme,
                                                       dense_slab_sample,
                                                       slab_sample_plain)
@@ -96,65 +100,22 @@ def resolve_substeps(algorithm: int, substeps: Optional[int]) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Cubic B-spline prefilter
-# ---------------------------------------------------------------------------
-
-_POLE = float(np.sqrt(3.0) - 2.0)
-
-
-def _prefilter_axis(x, axis: int):
-    """Causal then anticausal recursive filter along one axis, in f32."""
-    f = np.float32
-    z = f(_POLE)
-    lam = float(f((1.0 - _POLE) * (1.0 - 1.0 / _POLE)))
-    last = float(z / (z * z - f(1.0)))
-    z = float(z)
-    # one unbind, not n selects: under autograd its backward is one stack,
-    # where every select would allocate a cotangent the size of the field
-    xs = x.movedim(axis, 0).unbind(0)
-    n = len(xs)
-    horizon = min(n, max(12, int(math.ceil(math.log(1e-7)
-                                           / math.log(abs(_POLE))))))
-    zk = torch.as_tensor((_POLE ** np.arange(horizon)).astype(np.float32),
-                         device=x.device)
-    zk = zk.reshape((horizon,) + (1,) * (x.dim() - 1))
-    causal = [lam * (zk * torch.stack(xs[:horizon])).sum(0)]
-    for i in range(1, n):
-        causal.append(lam * xs[i] + z * causal[-1])
-    out = [None] * n
-    out[n - 1] = last * (z * causal[n - 2] + causal[n - 1])
-    for i in range(n - 2, -1, -1):
-        out[i] = z * (out[i + 1] - causal[i])
-    return torch.stack(out).movedim(0, axis)
-
-
-def bspline_prefilter(field):
-    """(D, H, W, C) samples -> cubic B-spline coefficients, along axes 0, 1
-    and 2; differentiable (``torch.autograd`` gives the transpose), on the
-    field's device.  Pole sqrt(3) - 2, the causal start summed over a
-    horizon of at most 12 .. n terms."""
-    out = field
-    for axis in (0, 1, 2):
-        out = _prefilter_axis(out, axis)
-    return out.contiguous()
-
-
-# ---------------------------------------------------------------------------
 # The march
 # ---------------------------------------------------------------------------
 
 def _march_chief(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
                  algorithm: int, interpolation_scheme: int,
-                 substeps: Optional[int], sampler):
+                 substeps: Optional[int], sampler, prefilter):
     """The slab loop of both entries; ``sampler`` is called once per
-    integrator stage as ``sampler(lo, hi, ux, uy, uz, scheme)``."""
+    integrator stage as ``sampler(lo, hi, ux, uy, uz, scheme)``, and
+    ``prefilter`` on the field under the cubic scheme."""
     check_march_options(algorithm, interpolation_scheme)
     w, h, d = (int(s) for s in vol.sizes)
     g = march_geometry(vol)
     substeps = resolve_substeps(algorithm, substeps)
     field = vol.field
     if interpolation_scheme == 2:
-        field = bspline_prefilter(field)
+        field = prefilter(field)
     slabs = field.unbind(0)
     min_x, min_y, sx, sy = (float(v) for v in (g.min_x, g.min_y, g.sx, g.sy))
     z_min, z_max, dz_slab = float(g.z_min), float(g.z_max), float(g.dz_slab)
@@ -265,12 +226,14 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     ``vol.field`` and the rays: a ray outside a slab's band takes no part in
     that slab's arithmetic, so a grazing ray (Tz near 0) cannot put
     ``0 * inf`` into the field's gradient, which sums over rays.  For
-    ``interpolation_scheme=2`` the prefilter runs here: pass raw samples,
-    not coefficients.
+    ``interpolation_scheme=2`` the plain prefilter
+    (``native.bspline_prefilter_plain``) runs here: pass raw samples, not
+    coefficients.
     """
     return _march_chief(vol, xs, ys, zs, dcx, dcy, dcz, algorithm=algorithm,
                         interpolation_scheme=interpolation_scheme,
-                        substeps=substeps, sampler=slab_sample_plain)
+                        substeps=substeps, sampler=slab_sample_plain,
+                        prefilter=bspline_prefilter_plain)
 
 
 def march_chief_per_stage(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
@@ -280,10 +243,12 @@ def march_chief_per_stage(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     ``dense_slab_sample``: the sampler kernels, forward and backward, for
     tensors on the card, with the stage arithmetic in PyTorch around them.
     Under autograd every stage keeps some forty (P,) tensors alive until the
-    backward pass."""
+    backward pass.  Under the cubic scheme the prefilter is
+    ``bspline_prefilter``'s (K11 and K12 on the card)."""
     return _march_chief(vol, xs, ys, zs, dcx, dcy, dcz, algorithm=algorithm,
                         interpolation_scheme=interpolation_scheme,
-                        substeps=substeps, sampler=dense_slab_sample)
+                        substeps=substeps, sampler=dense_slab_sample,
+                        prefilter=bspline_prefilter)
 
 
 def choose_substeps(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,

@@ -24,9 +24,9 @@ each step's entry state is reconstructed from its exit state).  Both scatter
 the field's cotangent with float atomics, so ``d_field`` differs in its last
 bits from run to run.  Under scheme 2 the kernels read B-spline coefficients
 and return the coefficients' cotangent: the prefilter
-(``march_dense.bspline_prefilter``) runs in PyTorch before the kernels, on
-the raw field at every call, and ``torch.autograd`` carries the cotangent
-back through it.
+(``march_dense.bspline_prefilter``, the kernel K11 of ``native.py`` on the
+card) runs before the march kernels, on the raw field at every call, and
+its backward (K12) carries the cotangent back to the field.
 
 A march whose inputs need no gradient runs the plain head
 (``photon_march_dense``).  A march under autograd runs the other

@@ -4,8 +4,9 @@ The reference's observability is wall-clock printfs around the kernel
 loop (ref: parallel_ray_tracing.cu:3498-3684, batch_run_simulation.py:53).
 Here: lightweight host-clock phase timers that synchronise the CUDA device
 at each phase end, so a phase's time includes the device work it enqueued,
-and a count of the rays that survive a trace (the reference's NaN-culled
-rays, counted instead of printf'd).
+an optional ``torch.profiler`` trace context for per-kernel analysis, and a
+count of the rays that survive a trace (the reference's NaN-culled rays,
+counted instead of printf'd).
 """
 from __future__ import annotations
 
@@ -54,6 +55,24 @@ class PhaseTimer:
                 extra = f"  {self.rays[name] / dt / 1e6:.2f}M rays/s"
             lines.append(f"{name}: {dt:.3f}s{extra}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """``torch.profiler`` trace context: the host's operations and, where a
+    CUDA device is present, its kernels and copies; on exit the trace is
+    written into ``log_dir`` as ``<worker>.<time>.pt.trace.json`` (view it
+    with Perfetto, chrome://tracing or TensorBoard's profiler plugin).
+    Yields the profiler (``key_averages()`` for sums by kernel)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
 
 
 def ray_statistics(rays) -> Dict[str, float]:

@@ -7,7 +7,9 @@ setup, ``trace_rays_through_density_gradients.h``):
   ref: loadNRRD (:1663-1817), including the fixed -750e3 shift applied to
   the z space origin (:1704)
 * central / one-sided finite-difference grad(n) precompute into a packed
-  (grad_n, n-1) field — ref: setData (:1820-2002)
+  (grad_n, n-1) field — ref: setData (:1820-2002), through
+  ``native.gradient_field`` (the kernel K10 on a CUDA device, its plain
+  version on the CPU)
 * bounds/spacing/step-size bookkeeping — ref: readDatafromFile (:2004-2105)
 
 The packed field is a (D, H, W, 4) float32 tensor indexed
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.device import DeviceLike, as_f32, resolve_device
+from photon_tpu_torch.native import gradient_field
 
 # the reference shifts the volume's z origin by this fixed amount so that
 # world-z (measured from the sensor) lines up with the volume
@@ -52,86 +55,53 @@ class DensityVolume(NamedTuple):
         return w, h, d
 
 
-def gradient_field(n_minus_1: np.ndarray, spacing) -> np.ndarray:
-    """Finite-difference gradient of (n-1) on the grid, packed with values.
-
-    Central differences in the interior, 2nd-order one-sided at the faces —
-    identical stencils to the reference's ``setData``
-    (ref: trace_rays_through_density_gradients.h:1856-1995).
-
-    Args:
-      n_minus_1: (W, H, D) array indexed [x, y, z] (NRRD axis order).
-      spacing: (3,) grid spacings (dx, dy, dz).
-
-    Returns:
-      (D, H, W, 4) float32 packed (dn/dx, dn/dy, dn/dz, n-1), [z, y, x].
-    """
-    f = np.asarray(n_minus_1, dtype=np.float64)
-    dx, dy, dz = (float(s) for s in np.asarray(spacing).ravel())
-
-    def axis_gradient(arr, axis, h):
-        g = np.empty_like(arr)
-        # interior: central difference
-        sl = [slice(None)] * 3
-        lo = [slice(None)] * 3
-        hi = [slice(None)] * 3
-        sl[axis], lo[axis], hi[axis] = slice(1, -1), slice(0, -2), slice(2, None)
-        g[tuple(sl)] = (arr[tuple(hi)] - arr[tuple(lo)]) / (2.0 * h)
-        # faces: 2nd-order one-sided
-        first = [slice(None)] * 3
-        first[axis] = 0
-        s1, s2, s3 = list(first), list(first), list(first)
-        s2[axis], s3[axis] = 1, 2
-        g[tuple(s1)] = (-1.5 * arr[tuple(s1)] + 2.0 * arr[tuple(s2)]
-                        - 0.5 * arr[tuple(s3)]) / h
-        last = [slice(None)] * 3
-        last[axis] = arr.shape[axis] - 1
-        e1, e2, e3 = list(last), list(last), list(last)
-        e2[axis], e3[axis] = arr.shape[axis] - 2, arr.shape[axis] - 3
-        g[tuple(e1)] = (1.5 * arr[tuple(e1)] - 2.0 * arr[tuple(e2)]
-                        + 0.5 * arr[tuple(e3)]) / h
-        return g
-
-    gx = axis_gradient(f, 0, dx)
-    gy = axis_gradient(f, 1, dy)
-    gz = axis_gradient(f, 2, dz)
-    packed = np.stack([gx, gy, gz, f], axis=-1)       # (W, H, D, 4)
-    return np.ascontiguousarray(
-        packed.transpose(2, 1, 0, 3)).astype(np.float32)  # (D, H, W, 4)
-
-
-def build_density_volume(rho: np.ndarray, spacings, space_origin,
+def build_density_volume(rho, spacings, space_origin,
                          gladstone_dale: float = 0.225e-3,
                          z_origin_shift: float = Z_ORIGIN_SHIFT,
                          device: DeviceLike = None) -> DensityVolume:
     """Pack a density grid (kg/m^3) into a marcher-ready volume on ``device``.
 
+    n - 1 = K rho is formed in rho's precision, rounded to float32, moved to
+    ``device`` and differentiated there (``native.gradient_field``: K10 on a
+    CUDA device), as the JAX package rounds it for its native stencil;
+    ``data_min`` is the minimum before the rounding.
+
     Args:
-      rho: (W, H, D) density indexed [x, y, z].
+      rho: (W, H, D) density indexed [x, y, z]: a numpy array, or a float32
+        tensor (on any device; ``invert_bos`` passes its device grid).  A
+        float32 array and the same values as a tensor give the same bits.
       spacings: (dx, dy, dz) in microns.
       space_origin: (x0, y0, z0) in microns; z0 gets the reference's fixed
         -750e3 shift (ref: loadNRRD:1704).
       device: None = the CUDA device (raises without one); "cpu" for tests.
     """
     dev = resolve_device(device)
-    rho = np.asarray(rho)
     spacings = np.asarray(spacings, dtype=np.float64).ravel()
     origin = np.asarray(space_origin, dtype=np.float64).ravel().copy()
     origin[2] -= z_origin_shift
 
-    n_minus_1 = (gladstone_dale * rho).astype(np.float64)
-    field = gradient_field(n_minus_1, spacings)
+    if isinstance(rho, torch.Tensor):
+        if rho.dtype != torch.float32:
+            raise TypeError(f"rho: a tensor must be float32, got {rho.dtype}")
+        n_minus_1 = gladstone_dale * rho.detach().to(dev)
+        field = gradient_field(n_minus_1.contiguous(), spacings)
+        data_min = float(n_minus_1.min())
+    else:
+        nm1 = (gladstone_dale * np.asarray(rho)).astype(np.float64)
+        n_minus_1 = as_f32(nm1, dev)
+        field = gradient_field(n_minus_1, spacings)
+        data_min = float(nm1.min())
 
-    sizes = np.array(rho.shape, dtype=np.float64)     # (W, H, D)
+    sizes = np.array(n_minus_1.shape, dtype=np.float64)     # (W, H, D)
     min_bound = origin
     max_bound = origin + (sizes - 1.0) * spacings
 
     return DensityVolume(
-        field=as_f32(field, dev),
+        field=field,
         min_bound=min_bound.astype(np.float32),
         max_bound=max_bound.astype(np.float32),
         grid_spacing=spacings.astype(np.float32),
-        data_min=float(n_minus_1.min()),
+        data_min=data_min,
         step_size=float(spacings.min()),
         max_step_size=float(spacings.max()),
     )

@@ -14,7 +14,9 @@ splat and its transpose (K7) against autograd through it, on spots in runs
 of 120 that share a dot (the bench's order; runs of the kernel straddle two
 dots), dots spread over 24 px, scattered spots and zero-amplitude
 particles, in launches that give a warp 1, 2, 8, 16 and 32 particles, and
-a K = 40 patch on a small frame.
+a K = 40 patch on a small frame; the gradient precompute (K10) against
+the plain stencil bit for bit, the prefilter (K11) against the plain
+prefilter and its transpose (K12) against autograd through it.
 
 Each test skips without a CUDA device.  This file imports no jax, so it runs
 where the JAX package is not installed:
@@ -25,8 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from photon_tpu_torch import native
 from photon_tpu_torch.ops.fan import fan_stats, fan_stats_plain
 from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
+                                              bspline_prefilter_plain,
                                               march_chief_dense,
                                               march_geometry)
 from photon_tpu_torch.ops.march_dense_fused import (march_chief_fused,
@@ -406,3 +410,83 @@ def test_splat_kernels_large_patch_on_a_small_frame():
     gk = splat_backward(X, Y, A, col0, row0, ct, K=40, diameter=20.0,
                         render_fraction=0.75)
     assert max(_nerr(g, r) for g, r in zip(gk, gref)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 4), (17, 9, 33)])
+def test_gradient_field_kernel_is_the_plain_stencil_bit_for_bit(shape):
+    """K10 against the plain float64 stencil on the CPU: every value equal
+    (both widen float32 n-1 to double and round once; the library is built
+    without contraction), on odd sizes with an axis of 3."""
+    dev = _card()
+    rng = np.random.default_rng(sum(shape))
+    nm1 = torch.from_numpy((0.225e-3 * (1.2 + 0.8 * rng.random(shape)))
+                           .astype(np.float32))
+    spacing = (100.0, 110.0, 120.0)
+    got = native.gradient_field(nm1.to(dev), spacing)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got.cpu(), native.gradient_field_plain(nm1, spacing))
+    # and the density volume, float64 rho, on the card and on the CPU
+    rho = 1.2 + 0.8 * rng.random(shape)
+    on_card = build_density_volume(rho, spacing, (0, 0, 0), device=dev)
+    on_cpu = build_density_volume(rho, spacing, (0, 0, 0), device="cpu")
+    assert torch.equal(on_card.field.cpu(), on_cpu.field)
+
+
+def _prefilter_case(dev, seed=9):
+    rng = np.random.default_rng(seed)
+    f = torch.from_numpy(rng.normal(size=(16, 18, 20, 4)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=f.shape).astype(np.float32))
+    return f.to(dev), ct.to(dev)
+
+
+def _prefilter_f64(field):
+    """The prefilter's function in float64 on the host, written apart from
+    the port's: pole sqrt(3) - 2 unrounded, the causal start over
+    min(n, 13) terms, the mirrored anticausal start."""
+    z = np.sqrt(3.0) - 2.0
+    lam = (1.0 - z) * (1.0 - 1.0 / z)
+    out = field.detach().cpu().double().numpy()
+    for axis in range(3):
+        a = np.moveaxis(out, axis, 0).copy()
+        n = a.shape[0]
+        start = np.tensordot(z ** np.arange(min(n, 13)), a[:13], axes=1)
+        c = lam * a
+        c[0] = lam * start
+        for i in range(1, n):
+            c[i] += z * c[i - 1]
+        c[n - 1] = z / (z * z - 1.0) * (z * c[n - 2] + c[n - 1])
+        for i in range(n - 2, -1, -1):
+            c[i] = z * (c[i + 1] - c[i])
+        out = np.moveaxis(c, 0, axis)
+    return out
+
+
+def test_prefilter_kernel_matches_the_plain_prefilter():
+    """K11 against the plain prefilter on the card, bit for bit (the same
+    float32 recurrences, the causal start summed in the same order), and
+    within 2e-6 of the maximum of a float64 prefilter written apart from
+    both (the CPU tests' limit against the JAX package's float64
+    prefilters); two launches equal (no atomics)."""
+    dev = _card()
+    f, _ = _prefilter_case(dev)
+    got = bspline_prefilter(f)
+    assert torch.equal(got, bspline_prefilter_plain(f))
+    ref = _prefilter_f64(f)
+    assert np.abs(got.cpu().numpy() - ref).max() <= 2e-6 * np.abs(ref).max()
+    assert torch.equal(got, bspline_prefilter(f))
+
+
+def test_prefilter_transpose_kernel_matches_autograd():
+    """K12 against autograd through the plain prefilter (1e-6 of the
+    maximum), and the dot-product identity <K11 x, y> = <x, K12 y> summed
+    in float64 (relative 1e-6)."""
+    dev = _card()
+    f, ct = _prefilter_case(dev)
+    leaf = f.clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad(bspline_prefilter_plain(leaf), leaf, ct)
+    leaf = f.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(bspline_prefilter(leaf), leaf, ct)
+    assert _nerr(got, ref) <= 1e-6
+    lhs = float((bspline_prefilter(f).double() * ct.double()).sum())
+    rhs = float((f.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-6 * abs(lhs)
