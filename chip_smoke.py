@@ -111,8 +111,11 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    against the plain prefilter and against an independent float64
    prefilter on the host, and its transpose (K12) against autograd through
    the plain one, at 64^3 and 512^3, with the dot-product identity and two
-   runs of each; times, bounds, peak memory, torch.gradient's time beside
-   K10, the plain prefilter's as it stood before K11 beside K11's; under
+   runs of each, on the tiles the shape takes and on the one-thread-a-line
+   kernel that longer lines take (timed in turns with the tiles; each
+   axis's tiles and the bytes it moves printed); times, bounds, peak
+   memory, torch.gradient's time beside K10, the plain prefilter's as it
+   stood before K11 beside K11's; under
    ``--native-only`` then the tricubic pair through the command line and
    one step of a tricubic render's gradient, with the launches of all three
    (the full run reads them on items 3, 5 and 6);
@@ -4352,12 +4355,16 @@ def main(argv=None) -> int:
         def counts_now():
             return {k: int(w.launches) for k, w in launchers.items()}
 
-        def traced_ms(run, tag, launches):
+        def traced_ms(run, tag, launches, others=None):
             """Device ms of one traced run() of a kernel that no counter of
-            `counters` counts, held to its launches (else NOT_MEASURED)."""
-            got = traced(run, others={tag: launches})[1].get(tag,
-                                                             NOT_MEASURED)
-            return got if got == NOT_MEASURED else got[0]
+            `counters` counts, held to its launches (else NOT_MEASURED);
+            `others`: {kernel: launches} that run() must also make (0 for
+            one it must not launch)."""
+            got = traced(run, others={tag: launches, **(others or {})})[1]
+            if any(got.get(k, NOT_MEASURED) == NOT_MEASURED
+                   for k in (tag, *(others or {}))):
+                return NOT_MEASURED
+            return got[tag][0]
 
         # (a) K10 against the plain float64 stencil on the CPU, bit for bit
         def library_gradient(nm1, spac):
@@ -4456,18 +4463,50 @@ def main(argv=None) -> int:
         # K11 also against an independent float64 prefilter on the host
         # (prefilter_f64), the plain version against which it is held having
         # been shaped to K11's order of summation, and beside the plain
-        # version as it stood before K11 (prefilter_stacked)
+        # version as it stood before K11 (prefilter_stacked).  Each on the
+        # route its shape takes (the tile kernels at both sizes) and, in
+        # turns with it, on the one-thread-a-line kernel that longer lines
+        # take (its plan forced through native._launch_prefilter; these
+        # launches count nowhere)
         gen14 = torch.Generator(device=dev)
         gen14.manual_seed(14)
         pre = {}
+        kernel_of = {("11", True): "prefilter_tile_kernel",
+                     ("11", False): "prefilter_axis_kernel",
+                     ("12", True): "prefilter_tile_bwd_kernel",
+                     ("12", False): "prefilter_axis_bwd_kernel"}
         for label, fld in (("64^3", vol.field), (f"{n5}^3", vol5.field)):
             big = fld.numel() > 1e8
+            plans = native.prefilter_plan(*(int(d_) for d_ in fld.shape))
+            require(all(p_.tiled for p_ in plans),
+                    f"{label}: an axis takes the one-thread-a-line kernel")
+            long_plans = tuple(p_._replace(tiled=False) for p_ in plans)
+            nbytes = fld.numel() * 4
+            for a_, p_ in enumerate(plans):
+                print(f"    {label} axis {a_} (n {p_.n}, stride "
+                      f"{p_.stride}): tiles of {p_.rows} x {p_.cols} lines, "
+                      f"{p_.smem_bytes} B of shared memory, {p_.tiles} "
+                      f"tiles; the field moved once in and once out, "
+                      f"{2 * nbytes / 1e9:.4f} GB (one thread a line: read "
+                      f"and written twice, {4 * nbytes / 1e9:.4f} GB)")
+
+            def k11(route):
+                return (native.launch_prefilter(fld) if route else
+                        native._launch_prefilter("photon_bspline_prefilter",
+                                                 fld, long_plans))
+
+            def k12(route, ct_):
+                return (native.launch_prefilter_bwd(ct_) if route else
+                        native._launch_prefilter(
+                            "photon_bspline_prefilter_bwd", ct_, long_plans))
+
             coeff, gb_k = with_peak_above(lambda: native.launch_prefilter(fld),
                                           dev)
             ref, gb_p = with_peak_above(lambda: bspline_prefilter_plain(fld),
                                         dev)
             err11 = nerr(coeff, ref)
             bit11 = torch.equal(coeff, ref)
+            bit11_long = torch.equal(k11(False), ref)
             del ref
             t0 = time.perf_counter()
             ref64 = prefilter_f64(fld)
@@ -4505,27 +4544,40 @@ def main(argv=None) -> int:
             g12, gb_b = with_peak_above(
                 lambda: native.launch_prefilter_bwd(ct), dev)
             err12 = nerr(g12, g_ref)
+            bit12 = torch.equal(g12, g_ref)
+            bit12_long = torch.equal(k12(False, ct), g_ref)
             del g_ref
             same12 = torch.equal(g12, native.launch_prefilter_bwd(ct))
             lhs = float(torch.sum(coeff.double() * ct.double()))
             rhs = float(torch.sum(fld.double() * g12.double()))
             dot = abs(lhs - rhs) / abs(lhs)
             del coeff, g12
-            ms11 = time_ms(lambda: native.launch_prefilter(fld), reps[0], 1)
-            ms12 = time_ms(lambda: native.launch_prefilter_bwd(ct), reps[0],
-                           1)
+            # the two routes in turns: tiles, one thread a line, one thread
+            # a line, tiles
+            ms = {r_: {"11": [], "12": []} for r_ in (True, False)}
+            for route in (True, False, False, True):
+                ms[route]["11"].append(time_ms(lambda: k11(route), reps[0],
+                                               1))
+                ms[route]["12"].append(time_ms(lambda: k12(route, ct),
+                                               reps[0], 1))
             ms12_p = time_ms(lambda: torch.autograd.grad(
                 out_p, leaf, ct, retain_graph=True), reps[1] + 1, reps[1] - 1)
             del out_p, leaf
-            dev11 = traced_ms(lambda: native.launch_prefilter(fld),
-                              "prefilter_axis_kernel", 3)
-            dev12 = traced_ms(lambda: native.launch_prefilter_bwd(ct),
-                              "prefilter_axis_bwd_kernel", 3)
+            dev_ = {}
+            for kk in ("11", "12"):
+                for route in (True, False):
+                    run = ((lambda r_=route: k11(r_)) if kk == "11" else
+                           (lambda r_=route: k12(r_, ct)))
+                    dev_[kk, route] = traced_ms(
+                        run, kernel_of[kk, route], 3,
+                        {kernel_of[kk, not route]: 0})
             del ct
-            nbytes = fld.numel() * 4
-            # one read and one write of the field an axis; some 5 operations
-            # an element and axis
-            bnd, by = bound_ms(2 * 3 * nbytes, 5 * 3 * fld.numel())
+            # the function's bytes: the field read once and the coefficients
+            # written once; some 5 operations an element and axis.  The
+            # tiles' design moves the field once in and once out an axis:
+            # three_pass_ms is that traffic over the memory rate
+            bnd, by = bound_ms(2 * nbytes, 5 * 3 * fld.numel())
+            three_pass_ms = 2 * 3 * nbytes / H100_BYTES_PER_S * 1e3
             hold(f"K11 {label} against the plain prefilter (of the "
                  f"coefficients' maximum)", err11, 1e-6)
             hold(f"K11 {label} against prefilter_f64, float64 on the host "
@@ -4537,34 +4589,57 @@ def main(argv=None) -> int:
                  dot, 1e-6)
             hold(f"K11 and K12 {label}: two runs differ",
                  float(not (same11 and same12)), 0.0)
+            hold(f"K11 and K12 {label}: the tile kernels differ from the "
+                 f"plain versions", float(not (bit11 and bit12)), 0.0)
+            hold(f"K11 and K12 {label}: the one-thread-a-line kernels differ "
+                 f"from the plain versions", float(not (bit11_long
+                                                        and bit12_long)),
+                 0.0)
             print(f"    K11 {label}: "
                   f"{'bit-equal' if bit11 else 'not bit-equal'} to the plain "
-                  f"prefilter; "
+                  f"prefilter (one thread a line: "
+                  f"{'bit-equal' if bit11_long else 'not bit-equal'}); "
                   f"against prefilter_f64 ({f64_s:.1f} s on the host) "
                   f"{err64:.3e} of its maximum, per channel "
                   + ", ".join(f"{e:.3e}" for e in err64_c)
                   + f"; the plain version as it stood before K11 "
                   f"{err64_o:.3e}")
-            print(f"    K11 {label}: time {ms11:.4f} ms (device "
-                  f"{ms_or_not(dev11, 4)} in 3 launches), bound {bnd:.4f} ms "
-                  f"({by}), plain version {ms11_p:.2f} ms (runs "
-                  + ", ".join(f"{t:.2f}" for t in turns["plain"])
-                  + f"), the plain version as it stood before K11 "
-                  f"{ms11_o:.2f} ms (runs "
-                  + ", ".join(f"{t:.2f}" for t in turns["stacked"])
-                  + f"); peak above the field {gb_k:.3f} GB against the "
-                  f"plain version's {gb_p:.3f} GB and the earlier one's "
-                  f"{gb_o:.3f} GB  [{card}]")
-            print(f"    K12 {label}: time {ms12:.4f} ms (device "
-                  f"{ms_or_not(dev12, 4)}), bound {bnd:.4f} ms ({by}), "
-                  f"autograd's backward through the plain version "
-                  f"{ms12_p:.2f} ms; peak above the cotangent {gb_b:.3f} GB  "
-                  f"[{card}]")
-            pre[label] = dict(err11=err11, err12=err12, dot=dot, ms11=ms11,
-                              ms12=ms12, dev11=dev11, dev12=dev12,
-                              ms11_p=ms11_p, ms11_o=ms11_o, ms12_p=ms12_p,
-                              err64=err64, err64_o=err64_o, bound=bnd, by=by,
-                              gb_k=gb_k, gb_p=gb_p, gb_o=gb_o, gb_b=gb_b)
+            for kk, tail in (("11", f"plain version {ms11_p:.2f} ms (runs "
+                              + ", ".join(f"{t:.2f}" for t in turns["plain"])
+                              + f"), the plain version as it stood before "
+                              f"K11 {ms11_o:.2f} ms (runs "
+                              + ", ".join(f"{t:.2f}" for t in
+                                          turns["stacked"])
+                              + f"); peak above the field {gb_k:.3f} GB "
+                              f"against the plain version's {gb_p:.3f} GB "
+                              f"and the earlier one's {gb_o:.3f} GB"),
+                             ("12", f"{'bit-equal' if bit12 else 'not '
+                                      'bit-equal'} to autograd (one thread "
+                              f"a line: {'bit-equal' if bit12_long else 'not '
+                                         'bit-equal'}), whose backward "
+                              f"through the plain version takes "
+                              f"{ms12_p:.2f} ms; peak above the cotangent "
+                              f"{gb_b:.3f} GB")):
+                print(f"    K{kk} {label}: tiles "
+                      + ", ".join(f"{t:.4f}" for t in ms[True][kk])
+                      + f" ms (device {ms_or_not(dev_[kk, True], 4)} in 3 "
+                      f"launches); one thread a line, in turns, "
+                      + ", ".join(f"{t:.4f}" for t in ms[False][kk])
+                      + f" ms (device {ms_or_not(dev_[kk, False], 4)}); "
+                      f"bound {bnd:.4f} ms ({by}; the tiles' three passes "
+                      f"over the memory rate {three_pass_ms:.4f} ms); {tail}  "
+                      f"[{card}]")
+            pre[label] = dict(
+                err11=err11, err12=err12, dot=dot, bound=bnd, by=by,
+                three_pass_ms=three_pass_ms,
+                ms11_p=ms11_p, ms11_o=ms11_o, ms12_p=ms12_p,
+                err64=err64, err64_o=err64_o, gb_k=gb_k, gb_p=gb_p,
+                gb_o=gb_o, gb_b=gb_b, plans=plans, **{
+                    f"{key}{kk}": v for kk in ("11", "12") for key, v in (
+                        ("ms", statistics.median(ms[True][kk])),
+                        ("dev", dev_[kk, True]),
+                        ("ms_long", statistics.median(ms[False][kk])),
+                        ("dev_long", dev_[kk, False]))})
         del vol5
 
         def native_entry_points():
@@ -4680,12 +4755,32 @@ def main(argv=None) -> int:
                              "autograd's backward through the plain "
                              "prefilter"),
                 bound_ms=p64["bound"], bound_by=p64["by"], library_ms=None,
+                three_pass_ms=p64["three_pass_ms"],
+                three_pass_ms_is=("the tiles' traffic, the field once in "
+                                  "and once out an axis, over the memory "
+                                  "rate"),
                 at_512=dict(max_abs_err=p5["err" + kk], ms=p5["ms" + kk],
                             device_ms=p5["dev" + kk],
                             plain_ms=p5["ms" + kk + "_p"],
-                            bound_ms=p5["bound"], peak_gb=p5[
+                            bound_ms=p5["bound"],
+                            three_pass_ms=p5["three_pass_ms"], peak_gb=p5[
                                 "gb_k" if kk == "11" else "gb_b"],
-                            plain_peak_gb=p5["gb_p"])))
+                            plain_peak_gb=p5["gb_p"]),
+                routes=[dict(
+                    kernel=kernel_of[kk, tiled_],
+                    takes=("every line that fits a tile of 8 lines in "
+                           "227 KB (all lines at these shapes); ms and "
+                           "device_ms above are this route's"
+                           if tiled_ else "longer lines (none at these "
+                           "shapes; timed in turns with the tiles by "
+                           "forcing its plan, launches not counted)"),
+                    **{sz: dict(ms=p_["ms" + sfx + kk],
+                                device_ms=p_["dev" + sfx + kk],
+                                tiles=([[q.rows, q.cols, q.smem_bytes,
+                                         q.tiles] for q in p_["plans"]]
+                                       if tiled_ else None))
+                       for sz, p_ in (("at_64", p64), ("at_512", p5))})
+                    for tiled_, sfx in ((True, ""), (False, "_long"))]))
             if kk == "11":
                 # the independent float64 check, and the plain version as it
                 # stood before K11 (its time and peak, timed in turns)

@@ -36,27 +36,64 @@
 // samples in order k = 0, 1, ..., the causal pass c_i = lam x_i + z c_{i-1},
 // the anticausal start last (z c_{n-2} + c_{n-1}) and pass
 // o_i = z (o_{i+1} - c_i), with the plain version's float32 constants (the
-// wrapper passes them), so that K11 is the plain version bit for bit.  One
-// thread a line (the two other spatial indices and the channel); the causal
-// pass writes c into the output and the anticausal pass reads it back from
-// the end and overwrites it.  The first axis runs out of place and the
-// other two in place, so a call needs the field and one copy.  Lines along
-// D and H are coalesced across a warp's threads; lines along W (stride C)
-// are not: a warp's threads cover C channels of 32 / C rows.  Each line is
-// read twice and written twice, in chunks of eight samples loaded before any
-// is written.  Bound: bytes, one read and one write of the field an axis
-// (25.2 MB at 64^3 x 4, 7.5 us; 12.9 GB at 512^3 x 4, 3.85 ms).
+// wrapper passes them), so that K11 is the plain version bit for bit.  The
+// first axis runs out of place and the other two in place, so a call needs
+// the field and one copy.  Bound: bytes, one read of the field and one write
+// of the coefficients (8.4 MB at 64^3 x 4, 2.5 us; 4.3 GB at 512^3 x 4,
+// 1.28 ms).  The tiles below move the field once in and once out an axis,
+// three times that (3.85 ms at 512^3 x 4); fewer passes would need axes 1
+// and 2 run a D-plane at a time (4 MB a plane at 512^2 x 4, held in L2).
+//
+// A line (the two other spatial indices and the channel) is a recurrence of
+// n dependent steps each way, so a thread runs a line; what the design has
+// to get right is the memory.  prefilter_tile_kernel: a block owns a tile of
+// whole lines in shared memory.  Its threads copy the tile in with
+// cp.async (16 bytes a copy where the strides allow, all of a thread's
+// copies in flight at once and none through registers), its first R x T
+// threads (one warp) run both passes of a line each out of shared memory,
+// and all copy the tile back: the field is read once and written once an
+// axis.  In place is safe because a block writes nothing before its whole
+// tile has arrived and the tiles are disjoint sets of lines.  An axis of
+// stride s (the product of the later dimensions, C included) has lines
+// (o, j): o the product of the earlier indices, j < s; sample i of line
+// (o, j) lies at (o n + i) s + j.  Where s > 32 (axes 0 and 1) a tile is T
+// consecutive j of one o, T = 32 (16 or 8 for longer lines): n rows of T
+// contiguous floats, stored in shared memory as [i][t], so the T threads of
+// one sample read T banks.  Where s <= 32 (axis 2, C floats a voxel) a tile
+// is R consecutive o with all s of their j (T = s): R whole rows of n s
+// contiguous floats, each row stored at a pitch that is T more than a
+// multiple of 32 floats, so that line k = r T + t reads sample i from bank
+// (k + i T) mod 32 and a warp's reads of a sample fall in distinct banks
+// (an unpadded pitch of 2048 would put all eight rows of a 512 x 4 tile in
+// one bank).  A pass runs whole chunks of eight steps with no test inside,
+// the next chunk's samples loaded ahead, so that the dependent chain is the
+// multiply and the add.  native.py plans the tiles from the shape
+// (prefilter_plan): about 32 lines and at most 75 KB a tile, three tiles an
+// SM (the kernel is held to 85 registers for that).  On an H100 at 512^3 x 4
+// a tile spends about 4.5 us copying in, 10 us in its 1,037 steps a line
+// and 3.4 us copying out (global-timer stamps): the passes, one warp's
+// dependent chain, are the larger part, and with three tiles an SM the
+// memory is idle while all three run them.  A line too long for a tile of 8
+// lines in 227 KB (about n > 7,260 samples, or n C > 58,000 floats on axis
+// 2) takes prefilter_axis_kernel, one thread a line straight from device
+// memory (lines along D and H coalesced across a warp, along W a warp covers
+// C channels of 32 / C rows; each line read twice and written twice, in
+// chunks of eight samples loaded before any is written).
 //
 // K12, photon_bspline_prefilter_bwd.  K11's transpose, the axes in reverse
 // order.  For one line with cotangent g: u_0 = g_0, u_{i+1} = g_{i+1} + z u_i
 // and pbar_i = -z u_i (i <= n-2); the anticausal start sets
 // pbar_{n-1} = last u_{n-1} and adds z pbar_{n-1} to pbar_{n-2}; then backwards
 // xbar_i = lam pbar_i and pbar_{i-1} += z pbar_i (i = n-1 .. 1); finally
-// xbar_k += z^k (lam pbar_0) for k < horizon.  Same layout, passes and
-// bound as K11.  Neither K11 nor K12 uses atomics: two runs are equal.
+// xbar_k += z^k (lam pbar_0) for k < horizon.  The same tiles, routes and
+// bound as K11 (prefilter_tile_bwd_kernel; prefilter_axis_bwd_kernel for the
+// long lines): all three sweeps run in shared memory between the tile's one
+// load and one store.  Neither K11 nor K12 uses atomics: two runs are equal.
 //
 // Plain C interface, no PyTorch headers (photon_tpu_torch/kernels.py).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -68,6 +105,15 @@ struct Pole {
   float z;        // the pole
   float last;     // z / (z^2 - 1), the anticausal start's factor
   int horizon;    // terms of the causal start (at most 16)
+};
+
+// one axis's route and tile (native.py, prefilter_plan; the same layout as
+// native.py's _AxisPlan)
+struct AxisPlan {
+  int tiled;      // 1: the tile kernels; 0: one thread a line
+  int cols;       // T: lines of one outer index a tile (all s where s <= 32)
+  int rows;       // R: outer indices a tile
+  int pitch;      // floats of shared memory a tile row holds
 };
 
 constexpr int kChunk = 8;
@@ -217,16 +263,443 @@ __global__ void prefilter_axis_bwd_kernel(const float* g, float* xbar,
     q[k * stride] = q[k * stride] + p.zk[k] * t;
 }
 
-constexpr int kThreads = 128;
+// ---------------------------------------------------------------------------
+// the tile kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;
+constexpr int kTileBlocks = 3;          // blocks an SM (registers <= 85)
+constexpr int kCopyBatch = 4;           // stores a thread keeps in flight
+
+// a tile's shape in the field (prefilter_plan's, checked by launch_tiles)
+struct TileGeom {
+  long long n, s, outer;  // samples a line, stride, outer indices
+  long long tiles_j;      // tiles across j (1 where T = s)
+  int cols, rows, pitch;  // T, R, floats a tile row holds in shared memory
+  int shift;              // log2 T where T < s (T a power of two), else -1
+};
+
+// Unit u of tile row r (a float4 when kVec, else a float): its offset from
+// the tile's first sample in the field and in shared memory.  False where it
+// lies past the axis's last line (j >= s in the last tile across j).
+template <bool kVec>
+__device__ __forceinline__ bool tile_unit(const TileGeom& g, long long j0,
+                                          int r, int u, long long& goff,
+                                          int& soff) {
+  const int e = kVec ? 4 * u : u;        // element i T + t of the row
+  soff = r * g.pitch + e;
+  goff = (long long)r * g.n * g.s;
+  if (g.shift < 0) {                     // T = s: the row is contiguous
+    goff += e;
+    return true;
+  }
+  const int t = e & (g.cols - 1);
+  goff += (long long)(e >> g.shift) * g.s + t;
+  return j0 + t < g.s;
+}
+
+// 16 or 4 bytes from device memory into shared memory without passing
+// through registers (cp.async): a thread starts all of its copies at once
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool vec) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (vec)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// the tile from device memory (`src`, from `base`) into shared memory
+template <bool kVec>
+__device__ __forceinline__ void tile_load(const TileGeom& g, const float* src,
+                                          float* sm, long long base,
+                                          long long j0, int rows_here) {
+  const int per_row = (int)(g.n * g.cols) / (kVec ? 4 : 1);
+  const int units = rows_here * per_row;
+  for (int f = threadIdx.x; f < units; f += kTileThreads) {
+    const int r = f / per_row;
+    long long goff;
+    int soff;
+    if (tile_unit<kVec>(g, j0, r, f - r * per_row, goff, soff))
+      copy_async(sm + soff, src + base + goff, kVec);
+  }
+  copy_async_wait();
+}
+
+// the tile from shared memory back to device memory (`dst`, from `base`),
+// kCopyBatch units a thread in flight
+template <bool kVec>
+__device__ __forceinline__ void tile_store(const TileGeom& g, float* dst,
+                                           const float* sm, long long base,
+                                           long long j0, int rows_here) {
+  using Unit = typename std::conditional<kVec, float4, float>::type;
+  const int per_row = (int)(g.n * g.cols) / (kVec ? 4 : 1);
+  const int units = rows_here * per_row;
+  for (int f0 = threadIdx.x; f0 < units; f0 += kCopyBatch * kTileThreads) {
+    Unit v[kCopyBatch];
+    long long goff[kCopyBatch];
+    bool ok[kCopyBatch];
+#pragma unroll
+    for (int b = 0; b < kCopyBatch; ++b) {
+      const int f = f0 + b * kTileThreads;
+      ok[b] = false;
+      if (f < units) {
+        const int r = f / per_row;
+        int soff;
+        ok[b] = tile_unit<kVec>(g, j0, r, f - r * per_row, goff[b], soff);
+        if (ok[b]) v[b] = *reinterpret_cast<const Unit*>(sm + soff);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kCopyBatch; ++b)
+      if (ok[b]) *reinterpret_cast<Unit*>(dst + base + goff[b]) = v[b];
+  }
+}
+
+// The passes over a line in shared memory (samples x[i st]), in place.
+// Each runs whole chunks of kChunk steps with no test inside a chunk, the
+// next chunk's samples loaded before the current chunk's steps, then the
+// last whole chunk, then the remaining steps one at a time: with a test in
+// every step a step took some 45 cycles.  kSt > 0 is the stride as a
+// constant (32 and 4, the bench's tiles), so that a step's addresses are
+// immediate offsets: with the stride in a register a step took ten
+// instructions, four of them address arithmetic, and one warp runs them
+// one at a time (4 to 6.6 a step with the constant).
+
+// the causal start's sum, in order k = 0, 1, ...: sum_k zk[k] x[k st]
+template <int kSt>
+__device__ __forceinline__ float causal_start(const float* x, int st_,
+                                              const Pole& p) {
+  const int st = kSt > 0 ? kSt : st_;
+  float acc = p.zk[0] * x[0];
+#pragma unroll
+  for (int k = 1; k < 16; ++k)
+    if (k < p.horizon) acc = acc + p.zk[k] * x[k * st];
+  return acc;
+}
+
+// K11 along one line
+template <int kSt>
+__device__ __forceinline__ void filter_line(float* x, int st_, int n,
+                                            const Pole& p) {
+  const int st = kSt > 0 ? kSt : st_;
+  const float z = p.z, lam = p.lam;
+  float prev2 = 0.0f;                               // c_{i-2}
+  float prev = lam * causal_start<kSt>(x, st, p);   // c_{i-1}
+  x[0] = prev;
+  float cur[kChunk], nxt[kChunk];
+  int i = 1;
+  if (i + kChunk <= n) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) cur[j] = x[(i + j) * st];
+    for (; i + 2 * kChunk <= n; i += kChunk) {
+      float* xi = x + i * st;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) nxt[j] = xi[(kChunk + j) * st];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float ci = lam * cur[j] + z * prev;
+        xi[j * st] = ci;
+        prev2 = prev;
+        prev = ci;
+        cur[j] = nxt[j];
+      }
+    }
+    float* xi = x + i * st;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      const float ci = lam * cur[j] + z * prev;
+      xi[j * st] = ci;
+      prev2 = prev;
+      prev = ci;
+    }
+    i += kChunk;
+  }
+  for (; i < n; ++i) {
+    const float ci = lam * x[i * st] + z * prev;
+    x[i * st] = ci;
+    prev2 = prev;
+    prev = ci;
+  }
+  // n >= 2: prev = c_{n-1}, prev2 = c_{n-2}
+  float o = p.last * (z * prev2 + prev);
+  x[(n - 1) * st] = o;
+  i = n - 2;
+  if (i - kChunk + 1 >= 0) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) cur[j] = x[(i - j) * st];
+    for (; i - 2 * kChunk + 1 >= 0; i -= kChunk) {
+      float* xi = x + i * st;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) nxt[j] = xi[-(kChunk + j) * st];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        o = z * (o - cur[j]);
+        xi[-j * st] = o;
+        cur[j] = nxt[j];
+      }
+    }
+    float* xi = x + i * st;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      o = z * (o - cur[j]);
+      xi[-j * st] = o;
+    }
+    i -= kChunk;
+  }
+  for (; i >= 0; --i) {
+    o = z * (o - x[i * st]);
+    x[i * st] = o;
+  }
+}
+
+// K12 along one line: the cotangent g in, xbar out (the slots hold g, then
+// pbar, then xbar)
+template <int kSt>
+__device__ __forceinline__ void transpose_line(float* x, int st_, int n,
+                                               const Pole& p) {
+  const int st = kSt > 0 ? kSt : st_;
+  const float z = p.z, lam = p.lam;
+  float cur[kChunk], nxt[kChunk];
+  // the anticausal pass's transpose, forwards: x_i = pbar_i = -z u_i
+  float u = x[0];
+  int i = 0;
+  if (i + kChunk <= n - 1) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) cur[j] = x[(i + 1 + j) * st];
+    for (; i + 2 * kChunk <= n - 1; i += kChunk) {
+      float* xi = x + i * st;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) nxt[j] = xi[(1 + kChunk + j) * st];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        xi[j * st] = -(z * u);
+        u = cur[j] + z * u;
+        cur[j] = nxt[j];
+      }
+    }
+    float* xi = x + i * st;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      xi[j * st] = -(z * u);
+      u = cur[j] + z * u;
+    }
+    i += kChunk;
+  }
+  for (; i < n - 1; ++i) {
+    x[i * st] = -(z * u);
+    u = x[(i + 1) * st] + z * u;
+  }
+  // the anticausal start's transpose (n >= 2)
+  float P = p.last * u;          // pbar_{n-1}
+  x[(n - 2) * st] = x[(n - 2) * st] + z * P;
+  // the causal pass's transpose, backwards
+  i = n - 1;
+  if (i - kChunk + 1 >= 1) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) cur[j] = x[(i - 1 - j) * st];
+    for (; i - 2 * kChunk >= 0; i -= kChunk) {
+      float* xi = x + i * st;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) nxt[j] = xi[-(1 + kChunk + j) * st];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        xi[-j * st] = lam * P;
+        P = cur[j] + z * P;
+        cur[j] = nxt[j];
+      }
+    }
+    float* xi = x + i * st;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      xi[-j * st] = lam * P;
+      P = cur[j] + z * P;
+    }
+    i -= kChunk;
+  }
+  for (; i >= 1; --i) {
+    x[i * st] = lam * P;
+    P = x[(i - 1) * st] + z * P;
+  }
+  // the causal start's transpose: P = pbar_0
+  const float t = lam * P;
+  x[0] = p.zk[0] * t;
+#pragma unroll
+  for (int k = 1; k < 16; ++k)
+    if (k < p.horizon) x[k * st] = x[k * st] + p.zk[k] * t;
+}
+
+// the passes over the line at x, the stride a constant where it is 32 or 4
+template <bool kBackward>
+__device__ __forceinline__ void run_line(float* x, int st, int n,
+                                         const Pole& p) {
+  if (st == 32)
+    kBackward ? transpose_line<32>(x, st, n, p) : filter_line<32>(x, st, n, p);
+  else if (st == 4)
+    kBackward ? transpose_line<4>(x, st, n, p) : filter_line<4>(x, st, n, p);
+  else
+    kBackward ? transpose_line<0>(x, st, n, p) : filter_line<0>(x, st, n, p);
+}
+
+// no stamps: what the tile kernels pass prefilter_tile (a probe of where a
+// tile's time goes passes a functor that records the time at each stamp)
+struct NoStamps {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+// one tile: copy in, a line a thread, copy out; stamp(k) is called by every
+// thread at the tile's start (0), after its copy in (1), after its passes
+// (2) and after its copy out (3)
+template <bool kBackward, bool kVec, class Stamp>
+__device__ __forceinline__ void prefilter_tile(const float* in, float* out,
+                                               const TileGeom& g,
+                                               const Pole& p, float* sm,
+                                               Stamp stamp) {
+  stamp(0);
+  const long long jt = blockIdx.x % g.tiles_j;
+  const long long o0 = (blockIdx.x / g.tiles_j) * g.rows;
+  const long long j0 = jt * g.cols;
+  const int rows_here =
+      (int)(g.outer - o0 < g.rows ? g.outer - o0 : (long long)g.rows);
+  const long long base = o0 * g.n * g.s + j0;
+  tile_load<kVec>(g, in, sm, base, j0, rows_here);
+  __syncthreads();
+  stamp(1);
+  const int k = threadIdx.x;
+  if (k < g.rows * g.cols) {
+    const int r = k / g.cols, t = k - r * g.cols;
+    if (r < rows_here && (g.shift < 0 || j0 + t < g.s)) {
+      run_line<kBackward>(sm + r * g.pitch + t, g.cols, (int)g.n, p);
+    }
+  }
+  __syncthreads();
+  stamp(2);
+  tile_store<kVec>(g, out, sm, base, j0, rows_here);
+  stamp(3);
+}
+
+// prefilter_tile with 16-byte copies where `vec`, else 4-byte ones
+template <bool kBackward, class Stamp>
+__device__ __forceinline__ void run_tile(const float* in, float* out,
+                                         const TileGeom& g, const Pole& p,
+                                         int vec, float* sm, Stamp stamp) {
+  if (vec)
+    prefilter_tile<kBackward, true>(in, out, g, p, sm, stamp);
+  else
+    prefilter_tile<kBackward, false>(in, out, g, p, sm, stamp);
+}
+
+// K11 along one axis, a tile a block: in and out may be the same array
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    prefilter_tile_kernel(const float* in, float* out, TileGeom g, Pole p,
+                          int vec) {
+  extern __shared__ float4 tile_sm[];
+  run_tile<false>(in, out, g, p, vec, reinterpret_cast<float*>(tile_sm),
+                  NoStamps());
+}
+
+// K12 along one axis, a tile a block: g and xbar may be the same array
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    prefilter_tile_bwd_kernel(const float* in, float* out, TileGeom g, Pole p,
+                              int vec) {
+  extern __shared__ float4 tile_sm[];
+  run_tile<true>(in, out, g, p, vec, reinterpret_cast<float*>(tile_sm),
+                 NoStamps());
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;            // one thread a line
+constexpr int kMaxTileBytes = 232448;    // shared memory a block can take
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
+}
+
+// axis `axis` of a (D, H, W, C) field: n samples a line, stride s (the
+// product of the later dimensions, C included), `outer` outer indices
+void axis_shape(const long long dims[4], int axis, long long& n,
+                long long& s, long long& outer) {
+  n = dims[axis];
+  s = dims[3];
+  for (int a = axis + 1; a < 3; ++a) s *= dims[a];
+  outer = 1;
+  for (int a = 0; a < axis; ++a) outer *= dims[a];
+}
+
+// the tiles `plan` gives an axis of n samples, stride s and `outer` outer
+// indices: their geometry and number; a plan that would overrun shared
+// memory or the block is refused
+int make_geom(long long n, long long s, long long outer, const AxisPlan& plan,
+              TileGeom& g, long long& tiles) {
+  const long long T = plan.cols, R = plan.rows;
+  const bool contig = T == s;
+  const bool pow2 = T > 0 && (T & (T - 1)) == 0;
+  if (T < 1 || R < 1 || R * T > kTileThreads ||
+      (!contig && (!pow2 || T > s)) || plan.pitch < n * T ||
+      R * plan.pitch * 4 > kMaxTileBytes)
+    return (int)cudaErrorInvalidValue;
+  g.n = n;
+  g.s = s;
+  g.outer = outer;
+  g.cols = (int)T;
+  g.rows = (int)R;
+  g.pitch = plan.pitch;
+  g.tiles_j = contig ? 1 : (s + T - 1) / T;
+  g.shift = -1;
+  if (!contig)
+    for (g.shift = 0; (1LL << g.shift) < T; ++g.shift) {
+    }
+  tiles = g.tiles_j * ((outer + R - 1) / R);
+  return tiles > 0x7fffffffLL ? (int)cudaErrorInvalidValue : 0;
+}
+
+// `kernel` (prefilter_tile_kernel, prefilter_tile_bwd_kernel, or a kernel
+// of the same arguments and `extra` after them) along one axis as `plan`
+// tiles it
+template <class Kernel, class... Extra>
+int launch_tile_kernel(Kernel kernel, const float* in, float* out,
+                       long long n, long long s, long long outer,
+                       const AxisPlan& plan, const Pole& p,
+                       cudaStream_t stream, Extra... extra) {
+  TileGeom g;
+  long long tiles;
+  const int code = make_geom(n, s, outer, plan, g, tiles);
+  if (code != 0) return code;
+  const int vec = g.cols % 4 == 0 && s % 4 == 0 && g.pitch % 4 == 0 &&
+                  aligned16(in) && aligned16(out);
+  const int bytes = g.rows * g.pitch * 4;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)tiles, kTileThreads, (size_t)bytes, stream>>>(
+      in, out, g, p, vec, extra...);
+  return (int)cudaGetLastError();
+}
 
 int launch_axis(bool backward, const float* in, float* out,
                 const long long dims[4], int axis, const Pole& p,
-                cudaStream_t stream) {
-  const long long n = dims[axis];
-  long long stride = dims[3];
-  for (int a = axis + 1; a < 3; ++a) stride *= dims[a];
-  long long outer = 1;
-  for (int a = 0; a < axis; ++a) outer *= dims[a];
+                const AxisPlan& plan, cudaStream_t stream) {
+  long long n, stride, outer;
+  axis_shape(dims, axis, n, stride, outer);
+  if (plan.tiled)
+    return backward ? launch_tile_kernel(prefilter_tile_bwd_kernel, in, out,
+                                         n, stride, outer, plan, p, stream)
+                    : launch_tile_kernel(prefilter_tile_kernel, in, out, n,
+                                         stride, outer, plan, p, stream);
   const long long lines = outer * stride;
   const long long blocks = (lines + kThreads - 1) / kThreads;
   if (backward)
@@ -240,7 +713,7 @@ int launch_axis(bool backward, const float* in, float* out,
 
 int prefilter(bool backward, const float* in, float* out, long long D,
               long long H, long long W, long long C, const Pole* poles,
-              void* stream) {
+              const AxisPlan* plans, void* stream) {
   const long long dims[4] = {D, H, W, C};
   for (int a = 0; a < 3; ++a)
     if (dims[a] < 2 || poles[a].horizon < 1 || poles[a].horizon > 16 ||
@@ -252,7 +725,8 @@ int prefilter(bool backward, const float* in, float* out, long long D,
   for (int s = 0; s < 3; ++s) {
     const int axis = backward ? 2 - s : s;
     const int code = launch_axis(backward, s == 0 ? in : out, out, dims, axis,
-                                 poles[axis], (cudaStream_t)stream);
+                                 poles[axis], plans[axis],
+                                 (cudaStream_t)stream);
     if (code != 0) return code;
   }
   return 0;
@@ -277,22 +751,26 @@ extern "C" int photon_gradient_field(const float* n_minus_1, float* out,
   return (int)cudaGetLastError();
 }
 
-// field, out: (D, H, W, C) float32, distinct arrays; poles: three Pole
-// records in host memory, one an axis (0 = D, 1 = H, 2 = W).  Three
-// launches; returns the first nonzero cudaGetLastError(), else 0.
+// field, out: (D, H, W, C) float32, distinct arrays; poles and plans: three
+// Pole and three AxisPlan records in host memory, one an axis (0 = D, 1 = H,
+// 2 = W).  Three launches; returns the first nonzero cudaGetLastError(),
+// else 0.
 extern "C" int photon_bspline_prefilter(const float* field, float* out,
                                         long long D, long long H, long long W,
                                         long long C, const void* poles,
-                                        void* stream) {
+                                        const void* plans, void* stream) {
   return prefilter(false, field, out, D, H, W, C,
-                   static_cast<const Pole*>(poles), stream);
+                   static_cast<const Pole*>(poles),
+                   static_cast<const AxisPlan*>(plans), stream);
 }
 
 // ct, out: (D, H, W, C) float32, distinct arrays: out = K11^T ct.
 extern "C" int photon_bspline_prefilter_bwd(const float* ct, float* out,
                                             long long D, long long H,
                                             long long W, long long C,
-                                            const void* poles, void* stream) {
+                                            const void* poles,
+                                            const void* plans, void* stream) {
   return prefilter(true, ct, out, D, H, W, C,
-                   static_cast<const Pole*>(poles), stream);
+                   static_cast<const Pole*>(poles),
+                   static_cast<const AxisPlan*>(plans), stream);
 }

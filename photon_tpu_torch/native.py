@@ -45,6 +45,7 @@ import ctypes
 import functools
 import math
 import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -193,6 +194,12 @@ class _Pole(ctypes.Structure):
                 ("horizon", ctypes.c_int)]
 
 
+class _AxisPlan(ctypes.Structure):
+    """csrc/volume_prep.cu's ``AxisPlan``: one axis's route and tile."""
+    _fields_ = [("tiled", ctypes.c_int), ("cols", ctypes.c_int),
+                ("rows", ctypes.c_int), ("pitch", ctypes.c_int)]
+
+
 @functools.lru_cache(maxsize=16)
 def _poles(d: int, h: int, w: int):
     """The three axes' constants for a (d, h, w, C) field, made once a
@@ -207,6 +214,94 @@ def _poles(d: int, h: int, w: int):
     return poles
 
 
+# The tiles of K11 and K12 (csrc/volume_prep.cu): a block of TILE_THREADS
+# holds a tile of whole lines in shared memory and its first lines' worth
+# of threads runs them, about TILE_LINES a tile, one warp.  A tile takes at
+# most TILE_BYTES, so that three fit an SM's 228 KB (each block also
+# reserves 1 KB), and at least TILE_MIN_LINES lines (all of the axis's
+# where it has fewer); a line for which such a tile would pass the
+# TILE_MAX_BYTES a block can take on an H100 goes to the one-thread-a-line
+# kernel.
+TILE_THREADS = 256
+TILE_LINES = 32
+TILE_MIN_LINES = 8
+TILE_BYTES = 76_800
+TILE_MAX_BYTES = 232_448
+
+
+class AxisPlan(NamedTuple):
+    """How K11 / K12 run one axis of a (D, H, W, C) field: its lines (o, j)
+    for o < ``outer`` (the earlier indices) and j < ``stride`` (the later
+    ones, C included) of ``n`` samples each, sample i at (o n + i) stride + j.
+    ``tiled``: a tile a block, ``rows`` consecutive o by ``cols``
+    consecutive j (all ``stride`` of them where ``cols == stride``),
+    ``pitch`` floats of shared memory a row, ``tiles`` blocks,
+    ``smem_bytes`` a block; else one thread a line."""
+    n: int
+    stride: int
+    outer: int
+    tiled: bool
+    cols: int
+    rows: int
+    pitch: int
+    tiles: int
+    smem_bytes: int
+
+
+def _axis_plan(n: int, stride: int, outer: int) -> AxisPlan:
+    if stride <= TILE_LINES:
+        # whole rows of n * stride contiguous floats; a row's pitch is
+        # stride more than a multiple of 32 floats, so that line
+        # k = r * stride + t reads sample i from bank (k + i * stride) % 32
+        cols = stride
+        least = min(outer, -(-TILE_MIN_LINES // stride))
+        rows = min(outer, TILE_LINES // stride)
+
+        def pitch_of(r):
+            return n * cols if r == 1 else n * cols + (cols - n * cols) % 32
+        while rows > least and rows * pitch_of(rows) * 4 > TILE_BYTES:
+            rows -= 1
+        pitch = pitch_of(rows)
+        tiles = -(-outer // rows)
+    else:
+        # n rows of cols contiguous floats, [i][t] in shared memory
+        rows = 1
+        cols = next((c for c in (32, 16) if n * c * 4 <= TILE_BYTES),
+                    TILE_MIN_LINES)
+        pitch = n * cols
+        tiles = outer * -(-stride // cols)
+    smem = rows * pitch * 4
+    if smem > TILE_MAX_BYTES:
+        return AxisPlan(n, stride, outer, False, 0, 0, 0,
+                        -(-outer * stride // 128), 0)
+    return AxisPlan(n, stride, outer, True, cols, rows, pitch, tiles, smem)
+
+
+@functools.lru_cache(maxsize=16)
+def prefilter_plan(d: int, h: int, w: int, c: int):
+    """The route and tile of each axis of a (d, h, w, c) field, from its
+    shape alone (:class:`AxisPlan`; for the one-thread-a-line route
+    ``tiles`` counts its blocks of 128 threads)."""
+    dims = (d, h, w)
+    return tuple(_axis_plan(dims[a], math.prod(dims[a + 1:]) * c,
+                            math.prod(dims[:a])) for a in range(3))
+
+
+def _plan_records(plans):
+    """The C records of three :class:`AxisPlan` (kept alive by the
+    caller)."""
+    records = (_AxisPlan * 3)()
+    for rec, p in zip(records, plans):
+        rec.tiled, rec.cols, rec.rows, rec.pitch = (int(p.tiled), p.cols,
+                                                    p.rows, p.pitch)
+    return records
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_records_of(d: int, h: int, w: int, c: int):
+    return _plan_records(prefilter_plan(d, h, w, c))
+
+
 def _check_field(name: str, t) -> None:
     kernels.check_kernel_input(name, t, None, torch.float32)
     if t.dim() != 4 or min(t.shape[:3]) < 2:
@@ -214,13 +309,21 @@ def _check_field(name: str, t) -> None:
                          f"got {tuple(t.shape)}")
 
 
-def _launch_prefilter(fn: str, t: torch.Tensor) -> torch.Tensor:
+def _launch_prefilter(fn: str, t: torch.Tensor, plans=None) -> torch.Tensor:
+    """Run ``fn`` (``photon_bspline_prefilter`` or ``_bwd``) on ``t`` along
+    the shape's :func:`prefilter_plan`, or along ``plans`` (three
+    :class:`AxisPlan`; chip_smoke times the one-thread-a-line route with
+    it)."""
+    shape = tuple(int(n) for n in t.shape)
     out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-    poles = _poles(*(int(n) for n in t.shape[:3]))
+    poles = _poles(*shape[:3])
+    records = (_plan_records_of(*shape) if plans is None
+               else _plan_records(plans))
     lib = kernels.load("volume_prep")
     with torch.cuda.device(t.device):
-        code = getattr(lib, fn)(t.data_ptr(), out.data_ptr(), *t.shape,
+        code = getattr(lib, fn)(t.data_ptr(), out.data_ptr(), *shape,
                                 ctypes.addressof(poles),
+                                ctypes.addressof(records),
                                 kernels.current_stream(t.device))
     kernels.check_launch(code, fn)
     return out

@@ -130,12 +130,18 @@ def trilinear_in(grid: Grid, field_t, lookup):
 
 
 def _bspline_weights(t):
-    """The four cubic B-spline basis weights for fraction t in [0, 1)."""
+    """The four cubic B-spline basis weights for fraction t in [0, 1),
+    each divided by 6 held in a 0-dim tensor on t's device: on the card
+    PyTorch multiplies a tensor by the rounded reciprocal of a Python (or
+    CPU-scalar) divisor, where the CPU divides, and a third of the weights
+    would part by an ulp (some 8% of the bench pair's cubic rays then left
+    the volume a few ulp apart)."""
+    six = t.new_full((), 6.0)
     one = 1.0 - t
-    w0 = (one * one * one) / 6.0
-    w1 = (3.0 * t * t * t - 6.0 * t * t + 4.0) / 6.0
-    w2 = (-3.0 * t * t * t + 3.0 * t * t + 3.0 * t + 1.0) / 6.0
-    w3 = (t * t * t) / 6.0
+    w0 = (one * one * one) / six
+    w1 = (3.0 * t * t * t - 6.0 * t * t + 4.0) / six
+    w2 = (-3.0 * t * t * t + 3.0 * t * t + 3.0 * t + 1.0) / six
+    w3 = (t * t * t) / six
     return w0, w1, w2, w3
 
 

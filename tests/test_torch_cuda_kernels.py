@@ -16,7 +16,10 @@ dots), dots spread over 24 px, scattered spots and zero-amplitude
 particles, in launches that give a warp 1, 2, 8, 16 and 32 particles, and
 a K = 40 patch on a small frame; the gradient precompute (K10) against
 the plain stencil bit for bit, the prefilter (K11) against the plain
-prefilter and its transpose (K12) against autograd through it.
+prefilter and its transpose (K12) against autograd through it, bit for bit,
+on both of their routes (tiles, and one thread a line) and on ragged and
+misaligned fields; the exact path's cubic weights and its RK4 march under
+both schemes against the CPU, bit for bit.
 
 Each test skips without a CUDA device.  This file imports no jax, so it runs
 where the JAX package is not installed:
@@ -28,7 +31,10 @@ import pytest
 import torch
 
 from photon_tpu_torch import native
+from photon_tpu_torch.ops import interp
+from photon_tpu_torch.ops import march as exact_march
 from photon_tpu_torch.ops.fan import fan_stats, fan_stats_plain
+from photon_tpu_torch.ops.lens import RayBundle
 from photon_tpu_torch.ops.march_dense import (bspline_prefilter,
                                               bspline_prefilter_plain,
                                               march_chief_dense,
@@ -432,9 +438,17 @@ def test_gradient_field_kernel_is_the_plain_stencil_bit_for_bit(shape):
     assert torch.equal(on_card.field.cpu(), on_cpu.field)
 
 
-def _prefilter_case(dev, seed=9):
+# (D, H, W, C): the bench's channels; ragged tiles (no axis a multiple of a
+# tile, C = 3: the copies a float at a time); C = 1 and axes of 3 and 4; a
+# line of 8192 samples in a tile of 196,608 bytes (the few lines of axis 0);
+# a line of 8192 samples that takes the one-thread-a-line kernel
+_PREFILTER_SHAPES = [(16, 18, 20, 4), (67, 45, 129, 3), (5, 3, 4, 1),
+                     (8192, 2, 3, 1), (8192, 2, 3, 4)]
+
+
+def _prefilter_case(dev, shape, seed=9):
     rng = np.random.default_rng(seed)
-    f = torch.from_numpy(rng.normal(size=(16, 18, 20, 4)).astype(np.float32))
+    f = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     ct = torch.from_numpy(rng.normal(size=f.shape).astype(np.float32))
     return f.to(dev), ct.to(dev)
 
@@ -461,14 +475,21 @@ def _prefilter_f64(field):
     return out
 
 
-def test_prefilter_kernel_matches_the_plain_prefilter():
+def _routes(shape):
+    return [p.tiled for p in native.prefilter_plan(*shape)]
+
+
+@pytest.mark.parametrize("shape", _PREFILTER_SHAPES)
+def test_prefilter_kernel_matches_the_plain_prefilter(shape):
     """K11 against the plain prefilter on the card, bit for bit (the same
     float32 recurrences, the causal start summed in the same order), and
     within 2e-6 of the maximum of a float64 prefilter written apart from
     both (the CPU tests' limit against the JAX package's float64
-    prefilters); two launches equal (no atomics)."""
+    prefilters); two launches equal (no atomics).  The last shape's axis 0
+    takes the one-thread-a-line kernel, every other axis the tiles."""
     dev = _card()
-    f, _ = _prefilter_case(dev)
+    assert _routes(shape) == [shape != (8192, 2, 3, 4), True, True]
+    f, _ = _prefilter_case(dev, shape)
     got = bspline_prefilter(f)
     assert torch.equal(got, bspline_prefilter_plain(f))
     ref = _prefilter_f64(f)
@@ -476,17 +497,89 @@ def test_prefilter_kernel_matches_the_plain_prefilter():
     assert torch.equal(got, bspline_prefilter(f))
 
 
-def test_prefilter_transpose_kernel_matches_autograd():
-    """K12 against autograd through the plain prefilter (1e-6 of the
-    maximum), and the dot-product identity <K11 x, y> = <x, K12 y> summed
-    in float64 (relative 1e-6)."""
+@pytest.mark.parametrize("shape", _PREFILTER_SHAPES)
+def test_prefilter_transpose_kernel_matches_autograd(shape):
+    """K12 against autograd through the plain prefilter, bit for bit, and
+    the dot-product identity <K11 x, y> = <x, K12 y> summed in float64
+    (relative 1e-6); two launches equal."""
     dev = _card()
-    f, ct = _prefilter_case(dev)
+    f, ct = _prefilter_case(dev, shape)
     leaf = f.clone().requires_grad_(True)
     (ref,) = torch.autograd.grad(bspline_prefilter_plain(leaf), leaf, ct)
     leaf = f.clone().requires_grad_(True)
     (got,) = torch.autograd.grad(bspline_prefilter(leaf), leaf, ct)
-    assert _nerr(got, ref) <= 1e-6
+    assert torch.equal(got, ref)
+    assert torch.equal(got, native.launch_prefilter_bwd(ct))
     lhs = float((bspline_prefilter(f).double() * ct.double()).sum())
     rhs = float((f.double() * got.double()).sum())
     assert abs(lhs - rhs) <= 1e-6 * abs(lhs)
+
+
+def test_prefilter_kernels_take_a_misaligned_field():
+    """A field that starts 4 bytes past a 16-byte boundary (a view of a
+    larger buffer): the tiles copy a float at a time, with the same bits."""
+    dev = _card()
+    f, ct = _prefilter_case(dev, (16, 18, 20, 4))
+    buf = torch.empty(f.numel() + 1, device=dev)
+    buf[1:] = f.reshape(-1)
+    g = buf[1:].view(f.shape)
+    assert g.data_ptr() % 16 == 4
+    assert torch.equal(native.launch_prefilter(g), bspline_prefilter_plain(f))
+    buf[1:] = ct.reshape(-1)
+    assert torch.equal(native.launch_prefilter_bwd(g),
+                       native.launch_prefilter_bwd(ct))
+
+
+def test_cubic_weights_on_the_card_are_the_cpus():
+    """The exact path's cubic B-spline weights (ops/interp.py) divide by 6
+    as on the CPU: a Python divisor would be its rounded reciprocal on the
+    card, and a third of the weights one ulp off."""
+    dev = _card()
+    t = torch.rand(1 << 20, generator=torch.Generator().manual_seed(0))
+    got = torch.stack(interp._bspline_weights(t.to(dev))).cpu()
+    assert torch.equal(got, torch.stack(interp._bspline_weights(t)))
+
+
+def _exact_scene(n_rays=1024, n=32, seed=11):
+    """A 32^3 ramp with a Gaussian bump (the cubic weights' fractions vary
+    from sample to sample) and rays from above it, slightly tilted."""
+    extent, depth = 3e5, 1e5
+    x = np.linspace(-extent / 2, extent / 2, n)
+    z = np.linspace(0.0, depth, n)
+    X, Y, Z = np.meshgrid(x, x, z, indexing="ij")
+    rho = (1.225 + 5.0 * (X - x[0]) / extent
+           + 2.0 * np.exp(-((X - 2e4) ** 2 + Y ** 2 + (Z - 5e4) ** 2)
+                          / (2 * 4e4 ** 2)))
+    vol = build_density_volume(rho, [x[1] - x[0], x[1] - x[0], z[1] - z[0]],
+                               [x[0], x[0], 0.0], device="cpu")
+    rng = np.random.default_rng(seed)
+    d = np.stack([rng.uniform(-0.02, 0.02, n_rays),
+                  rng.uniform(-0.02, 0.02, n_rays), -np.ones(n_rays)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pos = np.stack([rng.uniform(-5e4, 5e4, n_rays),
+                    rng.uniform(-5e4, 5e4, n_rays),
+                    np.full(n_rays, depth + 1e4)], -1)
+    rays = RayBundle(*(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                       for a in (pos, d, np.zeros(n_rays),
+                                 np.ones(n_rays))))
+    return vol, rays
+
+
+@pytest.mark.parametrize("scheme", [1, 2])
+def test_exact_march_on_the_card_is_the_cpus(scheme):
+    """The exact path's RK4 march (ops/march.py) on the card and on the CPU
+    on the same rays: every exit state equal bit for bit, under both
+    schemes (the coefficients are K11's on the card, the plain prefilter's
+    on the CPU, equal bit for bit)."""
+    dev = _card()
+    vol, rays = _exact_scene()
+    on_cpu = exact_march.march_rays(vol, rays, algorithm=2,
+                                    interpolation_scheme=scheme)
+    on_card = exact_march.march_rays(
+        vol._replace(field=vol.field.to(dev)),
+        RayBundle(*(a.to(dev) for a in rays)), algorithm=2,
+        interpolation_scheme=scheme)
+    moved = (on_cpu.pos != rays.pos).any(-1)
+    assert int(moved.sum()) > len(moved) // 2
+    assert torch.equal(on_card.pos.cpu(), on_cpu.pos)
+    assert torch.equal(on_card.dir.cpu(), on_cpu.dir)

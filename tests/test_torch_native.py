@@ -6,8 +6,10 @@ torch float64) against the JAX package's native C++ one, bit for bit; the densit
 volume that both packages build from float32 and float64 rho; the plain
 prefilter against the JAX package's three prefilters; the transpose's
 recursion (what K12 runs) against autograd through the plain prefilter; the
-forward recursion in the order K11 sums; which launcher a tensor off the CPU
-reaches (meta tensors stand for the card); the NRRD probe; ``device_trace``.
+forward recursion in the order K11 sums; the tiles K11 and K12 run in
+(``native.prefilter_plan``: every line once, the copies' offsets, the
+route); which launcher a tensor off the CPU reaches (meta tensors stand for
+the card); the NRRD probe; ``device_trace``.
 """
 import gzip
 import os
@@ -300,6 +302,95 @@ def test_prefilter_constants_are_the_plain_versions():
     assert len(zk) == 13 and zk.dtype == np.float32 and zk[0] == 1.0
     assert abs(lam - 6.0) < 1e-6 and abs(last - z / (z * z - 1.0)) < 1e-7
     assert len(native.prefilter_constants(5)[3]) == 5
+
+
+# ---------------------------------------------------------------------------
+# (b') the tiles of K11 and K12 (native.prefilter_plan, which the launchers
+# pass to csrc/volume_prep.cu)
+# ---------------------------------------------------------------------------
+
+# the card tests' shapes (tests/test_torch_cuda_kernels.py) and the bench's
+_PLAN_SHAPES = [(16, 18, 20, 4), (67, 45, 129, 3), (5, 3, 4, 1),
+                (8192, 2, 3, 1), (8192, 2, 3, 4), (64, 64, 64, 4),
+                (512, 512, 512, 4)]
+
+
+def _tile_lines(p):
+    """(o, j, held) of every line slot of every tile, (tiles, rows, cols)
+    each, as prefilter_tile maps block b: j-tile b % tiles_j, o-tile
+    b // tiles_j; ``held``: the slot is a line of the axis."""
+    tiles_j = 1 if p.cols == p.stride else -(-p.stride // p.cols)
+    b = np.arange(p.tiles)[:, None, None]
+    o = (b // tiles_j) * p.rows + np.arange(p.rows)[None, :, None]
+    j = (b % tiles_j) * p.cols + np.arange(p.cols)[None, None, :]
+    return o, j, (o < p.outer) & (j < p.stride)
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_prefilter_plan_covers_every_line_once(shape):
+    """Each axis's tiles hold every line of the axis exactly once, within
+    the block (rows x cols threads) and the shared memory a block may take;
+    a row's pitch puts one sample of a warp's lines in distinct banks; an
+    axis whose tile would not fit takes one thread a line (axis 0 of the
+    last card-test shape), every other axis the tiles."""
+    for axis, p in enumerate(native.prefilter_plan(*shape)):
+        assert (p.n, p.outer * p.stride) == (
+            shape[axis], int(np.prod(shape)) // shape[axis])
+        if not p.tiled:
+            assert (shape, axis) == ((8192, 2, 3, 4), 0)
+            assert p.n * min(p.stride, native.TILE_MIN_LINES) * 4 \
+                > native.TILE_MAX_BYTES
+            continue
+        assert p.rows * p.cols <= native.TILE_THREADS
+        assert p.smem_bytes == p.rows * p.pitch * 4 <= native.TILE_MAX_BYTES
+        assert p.pitch >= p.n * p.cols
+        assert p.cols == p.stride or (p.cols in (8, 16, 32) and p.rows == 1)
+        o, j, held = _tile_lines(p)
+        lines = np.sort((o * p.stride + j)[held])
+        np.testing.assert_array_equal(lines, np.arange(p.outer * p.stride))
+        if p.rows > 1:
+            k = np.arange(min(32, p.rows * p.cols))
+            for i in range(p.n):
+                banks = (k // p.cols * p.pitch + i * p.cols + k % p.cols) % 32
+                assert len(set(banks)) == len(k)
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64, 4), (512, 512, 512, 4)])
+def test_bench_shapes_take_a_warp_a_tile_in_three_tiles_an_sm(shape):
+    """At the bench's shapes every axis takes tiles of 32 lines (one warp)
+    in at most TILE_BYTES (three blocks an SM), copied 16 bytes a thread."""
+    for p in native.prefilter_plan(*shape):
+        assert p.tiled and p.rows * p.cols == 32
+        assert p.smem_bytes <= native.TILE_BYTES
+        assert p.cols % 4 == 0 and p.stride % 4 == 0 and p.pitch % 4 == 0
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES[:5])
+def test_tile_copies_take_every_sample_once_in_line_order(shape):
+    """The offsets prefilter_tile's copies read and write (tile_unit, a
+    float at a time): every element of the field once, and slot
+    r * pitch + i * cols + t of a tile (line (o, j), sample i) at
+    (o * n + i) * stride + j."""
+    for p in native.prefilter_plan(*shape):
+        if not p.tiled:
+            continue
+        tiles_j = 1 if p.cols == p.stride else -(-p.stride // p.cols)
+        shape4 = (p.tiles, p.rows, p.n, p.cols)
+        b, r, i, t = np.meshgrid(np.arange(p.tiles), np.arange(p.rows),
+                                 np.arange(p.n), np.arange(p.cols),
+                                 indexing="ij")
+        o0, j0 = b // tiles_j * p.rows, b % tiles_j * p.cols
+        o, j = o0 + r, j0 + t
+        held = (o < p.outer) & (j < p.stride)
+        goff = (o * p.n + i) * p.stride + j      # line (o, j), sample i
+        e = i * p.cols + t                       # tile_unit's element
+        base = o0 * p.n * p.stride + j0 + r * p.n * p.stride
+        mapped = base + (e if p.cols == p.stride
+                         else e // p.cols * p.stride + e % p.cols)
+        assert mapped.shape == shape4
+        np.testing.assert_array_equal(mapped[held], goff[held])
+        np.testing.assert_array_equal(np.sort(goff[held]),
+                                      np.arange(p.n * p.outer * p.stride))
 
 
 # ---------------------------------------------------------------------------
