@@ -106,8 +106,10 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
 14. holds the volume's preparation on the card (phase 14, after phase 13;
    ``photon_tpu_torch/native.py``, ``csrc/volume_prep.cu``): the gradient
    precompute (K10) bit for bit against its plain float64 stencil on the CPU
-   on the bench's 64^3 n-1, the 288 x 288 x 64 NRRD's and, on eight z-slabs
-   with a one-voxel halo, the 512^3 grid's; the B-spline prefilter (K11)
+   on twelve shapes at the edges of its tiles and y runs, the bench's 64^3
+   n-1, the 288 x 288 x 64 NRRD's and, on eight z-slabs with a one-voxel
+   halo, the 512^3 grid's, timed beside its bytes bound and the issue floor
+   of phase 1's SASS count of its voxel loop; the B-spline prefilter (K11)
    against the plain prefilter and against an independent float64
    prefilter on the host, and its transpose (K12) against autograd through
    the plain one, at 64^3 and 512^3, with the dot-product identity and two
@@ -461,13 +463,15 @@ def sass_loops(ins):
     return loops
 
 
-def sass_path(ins, head, loads):
+def sass_path(ins, head, loads, kinds=None):
     """The fewest instructions on a path through one iteration of the loop
     whose head is at address `head` (from the head to a branch back to it)
     that issues exactly `loads` global loads and enters no loop nested in
     it, or None.  A forward branch is taken or not, a path that leaves the
     loop is dropped; the fewest instructions leave out the slow paths of the
-    IEEE divisions and square roots, as sass_loops's common path does."""
+    IEEE divisions and square roots, as sass_loops's common path does.
+    With `kinds` ({name: regex of an opcode}) the result is (instructions,
+    {name: instructions of that kind on the path})."""
     target = re.compile(r"\bBRA\b.*?0x([0-9a-f]+)")
     ends = [a for a, t in ins if (m := target.search(t))
             and int(m.group(1), 16) == head and a >= head]
@@ -477,13 +481,18 @@ def sass_path(ins, head, loads):
     nested = [(int(m.group(1), 16), a) for a, t in ins
               if (m := target.search(t)) and head < int(m.group(1), 16) <= a
               and a <= last]
-    best, done = {head: {0: 0}}, {}
+    pats = [re.compile(p_) for p_ in (kinds or {}).values()]
+    zero = (0,) * (1 + len(pats))
+    best, done = {head: {0: zero}}, {}
     for i, (a, t) in enumerate(ins):
         cur = best.pop(a, None)
         if cur is None or any(lo <= a <= hi for lo, hi in nested):
             continue
         ld = 1 if re.match(r"(@!?U?P\w+ )?LDG\b", t) else 0
-        cur = {k + ld: v + 1 for k, v in cur.items()}
+        op = re.sub(r"^@!?U?P\w+ ", "", t)
+        step = (1, *(int(bool(p_.match(op))) for p_ in pats))
+        cur = {k + ld: tuple(x + y for x, y in zip(v, step))
+               for k, v in cur.items()}
         br = re.match(r"(@(!?)U?P(\w+) )?(BRA|EXIT|RET|BRX|JMP)\b", t)
         always = br is not None and ".DIV" not in t and (
             br.group(1) is None or (br.group(3) == "T" and not br.group(2)))
@@ -498,7 +507,10 @@ def sass_path(ins, head, loads):
             d = best.setdefault(nxt, {})
             for k, v in cur.items():
                 d[k] = min(d.get(k, v), v)
-    return done.get(loads)
+    got = done.get(loads)
+    if got is None or not kinds:
+        return None if got is None else got[0]
+    return got[0], dict(zip(kinds, got[1:]))
 
 
 def sass_step(ins, loads):
@@ -516,18 +528,54 @@ def sass_step(ins, loads):
     return max(found)[1:] if found else None
 
 
+# the opcodes phase 1 counts apart on K10's path of an interior voxel: the
+# double arithmetic (64 a clock on an H100's SM), the conversions to and
+# from double and the multi-function unit's reciprocal seeds (16 a clock
+# each; the CUDA C++ programming guide's table of instruction throughput,
+# compute capability 9.0)
+K10_KINDS = {"fp64": r"D(ADD|MUL|FMA|SETP|MNMX)\b", "conversions": r"F2F\b",
+             "mufu": r"MUFU\b"}
+K10_RATES = {"fp64": 64, "conversions": 16, "mufu": 16}
+
+
+def sass_voxel(ins):
+    """(instructions, {kind of K10_KINDS: count}, head address) on the
+    fewest-instruction path through one iteration of the least loop of one
+    kernel's SASS that stores 16 bytes (STG ... .128): K10's voxel loop,
+    where that path is an interior voxel's (each axis's central difference
+    is its shortest stencil; the divisions' slow paths are left out), or
+    None."""
+    loops = []
+    for addr, txt in ins:
+        back = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", txt)
+        if not back or int(back.group(1), 16) > addr:
+            continue
+        head = int(back.group(1), 16)
+        if any(re.match(r"(@!?U?P\w+ )?STG\b\S*\.128\b", t)
+               for a, t in ins if head <= a <= addr):
+            loops.append((addr - head, head))
+    for _, head in sorted(loops):
+        got = sass_path(ins, head, 0, K10_KINDS)
+        if got is not None:
+            return (*got, head)
+    return None
+
+
 def sass_issue(cubin_dir, nvcc):
-    """Phase 1's count of what K1 and K2 issue, from ``cuobjdump -sass`` of
-    the cubins ptxas_start compiled: {"fan_stats": instructions a (particle,
-    ray) pair, "march_dense": instructions a ray's RK4 stage in the trilinear
-    plain head, "march_dense_cubic": the same under scheme 2}.  K2's is the
-    common path of its pair loop (sass_loops; the least loop that loads the
-    ray's lens sample).  K1's is the path of the slab loop that the main
-    path runs, one RK4 step a slab and no substeps (sass_path: the widest
-    loop with a path of `rays` x 4 stages x `taps` loads outside its nested
-    substep loop), over `rays` x 4; it includes the slab step's own work
-    (its band test, landing plane and bases).  None where the loop is not
-    found.  A model's input, not a reading of the card."""
+    """Phase 1's count of what K1, K2 and K10 issue, from ``cuobjdump
+    -sass`` of the cubins ptxas_start compiled: {"fan_stats": instructions a
+    (particle, ray) pair, "march_dense": instructions a ray's RK4 stage in
+    the trilinear plain head, "march_dense_cubic": the same under scheme 2,
+    "gradient_field": instructions an interior voxel of K10,
+    "gradient_field_kinds": those of each kind of K10_KINDS (sass_voxel)}.
+    K2's is the common path of its pair loop (sass_loops; the least loop
+    that loads the ray's lens sample).  K1's is the path of the slab loop
+    that the main path runs, one RK4 step a slab and no substeps
+    (sass_path: the widest loop with a path of `rays` x 4 stages x `taps`
+    loads outside its nested substep loop), over `rays` x 4; it includes
+    the slab step's own work (its band test, landing plane and bases).
+    None where the loop is not found.  A model's input, not a reading of
+    the card."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     out = {}
     for key, src, kernel, rays, taps, what in (
@@ -562,7 +610,38 @@ def sass_issue(cubin_dir, nvcc):
                   f"at {h:#x}): {out[key]:.2f} a ray and stage")
         if out[key] is None:
             print(f"    SASS, {src}: {what}: not found")
+    res = subprocess.run([cuobjdump, "-sass",
+                          os.path.join(cubin_dir, "volume_prep.cubin")],
+                         capture_output=True, text=True)
+    ins = next((v for n, v in sass_functions(res.stdout).items()
+                if "gradient_tile_kernel" in n), [])
+    got = sass_voxel(ins)
+    out["gradient_field"] = float(got[0]) if got else None
+    out["gradient_field_kinds"] = got[1] if got else None
+    what = "the voxel loop of gradient_tile_kernel (K10)"
+    if got:
+        print(f"    SASS, volume_prep: {what}: {got[0]} instructions on the "
+              f"path of an interior voxel (loop at {got[2]:#x}), of them "
+              + ", ".join(f"{v} {k}" for k, v in got[1].items()))
+    else:
+        print(f"    SASS, volume_prep: {what}: not found")
     return out
+
+
+def k10_entered(shape, plan):
+    """The samples K10's blocks widen into their rings for a (W, H, D)
+    input on `plan` (native.gradient_plan): for each block, every plane its
+    y run's stencils reach, with the x and z halo of its tile
+    (native.gradient_spans)."""
+    from photon_tpu_torch import native
+
+    def reach(n, tiles, width):
+        return sum(hi - lo + 1 for _, _, lo, hi in
+                   native.gradient_spans(n, tiles, width))
+    w, h, d = shape
+    return (reach(w, plan.tiles_x, native.GRADIENT_TILE)
+            * reach(d, plan.tiles_z, native.GRADIENT_TILE)
+            * reach(h, plan.runs, plan.y_run))
 
 
 def require(cond, message) -> None:
@@ -4376,10 +4455,39 @@ def main(argv=None) -> int:
             return torch.stack([gx_, gy_, gz_, nm1], -1).permute(
                 2, 1, 0, 3).contiguous()
 
-        def k10_case(label, nm1, spac, slabs=None):
-            """K10 on the (W, H, D) float32 n-1 `nm1` (on the card): held to
+        def k10_floor(n_vox, entered):
+            """A model, printed beside the bound and kept out of the kernels
+            line: the least time the SMs take to issue phase 1's SASS path
+            of an interior voxel `n_vox` times (128 thread instructions a
+            clock on each of 132 SMs at the card's highest SM clock), and
+            the least time each of its pipes of K10_RATES takes for its
+            kind (the conversions also widen the `entered` samples): the
+            largest of these, as the line to print."""
+            n_ins, kinds = (issue.get("gradient_field"),
+                            issue.get("gradient_field_kinds"))
+            if n_ins is None or kinds is None:
+                return f"issue floor (model) {NOT_MEASURED}"
+            sm_clocks = 132 * clock_mhz * 1e6 / 1e3      # a ms
+            ms = {"issue": n_vox * n_ins / (128 * sm_clocks)}
+            for k, rate in K10_RATES.items():
+                work = n_vox * kinds[k] + (entered if k == "conversions"
+                                           else 0)
+                ms[k] = work / (rate * sm_clocks)
+            top = max(ms, key=ms.get)
+            return (
+                f"issue floor (model, not a reading) {ms[top]:.4f} ms, set "
+                f"by {top} (" + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         ms.items())
+                + f" ms; {n_ins:.0f} SASS instructions an interior voxel, "
+                + ", ".join(f"{v} {k}" for k, v in kinds.items())
+                + f", {entered / n_vox:.3f} samples widened a voxel; "
+                f"{clock_mhz:.0f} MHz)")
+
+        def k10_check(nm1, spac, slabs=None):
+            """K10 on the (W, H, D) float32 n-1 `nm1` (on the card) held to
             the plain stencil on the CPU, on the whole grid or on `slabs`
-            (z starts of four planes each, with a one-voxel halo), timed."""
+            (z starts of four planes each, with a one-voxel halo): (the
+            field, values that differ, values checked)."""
             got = native.launch_gradient_field(nm1, spac)
             sync()
             d_ = nm1.shape[2]
@@ -4395,26 +4503,39 @@ def main(argv=None) -> int:
                     mine = got[z0:z0 + 4].cpu()
                 differ += int((mine != ref).sum())
                 checked += mine.numel()
+            return got, differ, checked
+
+        def k10_case(label, nm1, spac, slabs=None):
+            """K10 on the (W, H, D) float32 n-1 `nm1` (on the card): held to
+            the plain stencil on the CPU (k10_check), timed beside its
+            bytes bound and its issue floor."""
+            got, differ, checked = k10_check(nm1, spac, slabs)
             lib = library_gradient(nm1, spac)
             lib_err = nerr(lib, got)
             del lib
             n_vox = nm1.numel()
+            plan = native.gradient_plan(*nm1.shape)
+            entered = k10_entered(tuple(nm1.shape), plan)
             ms_k = time_ms(lambda: native.launch_gradient_field(nm1, spac))
             ms_p = time_ms(lambda: plain_gradient(nm1, spac), reps=3, warm=1)
             ms_l = time_ms(lambda: library_gradient(nm1, spac), reps=3,
                            warm=1)
             dev_ms = traced_ms(lambda: native.launch_gradient_field(nm1,
                                                                     spac),
-                               "gradient_field_kernel", 1)
-            # bytes: 4 in and 16 out a voxel; the double operations (some
-            # 15 a voxel) take a tenth of that at the card's FP64 rate
+                               "gradient_tile_kernel", 1)
+            # bytes: 4 in and 16 out a voxel; the operations (a voxel's
+            # three differences and three divisions in double) are counted
+            # by phase 1's SASS path and read as the issue floor
             bnd, by = bound_ms(20 * n_vox, 0)
+            floor_line = k10_floor(n_vox, entered)
             where = ("every value" if slabs is None else
                      f"{len(slabs)} slabs of 4 z-planes")
             print(f"    K10 {label} (plain stencil on the CPU, {where}, "
                   f"{checked} values): {differ} differ; time {ms_k:.4f} ms "
                   f"(device {ms_or_not(dev_ms, 4)}), bound {bnd:.4f} ms "
-                  f"({by}), plain version on the card {ms_p:.3f} ms, "
+                  f"({by}), {floor_line}; grid {plan.blocks} blocks "
+                  f"({plan.tiles_x} x {plan.tiles_z} x-z tiles, y runs of "
+                  f"{plan.y_run}); plain version on the card {ms_p:.3f} ms, "
                   f"torch.gradient {ms_l:.4f} ms (float32; {lib_err:.2e} of "
                   f"the maximum from K10)  [{card}]")
             hold(f"K10 {label}: values that differ from the plain stencil",
@@ -4423,6 +4544,22 @@ def main(argv=None) -> int:
                         values_checked=checked, ms=ms_k, device_ms=dev_ms,
                         plain_ms=ms_p, library_ms=ms_l, bound_ms=bnd,
                         bound_by=by, library_err=lib_err), got
+
+        # K10 at the edges of its tiles and y runs, every value
+        gen10 = np.random.default_rng(10)
+        differ_e, checked_e = 0, 0
+        for shp in native.GRADIENT_EDGE_SHAPES:
+            nm1_e = torch.from_numpy((gd * (1.2 + 0.8 * gen10.random(shp)))
+                                     .astype(np.float32)).to(dev)
+            _, dif, chk = k10_check(nm1_e, (100.0, 110.0, 120.0))
+            differ_e += dif
+            checked_e += chk
+        del nm1_e
+        print(f"    K10 on {len(native.GRADIENT_EDGE_SHAPES)} shapes at the "
+              f"edges of its tiles and y runs ({checked_e} values): {differ_e} differ "
+              f"from the plain stencil on the CPU  [{card}]")
+        hold("K10 at the edges of its tiles: values that differ from the "
+             "plain stencil", float(differ_e), 0.0)
 
         k10 = {}
         nm1_64 = torch.from_numpy((gd * rho).astype(np.float32)).to(dev)

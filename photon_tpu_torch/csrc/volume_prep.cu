@@ -20,15 +20,40 @@
 // the float32 samples widened to double, central differences inside,
 // second-order one-sided differences at the faces, one rounding to float32
 // at the end (native's arithmetic and the plain version's,
-// photon_tpu_torch/volume.py::gradient_field, bit for bit).  One thread an
-// output voxel, x fastest: the 16-byte stores are coalesced, but the input's
-// x stride is H*D floats, so a warp's 32 loads of one tap fall in 32
-// different sectors (each sector's other seven floats serve the threads of
-// the next z planes through L2).  That stride is the known cost; a
-// shared-memory x-z tile would read the input coalesced.  Bound: bytes, 4 B
-// in and 16 B out a voxel (5.2 MB at 64^3, 1.6 us at 3.35 TB/s; 2.7 GB at
-// 512^3, 0.80 ms).
-//
+// photon_tpu_torch/native.py::gradient_field_plain, bit for bit).  Bound:
+// bytes, 4 B in and 16 B out a voxel (5.2 MB at 64^3, 1.6 us at 3.35 TB/s;
+// 2.7 GB at 512^3, 0.80 ms).  The input's contiguous axis is z and the
+// output's is x, so a thread a voxel reads one of them strided (H*D floats
+// between a warp's x taps, 32 sectors a load).  gradient_tile_kernel: a
+// block of 256 threads owns an x-z tile of 32 x 32 voxels and walks a run
+// of y planes (native.py, gradient_plan: runs of up to 16 planes, shorter
+// where the grid would hold fewer than two waves of four blocks an SM).
+// Each plane the stencils reach, with the tile's x and z halo (the samples
+// reach_lo .. reach_hi of each axis: i - 1 .. i + 1 inside, 0 .. 2 and
+// n - 3 .. n - 1 at the faces, so a last tile of one or two columns takes
+// two columns below it), is copied into a staging buffer with cp.async, a
+// row of contiguous z for each x (16 bytes a copy, the row widened to whole
+// 16-byte words, where D is a multiple of 4 and the input 16-byte aligned),
+// two planes in flight ahead of the one in hand.  Each sample is widened to
+// double once, as it moves from the staging buffer into a ring of three
+// double planes (plane p in slot p mod 3), not at each of the up to seven
+// stencils that read it.  Conversions to and from double issue at 16 a
+// clock on an SM, a quarter of the double adds: widened at each read, a
+// voxel would spend seven of them beside the four roundings of its result,
+// against about one; the price is a warp's 8-byte reads of the ring, two
+// shared-memory wavefronts each (a ring row is an odd number of doubles,
+// so 16 lanes meet 32 banks), where float reads would take one.  The
+// stencils of any y read three consecutive planes, reach_lo(y) ..
+// reach_lo(y) + 2, so output plane y is computed as soon as plane
+// reach_hi(y) has entered (two planes at once at each face).  A warp
+// computes z rows of the plane in hand, lane = x, and stores each as 32
+// float4 in a row along x (512 contiguous bytes, evict-first).  The
+// divisions stay IEEE double divisions: on an H100 the voxel loop's 115
+// SASS instructions an interior voxel (33 of them double arithmetic, 3
+// reciprocal seeds, 4 conversions) issue in 0.46 ms at 512^3, under the
+// bytes bound, and the kernel takes 1.07-1.08 ms there (chip_smoke.py phase
+// 14).
+
 // K11, photon_bspline_prefilter.  Cubic B-spline coefficients of a
 // (D, H, W, C) float32 field along axes 0, 1 and 2 in turn, the plain
 // version's function and rounding (ops/march_dense.py::_prefilter_axis):
@@ -117,50 +142,6 @@ struct AxisPlan {
 };
 
 constexpr int kChunk = 8;
-
-__device__ __forceinline__ double one_sided_lo(double s0, double s1, double s2,
-                                               double h) {
-  return (-1.5 * s0 + 2.0 * s1 - 0.5 * s2) / h;
-}
-
-__device__ __forceinline__ double one_sided_hi(double e1, double e2, double e3,
-                                               double h) {
-  return (1.5 * e1 - 2.0 * e2 + 0.5 * e3) / h;
-}
-
-// the derivative along one axis at index i of n, the samples at i - 1,
-// i + 1 and the faces' neighbours read through `at(j)`
-template <typename At>
-__device__ __forceinline__ double axis_derivative(At at, long long i,
-                                                  long long n, double h) {
-  if (i == 0) return one_sided_lo(at(0), at(1), at(2), h);
-  if (i == n - 1) return one_sided_hi(at(n - 1), at(n - 2), at(n - 3), h);
-  return (at(i + 1) - at(i - 1)) / (2.0 * h);
-}
-
-__global__ void gradient_field_kernel(const float* __restrict__ data,
-                                      float4* __restrict__ out, long long W,
-                                      long long H, long long D, double dx,
-                                      double dy, double dz) {
-  const long long total = W * H * D;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       v < total; v += (long long)gridDim.x * blockDim.x) {
-    const long long x = v % W;
-    const long long y = (v / W) % H;
-    const long long z = v / (W * H);
-    // data[(x H + y) D + z]
-    const float* col_x = data + y * D + z;              // x varies, stride H D
-    const float* col_y = data + x * H * D + z;          // y varies, stride D
-    const float* col_z = data + (x * H + y) * D;        // z varies, stride 1
-    const double gx = axis_derivative(
-        [&](long long j) { return (double)col_x[j * H * D]; }, x, W, dx);
-    const double gy = axis_derivative(
-        [&](long long j) { return (double)col_y[j * D]; }, y, H, dy);
-    const double gz = axis_derivative(
-        [&](long long j) { return (double)col_z[j]; }, z, D, dz);
-    out[v] = make_float4((float)gx, (float)gy, (float)gz, col_z[z]);
-  }
-}
 
 // the line of thread l: `stride` consecutive lines share their outer index
 __device__ __forceinline__ long long line_base(long long l, long long n,
@@ -616,6 +597,176 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
 }
 
 // ---------------------------------------------------------------------------
+// K10: the gradient precompute, an x-z tile a block walking along y
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ double one_sided_lo(double s0, double s1, double s2,
+                                               double h) {
+  return (-1.5 * s0 + 2.0 * s1 - 0.5 * s2) / h;
+}
+
+__device__ __forceinline__ double one_sided_hi(double e1, double e2, double e3,
+                                               double h) {
+  return (1.5 * e1 - 2.0 * e2 + 0.5 * e3) / h;
+}
+
+// the derivative along one axis at index i of n, the samples at i - 1,
+// i + 1 and the faces' neighbours read through `at(j)`
+template <typename At>
+__device__ __forceinline__ double axis_derivative(At at, int i, int n,
+                                                  double h) {
+  if (i == 0) return one_sided_lo(at(0), at(1), at(2), h);
+  if (i == n - 1) return one_sided_hi(at(n - 1), at(n - 2), at(n - 3), h);
+  return (at(i + 1) - at(i - 1)) / (2.0 * h);
+}
+
+// kGradTile, kGradSpan and kGradStagePitch are native.py's GRADIENT_TILE,
+// GRADIENT_SPAN and GRADIENT_STAGE_PITCH, which its plan and tests use
+constexpr int kGradTile = 32;                   // x and z a tile
+constexpr int kGradSpan = kGradTile + 2;        // with the stencils' halo
+constexpr int kGradPitch = kGradSpan + 1;       // doubles a ring row: odd
+constexpr int kGradStagePitch = kGradTile + 8;  // floats a staging row
+constexpr int kGradThreads = 256;
+constexpr int kGradWarps = kGradThreads / 32;
+constexpr int kGradBlocks = 4;                  // blocks an SM (<= 64 regs)
+
+// the first and the last sample that the stencils of indices a .. b - 1
+// along an axis of n >= 3 read (native.gradient_reach)
+__device__ __forceinline__ int reach_lo(int a, int n) {
+  const int lo = a - 1 < n - 3 ? a - 1 : n - 3;
+  return lo > 0 ? lo : 0;
+}
+
+__device__ __forceinline__ int reach_hi(int b, int n) {
+  const int hi = b > 2 ? b : 2;
+  return hi < n - 1 ? hi : n - 1;
+}
+
+// the grid of K10 (native.py, gradient_plan) and the input's strides
+struct GradGeom {
+  int W, H, D;            // the input's (W, H, D), each at most 2^30
+  int tiles_x, tiles_z;   // kGradTile-voxel tiles along x and z
+  int y_run;              // output planes a block computes
+  int vec;                // 16-byte copies: D % 4 == 0, the input aligned
+  double dx, dy, dz;
+};
+
+// f(r, c) for the elements t, t + kGradThreads, ... (t the thread) of an
+// nr x nc grid (nc <= kGradThreads) in row order, with no division in the
+// loop
+template <class F>
+__device__ __forceinline__ void grid_walk(int nr, int nc, F f) {
+  const int dr = kGradThreads / nc, dc = kGradThreads - dr * nc;
+  int r = threadIdx.x / nc, c = threadIdx.x - r * nc;
+  while (r < nr) {
+    f(r, c);
+    r += dr;
+    c += dc;
+    if (c >= nc) {
+      c -= nc;
+      ++r;
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Block b: z tile b % tiles_z, x tile (b / tiles_z) % tiles_x, y run
+// b / (tiles_z tiles_x).  Planes reach_lo(y0) .. reach_hi(y1) enter in
+// order, plane p through staging buffer (p - plo) % 2 into ring slot p % 3.
+__global__ void __launch_bounds__(kGradThreads, kGradBlocks)
+    gradient_tile_kernel(const float* __restrict__ data,
+                         float4* __restrict__ out, GradGeom g) {
+  __shared__ __align__(16) float stage[2][kGradSpan * kGradStagePitch];
+  __shared__ double ring[3][kGradSpan * kGradPitch];
+  const int tz = (int)(blockIdx.x % (unsigned)g.tiles_z);
+  const int rest = (int)(blockIdx.x / (unsigned)g.tiles_z);
+  const int tx = rest % g.tiles_x, ty = rest / g.tiles_x;
+  const int x0 = tx * kGradTile, x1 = min(g.W, x0 + kGradTile);
+  const int z0 = tz * kGradTile, z1 = min(g.D, z0 + kGradTile);
+  const int y0 = ty * g.y_run, y1 = min(g.H, y0 + g.y_run);
+  const int xlo = reach_lo(x0, g.W), nx = reach_hi(x1, g.W) - xlo + 1;
+  const int zlo = reach_lo(z0, g.D), nz = reach_hi(z1, g.D) - zlo + 1;
+  const int plo = reach_lo(y0, g.H), phi = reach_hi(y1, g.H);
+  // a staging row: the z of one x from zbase (zlo, or the 16-byte word that
+  // holds it), `per_row` copies of `w` floats
+  const int zbase = g.vec ? zlo & ~3 : zlo;
+  const int w = g.vec ? 4 : 1;
+  const int per_row = g.vec ? (((zlo + nz + 3) & ~3) - zbase) / 4 : nz;
+  const int zoff = zlo - zbase;
+  const long long row = (long long)g.H * g.D;   // floats from x to x + 1
+  const float* src0 = data + xlo * row + zbase;
+
+  // plane p of the tile and its halo into the staging buffer st, as one
+  // group of copies
+  auto issue = [&](int p, float* st) {
+    const float* src = src0 + (long long)p * g.D;
+    grid_walk(nx, per_row, [&](int r, int c) {
+      copy_async(st + r * kGradStagePitch + c * w, src + r * row + c * w,
+                 g.vec);
+    });
+    copy_commit();
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = x0 + lane, xr = x - xlo;
+  // this warp's z rows of the tile: z0 + warp + kGradWarps k, k < nk
+  const int nk = z1 - z0 > warp
+                     ? (z1 - z0 - warp + kGradWarps - 1) / kGradWarps
+                     : 0;
+  const long long out_step = (long long)kGradWarps * g.H * g.W;
+  issue(plo, stage[0]);
+  issue(plo + 1, stage[1]);      // phi >= plo + 2
+  int y = y0;
+  for (int p = plo; p <= phi; ++p) {
+    float* st = stage[(p - plo) & 1];
+    double* pl = ring[p % 3];
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();             // plane p is in st; ring slot p % 3 is free
+    grid_walk(nx, nz, [&](int r, int c) {
+      pl[r * kGradPitch + c] = (double)st[r * kGradStagePitch + zoff + c];
+    });
+    __syncthreads();             // plane p is in the ring; st is free
+    if (p + 2 <= phi)
+      issue(p + 2, st);
+    else
+      copy_commit();
+    // the output planes whose stencils reach no further than p: they read
+    // planes ylo .. ylo + 2, all in the ring
+    for (; y < y1 && reach_hi(y + 1, g.H) <= p; ++y) {
+      if (x >= x1) continue;
+      const int ylo = reach_lo(y, g.H);
+      const double* q0 = ring[ylo % 3];
+      const double* q1 = ring[(ylo + 1) % 3];
+      const double* q2 = ring[(ylo + 2) % 3];
+      const double* cy = ring[y % 3];
+      float4* dst = out + ((long long)(z0 + warp) * g.H + y) * g.W + x;
+#pragma unroll 1
+      for (int k = 0; k < nk; ++k) {
+        const int z = z0 + warp + k * kGradWarps;
+        const int o = xr * kGradPitch + (z - zlo);
+        const double gx = axis_derivative(
+            [&](int j) { return cy[o + (j - x) * kGradPitch]; }, x, g.W,
+            g.dx);
+        const double gy = axis_derivative(
+            [&](int j) {
+              const int d = j - ylo;
+              return (d == 0 ? q0 : d == 1 ? q1 : q2)[o];
+            },
+            y, g.H, g.dy);
+        const double gz = axis_derivative(
+            [&](int j) { return cy[o + (j - z)]; }, z, g.D, g.dz);
+        __stcs(dst, make_float4((float)gx, (float)gy, (float)gz,
+                                (float)cy[o]));
+        dst += out_step;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -734,20 +885,34 @@ int prefilter(bool backward, const float* in, float* out, long long D,
 
 }  // namespace
 
-// n_minus_1: (W, H, D) float32; out: (D, H, W, 4) float32.  Returns
+// n_minus_1: (W, H, D) float32; out: (D, H, W, 4) float32; y_run: the
+// output planes a block computes (native.py, gradient_plan).  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int photon_gradient_field(const float* n_minus_1, float* out,
                                      long long W, long long H, long long D,
                                      double dx, double dy, double dz,
-                                     void* stream) {
-  if (W < 3 || H < 3 || D < 3) return (int)cudaErrorInvalidValue;
-  const long long total = W * H * D;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;
-  gradient_field_kernel<<<(unsigned)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(
-      n_minus_1, reinterpret_cast<float4*>(out), W, H, D, dx, dy, dz);
+                                     long long y_run, void* stream) {
+  const long long most = 1LL << 30;
+  if (W < 3 || H < 3 || D < 3 || W > most || H > most || D > most ||
+      y_run < 1 || y_run > H)
+    return (int)cudaErrorInvalidValue;
+  GradGeom g;
+  g.W = (int)W;
+  g.H = (int)H;
+  g.D = (int)D;
+  g.tiles_x = (int)((W + kGradTile - 1) / kGradTile);
+  g.tiles_z = (int)((D + kGradTile - 1) / kGradTile);
+  g.y_run = (int)y_run;
+  g.vec = D % 4 == 0 && aligned16(n_minus_1);
+  g.dx = dx;
+  g.dy = dy;
+  g.dz = dz;
+  const long long blocks =
+      (long long)g.tiles_x * g.tiles_z * ((H + y_run - 1) / y_run);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gradient_tile_kernel<<<(unsigned)blocks, kGradThreads, 0,
+                         (cudaStream_t)stream>>>(
+      n_minus_1, reinterpret_cast<float4*>(out), g);
   return (int)cudaGetLastError();
 }
 

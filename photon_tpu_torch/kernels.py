@@ -85,7 +85,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "photon_splat_bwd": [_vp] * 7 + [_ll, _i, _i, _i, _f, _f, _vp],
     },
     "volume_prep": {
-        "photon_gradient_field": [_vp, _vp, _ll, _ll, _ll, _d, _d, _d, _vp],
+        "photon_gradient_field": [_vp, _vp, _ll, _ll, _ll, _d, _d, _d, _ll,
+                                  _vp],
         "photon_bspline_prefilter": [_vp, _vp] + [_ll] * 4 + [_vp] * 3,
         "photon_bspline_prefilter_bwd": [_vp, _vp] + [_ll] * 4 + [_vp] * 3,
     },

@@ -12,7 +12,8 @@ them from here.
 
 * K10 ``photon_gradient_field`` (native ``gradient_field``): the packed
   (dn/dx, dn/dy, dn/dz, n-1) field, (D, H, W, 4), from float32 n-1 in the
-  NRRD's (W, H, D) layout, in double, rounded once.  Plain version:
+  NRRD's (W, H, D) layout, in double, rounded once, an x-z tile a block
+  on the grid of :func:`gradient_plan`.  Plain version:
   :func:`gradient_field_plain` (torch float64 over :func:`grad_axis`),
   bit-equal on the CPU.
 * K11 ``photon_bspline_prefilter`` (native ``bspline_prefilter_3d``; what
@@ -95,22 +96,97 @@ def gradient_field_plain(n_minus_1, spacing) -> torch.Tensor:
     return packed.permute(2, 1, 0, 3).to(torch.float32).contiguous()
 
 
+# K10's grid (csrc/volume_prep.cu, gradient_tile_kernel): a block owns an
+# x-z tile of GRADIENT_TILE x GRADIENT_TILE voxels and a run of y planes.
+# A run is at most GRADIENT_MAX_RUN planes, and shorter where the grid
+# would otherwise hold fewer than GRADIENT_BLOCKS blocks: two waves at four
+# blocks an SM on an H100's 132 SMs.  Long runs read fewer planes twice (a
+# run reads the planes its stencils reach, y0 - 1 .. y1); many blocks fill
+# the SMs and leave a short last wave.  The SM count is a constant, not
+# read from the device, so that the grid follows from the shape alone: the
+# CPU tests check the grid the card runs, and GRADIENT_EDGE_SHAPES reach
+# its last runs of one and two planes.  On a card with other SM counts the
+# grid stays right and only its waves fill differently.
+GRADIENT_TILE = 32
+GRADIENT_MAX_RUN = 16
+GRADIENT_BLOCKS = 8 * 132
+# a tile's samples along x or z with the stencils' halo (kGradSpan), and
+# the floats of a staging row of 16-byte copies (kGradStagePitch)
+GRADIENT_SPAN = GRADIENT_TILE + 2
+GRADIENT_STAGE_PITCH = GRADIENT_TILE + 8
+
+# (W, H, D) that reach every edge of K10's tiles and y runs on the grid of
+# gradient_plan, on which the card test of K10 and chip_smoke.py hold it
+# bit for bit: every axis 3; axes of 3 and 4 with W and D at 32k + 1 and
+# 32k + 2 (a last tile of one or two columns, which reads two columns
+# below it); D a multiple of 4 (16-byte copies) and not; y runs of 4 with a
+# last run of one and of two planes ((33, 793, 34), (33, 794, 34)) and of 2
+# and 3 with the same ((3, 1057, 3), (3, 2114, 3)).
+GRADIENT_EDGE_SHAPES = [(3, 5, 4), (17, 9, 33), (3, 3, 3), (33, 5, 34),
+                        (65, 7, 66), (34, 3, 65), (66, 4, 33), (65, 6, 96),
+                        (33, 793, 34), (33, 794, 34), (3, 1057, 3),
+                        (3, 2114, 3)]
+
+
+def gradient_reach(a: int, b: int, n: int) -> tuple:
+    """The first and the last sample that K10's stencils of indices a ..
+    b - 1 along an axis of n >= 3 read (the kernel's reach_lo(a, n) and
+    reach_hi(b, n))."""
+    return max(0, min(a - 1, n - 3)), min(max(b, 2), n - 1)
+
+
+def gradient_spans(n: int, count: int, width: int) -> list:
+    """[(i0, i1, lo, hi)] for each of `count` tiles or y runs of `width`
+    along an axis of n: the indices i0 .. i1 - 1 its block computes and the
+    samples lo .. hi (:func:`gradient_reach`) that it copies in."""
+    out = []
+    for t in range(count):
+        i0, i1 = t * width, min(n, t * width + width)
+        out.append((i0, i1, *gradient_reach(i0, i1, n)))
+    return out
+
+
+class GradientPlan(NamedTuple):
+    """K10's grid for a (W, H, D) input: ``tiles_x`` x ``tiles_z`` x-z
+    tiles of ``GRADIENT_TILE`` voxels, y runs of ``y_run`` planes
+    (``runs`` of them), ``blocks`` in all; block b takes z tile
+    b % tiles_z, x tile (b // tiles_z) % tiles_x and y run
+    b // (tiles_z tiles_x)."""
+    tiles_x: int
+    tiles_z: int
+    y_run: int
+    runs: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=16)
+def gradient_plan(w: int, h: int, d: int) -> GradientPlan:
+    """K10's grid from the input's shape alone (:class:`GradientPlan`)."""
+    tiles_x, tiles_z = -(-w // GRADIENT_TILE), -(-d // GRADIENT_TILE)
+    want_runs = -(-GRADIENT_BLOCKS // (tiles_x * tiles_z))
+    y_run = min(GRADIENT_MAX_RUN, -(-h // want_runs))
+    runs = -(-h // y_run)
+    return GradientPlan(tiles_x, tiles_z, y_run, runs,
+                        tiles_x * tiles_z * runs)
+
+
 def launch_gradient_field(n_minus_1: torch.Tensor, spacing) -> torch.Tensor:
     """Launch K10: (W, H, D) float32 n-1 on a CUDA device -> the packed
-    (D, H, W, 4) float32 field."""
+    (D, H, W, 4) float32 field, on the grid of :func:`gradient_plan`."""
     kernels.check_kernel_input("n_minus_1", n_minus_1, None, torch.float32)
     if n_minus_1.dim() != 3 or min(n_minus_1.shape) < 3:
         raise ValueError(f"n_minus_1: expected (W, H, D) with every axis >= "
                          f"3, got {tuple(n_minus_1.shape)}")
     dx, dy, dz = (float(s) for s in np.asarray(spacing).ravel())
-    w, h, d = n_minus_1.shape
+    w, h, d = (int(n) for n in n_minus_1.shape)
     out = torch.empty((d, h, w, 4), dtype=torch.float32,
                       device=n_minus_1.device)
+    plan = gradient_plan(w, h, d)
     lib = kernels.load("volume_prep")
     with torch.cuda.device(n_minus_1.device):
         code = lib.photon_gradient_field(
             n_minus_1.data_ptr(), out.data_ptr(), w, h, d, dx, dy, dz,
-            kernels.current_stream(n_minus_1.device))
+            plan.y_run, kernels.current_stream(n_minus_1.device))
     kernels.check_launch(code, "photon_gradient_field")
     launch_gradient_field.launches += 1
     return out

@@ -418,15 +418,19 @@ def test_splat_kernels_large_patch_on_a_small_frame():
     assert max(_nerr(g, r) for g, r in zip(gk, gref)) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 4), (17, 9, 33)])
+def _gradient_input(rng, shape):
+    return torch.from_numpy((0.225e-3 * (1.2 + 0.8 * rng.random(shape)))
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", native.GRADIENT_EDGE_SHAPES)
 def test_gradient_field_kernel_is_the_plain_stencil_bit_for_bit(shape):
     """K10 against the plain float64 stencil on the CPU: every value equal
     (both widen float32 n-1 to double and round once; the library is built
-    without contraction), on odd sizes with an axis of 3."""
+    without contraction), on shapes that reach every edge of its tiles."""
     dev = _card()
     rng = np.random.default_rng(sum(shape))
-    nm1 = torch.from_numpy((0.225e-3 * (1.2 + 0.8 * rng.random(shape)))
-                           .astype(np.float32))
+    nm1 = _gradient_input(rng, shape)
     spacing = (100.0, 110.0, 120.0)
     got = native.gradient_field(nm1.to(dev), spacing)
     torch.cuda.synchronize(dev)
@@ -436,6 +440,22 @@ def test_gradient_field_kernel_is_the_plain_stencil_bit_for_bit(shape):
     on_card = build_density_volume(rho, spacing, (0, 0, 0), device=dev)
     on_cpu = build_density_volume(rho, spacing, (0, 0, 0), device="cpu")
     assert torch.equal(on_card.field.cpu(), on_cpu.field)
+
+
+def test_gradient_field_kernel_takes_an_input_off_16_bytes():
+    """An input whose first sample lies 4 bytes past a 16-byte boundary (D
+    a multiple of 4): K10 copies it a float at a time, bit for bit."""
+    dev = _card()
+    shape = (33, 6, 68)
+    nm1 = _gradient_input(np.random.default_rng(7), shape)
+    flat = torch.zeros(1 + nm1.numel(), device=dev)
+    flat[1:] = nm1.reshape(-1).to(dev)
+    shifted = flat[1:].view(shape)
+    assert shifted.data_ptr() % 16 == 4
+    got = native.gradient_field(shifted, (100.0, 110.0, 120.0))
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got.cpu(), native.gradient_field_plain(
+        nm1, (100.0, 110.0, 120.0)))
 
 
 # (D, H, W, C): the bench's channels; ragged tiles (no axis a multiple of a

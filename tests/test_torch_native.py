@@ -394,6 +394,87 @@ def test_tile_copies_take_every_sample_once_in_line_order(shape):
 
 
 # ---------------------------------------------------------------------------
+# (b'') K10's grid (native.gradient_plan) and the index map of its kernel
+# (csrc/volume_prep.cu, gradient_tile_kernel), modelled here
+# ---------------------------------------------------------------------------
+
+# the card tests' shapes (tests/test_torch_cuda_kernels.py) and the bench's
+_GRADIENT_SHAPES = native.GRADIENT_EDGE_SHAPES + [
+    (33, 6, 68), (64, 64, 64), (288, 288, 64), (512, 512, 512)]
+
+
+def _stencil(i, n):
+    """The samples grad_axis reads for index i of an axis of n."""
+    return {0: (0, 1, 2), n - 1: (n - 1, n - 2, n - 3)}.get(i, (i - 1, i + 1))
+
+
+def _k10_blocks(plan):
+    """(z tile, x tile, y run) of each block, as the kernel maps
+    blockIdx.x."""
+    b = np.arange(plan.blocks)
+    return (b % plan.tiles_z, b // plan.tiles_z % plan.tiles_x,
+            b // (plan.tiles_z * plan.tiles_x))
+
+
+@pytest.mark.parametrize("shape", _GRADIENT_SHAPES)
+def test_k10_grid_writes_every_voxel_once_and_reads_inside(shape):
+    """K10's blocks write every output voxel once: each (z tile, x tile, y
+    run) is one block, and each axis's tiles or runs cover it once.  Each
+    tile's copy (the samples its stencils reach, and the 16-byte words
+    that hold them where D is a multiple of 4) lies inside the input and
+    its shared memory, and holds every sample its voxels' stencils read."""
+    w, h, d = shape
+    plan = native.gradient_plan(w, h, d)
+    assert plan.tiles_x == -(-w // 32) and plan.tiles_z == -(-d // 32)
+    assert 1 <= plan.y_run <= native.GRADIENT_MAX_RUN
+    assert plan.runs == -(-h // plan.y_run) and plan.blocks < 2 ** 31
+    tz, tx, ty = _k10_blocks(plan)
+    assert ty.max() == plan.runs - 1
+    assert len(set(zip(tz, tx, ty))) == plan.blocks == \
+        plan.tiles_x * plan.tiles_z * plan.runs
+    for n, tiles, width, vec_ok in ((w, plan.tiles_x, 32, False),
+                                    (d, plan.tiles_z, 32, d % 4 == 0),
+                                    (h, plan.runs, plan.y_run, False)):
+        covered = np.zeros(n, int)
+        for t0, t1, lo, hi in native.gradient_spans(n, tiles, width):
+            covered[t0:t1] += 1
+            assert 0 <= lo <= hi <= n - 1
+            for i in range(t0, t1):
+                assert lo <= min(_stencil(i, n)) <= max(_stencil(i, n)) <= hi
+            if width == 32:
+                assert hi - lo + 1 <= native.GRADIENT_SPAN
+            if vec_ok:          # the staging row of 16-byte copies
+                zbase, zend = lo & ~3, (hi + 1 + 3) & ~3
+                assert 0 <= zbase and zend <= n
+                assert zend - zbase <= native.GRADIENT_STAGE_PITCH
+        np.testing.assert_array_equal(covered, 1)
+
+
+@pytest.mark.parametrize("shape", _GRADIENT_SHAPES)
+def test_k10_planes_are_in_the_ring_when_a_y_plane_is_computed(shape):
+    """Each y run's loop: planes reach_lo(y0) .. reach_hi(y1) enter in
+    order into slot p % 3 of a ring of three; after plane p enters, the
+    output planes y with reach_hi(y + 1) <= p are computed, and every
+    plane their stencils read is then in the ring.  Every output plane of
+    the run is computed once, and a run enters no plane outside the
+    input."""
+    w, h, d = shape
+    plan = native.gradient_plan(w, h, d)
+    done = np.zeros(h, int)
+    for y0, y1, plo, phi in native.gradient_spans(h, plan.runs, plan.y_run):
+        assert phi >= plo + 2           # the kernel issues two planes first
+        ring, y = [None] * 3, y0
+        for p in range(plo, phi + 1):
+            ring[p % 3] = p
+            while y < y1 and native.gradient_reach(y, y + 1, h)[1] <= p:
+                assert set(_stencil(y, h)) | {y} <= set(ring)
+                done[y] += 1
+                y += 1
+        assert y == y1
+    np.testing.assert_array_equal(done, 1)
+
+
+# ---------------------------------------------------------------------------
 # (c) the route of a tensor off the CPU (meta tensors stand for the card)
 # ---------------------------------------------------------------------------
 
