@@ -26,6 +26,7 @@ from photon_tpu_torch.models.optics import CameraSetup
 from photon_tpu_torch.models.render_fast import render_image_fast
 from photon_tpu_torch.models.scenes import LightfieldSource
 from photon_tpu_torch.native import grad_axis
+from photon_tpu_torch.utils.profiling import span
 from photon_tpu_torch.volume import (Z_ORIGIN_SHIFT, DensityVolume,
                                      build_density_volume)
 
@@ -77,6 +78,12 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
       device: None is the CUDA device (raises without one).
 
     Returns rho on the template grid plus the loss history.
+
+    Spans (``utils.profiling.span``): ``invert.step`` a step, enclosing
+    ``invert.volume_from_rho``, ``invert.render`` (the render and the
+    loss), ``invert.backward``, ``invert.adam``, ``invert.loss_read`` (the
+    loss's wait on the device) and ``invert.callback``; after the steps
+    ``invert.result_volume`` and ``invert.rho_to_host``.
     """
     dev = resolve_device(device)
     w, h, d = template.sizes
@@ -87,16 +94,18 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
     gd = cfg.density_gradients.gladstone_dale
 
     def loss_fn(rho):
-        vol = volume_from_rho(rho, template, gd)
-        img = render_image_fast(cfg, setup, source, r1, r2, vol=vol,
-                                algorithm=algorithm, device=dev)
-        data = torch.mean((img - target) ** 2)
-        if smoothness > 0.0:
-            lap = (torch.diff(rho, 2, dim=0)[:, 1:-1, 1:-1] ** 2
-                   + torch.diff(rho, 2, dim=1)[1:-1, :, 1:-1] ** 2
-                   + torch.diff(rho, 2, dim=2)[1:-1, 1:-1, :] ** 2)
-            return data + smoothness * torch.mean(lap)
-        return data
+        with span("invert.volume_from_rho"):
+            vol = volume_from_rho(rho, template, gd)
+        with span("invert.render"):
+            img = render_image_fast(cfg, setup, source, r1, r2, vol=vol,
+                                    algorithm=algorithm, device=dev)
+            data = torch.mean((img - target) ** 2)
+            if smoothness > 0.0:
+                lap = (torch.diff(rho, 2, dim=0)[:, 1:-1, 1:-1] ** 2
+                       + torch.diff(rho, 2, dim=1)[1:-1, :, 1:-1] ** 2
+                       + torch.diff(rho, 2, dim=2)[1:-1, 1:-1, :] ** 2)
+                return data + smoothness * torch.mean(lap)
+            return data
 
     rho = as_f32(rho0, dev)
     losses = []
@@ -105,23 +114,30 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
     v = torch.zeros_like(rho)
     b1, b2, eps = 0.9, 0.999, 1e-12
     for t in range(1, steps + 1):
-        rho.requires_grad_(True)
-        loss = loss_fn(rho)
-        (g,) = torch.autograd.grad(loss, rho)
-        with torch.no_grad():
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mhat = m / (1 - b1 ** t)
-            vhat = v / (1 - b2 ** t)
-            rho = rho - learning_rate * mhat / (torch.sqrt(vhat) + eps)
-        losses.append(float(loss.detach()))
-        if callback is not None:
-            callback(t, losses[-1], rho)
+        with span("invert.step"):
+            rho.requires_grad_(True)
+            loss = loss_fn(rho)
+            with span("invert.backward"):
+                (g,) = torch.autograd.grad(loss, rho)
+            with span("invert.adam"), torch.no_grad():
+                m = b1 * m + (1 - b1) * g
+                v = b2 * v + (1 - b2) * g * g
+                mhat = m / (1 - b1 ** t)
+                vhat = v / (1 - b2 ** t)
+                rho = rho - learning_rate * mhat / (torch.sqrt(vhat) + eps)
+            with span("invert.loss_read"):
+                losses.append(float(loss.detach()))
+            if callback is not None:
+                with span("invert.callback"):
+                    callback(t, losses[-1], rho)
 
     # the result volume from the grid where it lies (K10 on the card)
-    vol = build_density_volume(
-        rho, np.asarray(template.grid_spacing),
-        [float(template.min_bound[0]), float(template.min_bound[1]),
-         float(template.min_bound[2]) + Z_ORIGIN_SHIFT],
-        gladstone_dale=gd, device=dev)
-    return InversionResult(rho=rho.cpu().numpy(), losses=losses, volume=vol)
+    with span("invert.result_volume"):
+        vol = build_density_volume(
+            rho, np.asarray(template.grid_spacing),
+            [float(template.min_bound[0]), float(template.min_bound[1]),
+             float(template.min_bound[2]) + Z_ORIGIN_SHIFT],
+            gladstone_dale=gd, device=dev)
+    with span("invert.rho_to_host"):
+        rho_host = rho.cpu().numpy()
+    return InversionResult(rho=rho_host, losses=losses, volume=vol)

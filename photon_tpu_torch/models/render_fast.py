@@ -58,6 +58,7 @@ from photon_tpu_torch.ops.sensor_fast import (bilinear_patch_splat,
                                               particle_splat, patch_splat)
 from photon_tpu_torch.parallel.shard import (mesh_place, replicated,
                                              shard_bounds, sum_over)
+from photon_tpu_torch.utils.profiling import span
 from photon_tpu_torch.volume import DensityVolume
 
 
@@ -338,181 +339,203 @@ def render_image_fast(cfg: SimulationConfig, setup: CameraSetup,
     (:func:`rank_seed`).  ``_mesh_reduce=False`` returns the rank's own
     (1, ny, nx) image without the all-reduce (the scaling harness's
     reference).
+
+    Spans (``utils.profiling.span``): ``render.image``, enclosing
+    ``render.setup`` (the uploads, the lens samples' offsets and the fan's
+    scalars), ``render.chief_march`` (the chief rays' deltas and the
+    substep choice) and one ``render.chunk`` a chunk, the one-chunk render
+    included.  ``render_image_fast.chunks`` counts the chunks rendered.
     """
-    rank = size = None
-    if mesh is not None:
-        rank, size, mesh_dev = mesh_place(mesh)
-        if device is not None and resolve_device(device) != mesh_dev:
-            raise ValueError(f"device {device}: this rank of the mesh renders "
-                             f"on {mesh_dev}")
-        device = mesh_dev
-    dev = resolve_device(device)
-    params = RenderParams.from_setup(cfg, setup, source)
-    if not _axis_aligned(setup):
-        raise NotImplementedError("fast path requires the axis-aligned "
-                                  "single-lens train")
-    if params.lens_model not in ("apparent", "thin-lens", "general"):
-        raise ValueError(f"unknown lens_model {params.lens_model!r}")
-    if vol is not None:
-        if float(np.asarray(setup.inverse_rotation_matrix)[2, 2]) <= 0.0:
-            # its rays travel upward in the march's frame: the chief march
-            # enters a volume from above only
-            raise NotImplementedError(
-                "the fast renderer marches rays that enter the volume from "
-                "above: render a camera rotated by 90 degrees or more with a "
-                "density volume through models/render.render_image")
-        check_march_options(algorithm, interpolation_scheme)
-        if vol.field.device != dev:
-            raise ValueError(f"volume on {vol.field.device}, render on {dev}")
-    elif dense_march:
-        raise ValueError("dense_march=True requires a density volume")
-    rotated = not np.allclose(setup.rotation_matrix, np.eye(3))
-    per_ray_splat = per_ray_splat or params.add_pos_noise
-    per_ray_march = vol is not None and not chief_march
-    # the fan kernel's route: diffraction, one spot a particle, and the
-    # camera frame equal to the march's frame up to the z shift
-    chain = (per_ray_splat or not params.implement_diffraction
-             or per_ray_march or (rotated and vol is not None))
-    if patch is None:
-        # per-ray deposits keep the JAX package's conservative side: the
-        # rays' spread around the anchor depends on the scene (defocus,
-        # position noise)
-        patch = (auto_patch(params) if params.implement_diffraction
-                 and not per_ray_splat else 12)
+    with span("render.image"):
+        rank = size = None
+        if mesh is not None:
+            rank, size, mesh_dev = mesh_place(mesh)
+            if device is not None and resolve_device(device) != mesh_dev:
+                raise ValueError(f"device {device}: this rank of the mesh "
+                                 f"renders on {mesh_dev}")
+            device = mesh_dev
+        dev = resolve_device(device)
+        params = RenderParams.from_setup(cfg, setup, source)
+        if not _axis_aligned(setup):
+            raise NotImplementedError("fast path requires the axis-aligned "
+                                      "single-lens train")
+        if params.lens_model not in ("apparent", "thin-lens", "general"):
+            raise ValueError(f"unknown lens_model {params.lens_model!r}")
+        if vol is not None:
+            if float(np.asarray(setup.inverse_rotation_matrix)[2, 2]) <= 0.0:
+                # its rays travel upward in the march's frame: the chief march
+                # enters a volume from above only
+                raise NotImplementedError(
+                    "the fast renderer marches rays that enter the volume "
+                    "from above: render a camera rotated by 90 degrees or "
+                    "more with a density volume through "
+                    "models/render.render_image")
+            check_march_options(algorithm, interpolation_scheme)
+            if vol.field.device != dev:
+                raise ValueError(f"volume on {vol.field.device}, render on "
+                                 f"{dev}")
+        elif dense_march:
+            raise ValueError("dense_march=True requires a density volume")
+        rotated = not np.allclose(setup.rotation_matrix, np.eye(3))
+        per_ray_splat = per_ray_splat or params.add_pos_noise
+        per_ray_march = vol is not None and not chief_march
+        # the fan kernel's route: diffraction, one spot a particle, and the
+        # camera frame equal to the march's frame up to the z shift
+        chain = (per_ray_splat or not params.implement_diffraction
+                 or per_ray_march or (rotated and vol is not None))
+        if patch is None:
+            # per-ray deposits keep the JAX package's conservative side: the
+            # rays' spread around the anchor depends on the scene (defocus,
+            # position noise)
+            patch = (auto_patch(params) if params.implement_diffraction
+                     and not per_ray_splat else 12)
 
-    xs = as_f32(source.x, dev)
-    ys = as_f32(source.y, dev)
-    zs = as_f32(source.z, dev)
-    rad = source.radiance
-    if scattering is not None:
-        # the Mie factor folds into the radiance, before amp0's scale
-        rad = np.asarray(rad, np.float32) * mie_irradiance(
-            params.image_distance, source, scattering,
-            setup.inverse_rotation_matrix if rotated else None)
-    rad = as_f32(rad, dev)
-    r1 = as_f32(r1, dev)
-    r2 = as_f32(r2, dev)
-    P, R = xs.shape[0], r1.shape[0]
-    if mesh is not None:
-        if P < size:
-            raise ValueError(f"{P} particles over a mesh of {size}: every "
-                             "rank needs one")
-        if vol is not None and vol.field.requires_grad \
-                and torch.is_grad_enabled():
-            vol = vol._replace(field=replicated(mesh, vol.field))
+        with span("render.setup"):
+            xs = as_f32(source.x, dev)
+            ys = as_f32(source.y, dev)
+            zs = as_f32(source.z, dev)
+            rad = source.radiance
+            if scattering is not None:
+                # the Mie factor folds into the radiance, before amp0's scale
+                rad = np.asarray(rad, np.float32) * mie_irradiance(
+                    params.image_distance, source, scattering,
+                    setup.inverse_rotation_matrix if rotated else None)
+            rad = as_f32(rad, dev)
+            r1 = as_f32(r1, dev)
+            r2 = as_f32(r2, dev)
+            P, R = xs.shape[0], r1.shape[0]
+            if mesh is not None:
+                if P < size:
+                    raise ValueError(f"{P} particles over a mesh of {size}: "
+                                     "every rank needs one")
+                if vol is not None and vol.field.requires_grad \
+                        and torch.is_grad_enabled():
+                    vol = vol._replace(field=replicated(mesh, vol.field))
 
-    st = setup.elements
-    lens_params = (float(setup.z_lens), float(st.pitch[0]),
-                   float(st.vertex_distance[0]),
-                   float(st.front_surface_radius[0]),
-                   float(st.back_surface_radius[0]),
-                   float(st.refractive_index[0]),
-                   float(st.transmission_ratio[0]))
-    sc = fan_scalars(params, lens_params)
+            st = setup.elements
+            lens_params = (float(setup.z_lens), float(st.pitch[0]),
+                           float(st.vertex_distance[0]),
+                           float(st.front_surface_radius[0]),
+                           float(st.back_surface_radius[0]),
+                           float(st.refractive_index[0]),
+                           float(st.transmission_ratio[0]))
+            sc = fan_scalars(params, lens_params)
 
-    # lens-aperture sample offsets, shared by all particles (ref: :104-130)
-    cone = params.ray_cone_pitch_ratio * params.lens_pitch
-    x_lens = cone * r1 * torch.cos(2.0 * math.pi * r2)
-    y_lens = cone * r1 * torch.sin(2.0 * math.pi * r2)
-    if R == 1:
-        x_lens = torch.zeros_like(x_lens)
-        y_lens = torch.zeros_like(y_lens)
-    # 8/pi is the erf spot's normalisation: the bilinear deposit has none
-    amp_scale = ((8.0 / math.pi) if params.implement_diffraction else 1.0) \
-        / params.aperture_f_number ** 2
-    if params.lens_model == "general":
-        amp_scale = amp_scale * lens_params[6]          # transmission
-    amp0 = rad * float(np.float32(amp_scale))
-    whole_xyz = (xs, ys, zs)
-    own = slice(None)
-    if mesh is not None:
-        own = slice(*shard_bounds(P, rank, size))
-        xs, ys, zs, amp0 = xs[own], ys[own], zs[own], amp0[own]
+            # lens-aperture sample offsets, shared by all particles
+            # (ref: :104-130)
+            cone = params.ray_cone_pitch_ratio * params.lens_pitch
+            x_lens = cone * r1 * torch.cos(2.0 * math.pi * r2)
+            y_lens = cone * r1 * torch.sin(2.0 * math.pi * r2)
+            if R == 1:
+                x_lens = torch.zeros_like(x_lens)
+                y_lens = torch.zeros_like(y_lens)
+            # 8/pi is the erf spot's normalisation: the bilinear deposit has
+            # none
+            amp_scale = ((8.0 / math.pi) if params.implement_diffraction
+                         else 1.0) / params.aperture_f_number ** 2
+            if params.lens_model == "general":
+                amp_scale = amp_scale * lens_params[6]          # transmission
+            amp0 = rad * float(np.float32(amp_scale))
+            whole_xyz = (xs, ys, zs)
+            own = slice(None)
+            if mesh is not None:
+                own = slice(*shard_bounds(P, rank, size))
+                xs, ys, zs, amp0 = xs[own], ys[own], zs[own], amp0[own]
 
-    # density march: per-particle chief deltas, computed once for all
-    # particles; they chunk like any other per-particle array
-    deltas6 = None
-    march_kw = dict(algorithm=algorithm,
-                    interpolation_scheme=interpolation_scheme,
-                    substeps=march_substeps)
-    if vol is not None and chief_march:
-        inv_rot = as_f32(setup.inverse_rotation_matrix, dev)
-        # the whole source's chief rays: on a mesh every rank probes them
-        # all for the substeps and marches its own
-        chief = _chief_geometry(*whole_xyz, inv_rot, params.z_offset,
-                                params.image_distance)
-        if algorithm == 3 and march_substeps is None:
-            # the substep count comes from the data (a Richardson estimate
-            # on a subsample of the chief rays), once per scene
-            key = (int(interpolation_scheme),
-                   _scene_fingerprint(vol, setup, params, source))
-            march_kw["substeps"] = _substep_cache.get(key)
-            if march_kw["substeps"] is None:
-                march_kw["substeps"] = _substep_cache[key] = choose_substeps(
-                    vol, *chief, interpolation_scheme=interpolation_scheme)
-        deltas6 = chief_deltas_dense(
-            vol, *(c[own].contiguous() for c in chief), **march_kw)
+        # density march: per-particle chief deltas, computed once for all
+        # particles; they chunk like any other per-particle array
+        deltas6 = None
+        march_kw = dict(algorithm=algorithm,
+                        interpolation_scheme=interpolation_scheme,
+                        substeps=march_substeps)
+        if vol is not None and chief_march:
+            with span("render.chief_march"):
+                inv_rot = as_f32(setup.inverse_rotation_matrix, dev)
+                # the whole source's chief rays: on a mesh every rank probes
+                # them all for the substeps and marches its own
+                chief = _chief_geometry(*whole_xyz, inv_rot, params.z_offset,
+                                        params.image_distance)
+                if algorithm == 3 and march_substeps is None:
+                    # the substep count comes from the data (a Richardson
+                    # estimate on a subsample of the chief rays), once per
+                    # scene
+                    key = (int(interpolation_scheme),
+                           _scene_fingerprint(vol, setup, params, source))
+                    march_kw["substeps"] = _substep_cache.get(key)
+                    if march_kw["substeps"] is None:
+                        march_kw["substeps"] = choose_substeps(
+                            vol, *chief,
+                            interpolation_scheme=interpolation_scheme)
+                        _substep_cache[key] = march_kw["substeps"]
+                deltas6 = chief_deltas_dense(
+                    vol, *(c[own].contiguous() for c in chief), **march_kw)
 
-    render_fraction = 1.0 if params.lens_model == "apparent" else 0.75
-    splat_kw = dict(nx=params.nx, ny=params.ny, patch=patch)
-    chain_kw = dict(c=fan_constants(sc), lens_model=params.lens_model,
-                    mirror_x=params.implement_diffraction)
-    if rotated:
-        chain_kw.update(rot=_f32_rows(setup.rotation_matrix),
-                        inv_rot=_f32_rows(setup.inverse_rotation_matrix))
-    gen = noise_scale = None
-    if params.add_pos_noise:
-        gen = torch.Generator(device=dev)
-        seed = int(cfg.seed if noise_seed is None else noise_seed)
-        gen.manual_seed(seed if mesh is None else rank_seed(seed, rank))
-        # N(0, 1) * std * pixel_pitch on the sensor-plane intersection
-        noise_scale = float(np.float32(params.pos_noise_std
-                                       * params.pixel_pitch))
+        render_fraction = 1.0 if params.lens_model == "apparent" else 0.75
+        splat_kw = dict(nx=params.nx, ny=params.ny, patch=patch)
+        chain_kw = dict(c=fan_constants(sc), lens_model=params.lens_model,
+                        mirror_x=params.implement_diffraction)
+        if rotated:
+            chain_kw.update(rot=_f32_rows(setup.rotation_matrix),
+                            inv_rot=_f32_rows(setup.inverse_rotation_matrix))
+        gen = noise_scale = None
+        if params.add_pos_noise:
+            gen = torch.Generator(device=dev)
+            seed = int(cfg.seed if noise_seed is None else noise_seed)
+            gen.manual_seed(seed if mesh is None else rank_seed(seed, rank))
+            # N(0, 1) * std * pixel_pitch on the sensor-plane intersection
+            noise_scale = float(np.float32(params.pos_noise_std
+                                           * params.pixel_pitch))
 
-    def render_chunk(sl, normals=None):
-        """The image of the particles ``sl``; ``normals``: their (2, n, R)
-        standard normals of the sensor noise, or None without noise."""
-        d6 = None if deltas6 is None else tuple(d[sl] for d in deltas6)
-        if not chain:
-            sums = fan_stats(xs[sl], ys[sl], zs[sl], amp0[sl], d6, x_lens,
-                             y_lens, sc=sc, lens_model=params.lens_model,
-                             mirror_x=params.implement_diffraction)
-            A, Xbar, Ybar, pred_col, pred_row = _centroids(*sums)
-            return particle_splat(
-                Xbar, Ybar, A, pred_col, pred_row,
-                diameter=params.diffraction_diameter,
-                render_fraction=render_fraction, **splat_kw)
-        march = (_march_each_ray(vol, **march_kw) if per_ray_march
-                 else None if d6 is None
-                 else functools.partial(apply_chief_deltas, d6))
-        (X, Y, amp), (A, Xbar, Ybar, pred_col, pred_row) = _ray_chain(
-            xs[sl], ys[sl], zs[sl], amp0[sl], x_lens, y_lens, march=march,
-            sensor_noise=None if normals is None else normals * noise_scale,
-            **chain_kw)
-        if not params.implement_diffraction:
-            return bilinear_patch_splat(X, Y, amp, pred_col, pred_row,
-                                        **splat_kw)
-        if per_ray_splat:
-            return patch_splat(X, Y, amp, pred_col, pred_row,
-                               diameter=params.diffraction_diameter,
-                               **splat_kw)
-        return particle_splat(Xbar, Ybar, A, pred_col, pred_row,
-                              diameter=params.diffraction_diameter,
-                              render_fraction=render_fraction, **splat_kw)
+        def render_chunk(sl, normals=None):
+            """The image of the particles ``sl``; ``normals``: their (2, n, R)
+            standard normals of the sensor noise, or None without noise."""
+            d6 = None if deltas6 is None else tuple(d[sl] for d in deltas6)
+            if not chain:
+                sums = fan_stats(xs[sl], ys[sl], zs[sl], amp0[sl], d6, x_lens,
+                                 y_lens, sc=sc, lens_model=params.lens_model,
+                                 mirror_x=params.implement_diffraction)
+                A, Xbar, Ybar, pred_col, pred_row = _centroids(*sums)
+                return particle_splat(
+                    Xbar, Ybar, A, pred_col, pred_row,
+                    diameter=params.diffraction_diameter,
+                    render_fraction=render_fraction, **splat_kw)
+            march = (_march_each_ray(vol, **march_kw) if per_ray_march
+                     else None if d6 is None
+                     else functools.partial(apply_chief_deltas, d6))
+            (X, Y, amp), (A, Xbar, Ybar, pred_col, pred_row) = _ray_chain(
+                xs[sl], ys[sl], zs[sl], amp0[sl], x_lens, y_lens, march=march,
+                sensor_noise=(None if normals is None
+                              else normals * noise_scale),
+                **chain_kw)
+            if not params.implement_diffraction:
+                return bilinear_patch_splat(X, Y, amp, pred_col, pred_row,
+                                            **splat_kw)
+            if per_ray_splat:
+                return patch_splat(X, Y, amp, pred_col, pred_row,
+                                   diameter=params.diffraction_diameter,
+                                   **splat_kw)
+            return particle_splat(Xbar, Ybar, A, pred_col, pred_row,
+                                  diameter=params.diffraction_diameter,
+                                  render_fraction=render_fraction, **splat_kw)
 
-    def chunk_image(s, e):
-        return render_chunk(slice(s, e), None if gen is None
-                            else _chunk_normals(gen, e - s, R))
+        def chunk_image(s, e):
+            render_image_fast.chunks += 1
+            with span("render.chunk"):
+                return render_chunk(slice(s, e), None if gen is None
+                                    else _chunk_normals(gen, e - s, R))
 
-    n = xs.shape[0]                          # the rank's own on a mesh
-    if particles_per_chunk is None or particles_per_chunk >= n:
-        img = chunk_image(0, n)
-    else:
-        pc = max(1, int(particles_per_chunk))
-        img = torch.zeros((params.ny, params.nx), dtype=torch.float32,
-                          device=dev)
-        for s in range(0, n, pc):
-            img += chunk_image(s, min(s + pc, n))         # in place
-    if mesh is None:
-        return img
-    return sum_over(mesh, img) if _mesh_reduce else img[None]
+        n = xs.shape[0]                          # the rank's own on a mesh
+        if particles_per_chunk is None or particles_per_chunk >= n:
+            img = chunk_image(0, n)
+        else:
+            pc = max(1, int(particles_per_chunk))
+            img = torch.zeros((params.ny, params.nx), dtype=torch.float32,
+                              device=dev)
+            for s in range(0, n, pc):
+                img += chunk_image(s, min(s + pc, n))         # in place
+        if mesh is None:
+            return img
+        return sum_over(mesh, img) if _mesh_reduce else img[None]
+
+
+render_image_fast.chunks = 0

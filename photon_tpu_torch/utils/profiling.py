@@ -1,12 +1,14 @@
-"""Phase timers with rays/s accounting, and ray-survival statistics.
+"""Spans, phase timers with rays/s accounting, and ray-survival statistics.
 
 The reference's observability is wall-clock printfs around the kernel
 loop (ref: parallel_ray_tracing.cu:3498-3684, batch_run_simulation.py:53).
-Here: lightweight host-clock phase timers that synchronise the CUDA device
-at each phase end, so a phase's time includes the device work it enqueued,
-an optional ``torch.profiler`` trace context for per-kernel analysis, and a
-count of the rays that survive a trace (the reference's NaN-culled rays,
-counted instead of printf'd).
+Here: named spans of the program's work (:func:`span`), which a
+``torch.profiler`` session records on the clock of its device records and
+which cost one boolean test otherwise; lightweight host-clock phase timers
+that synchronise the CUDA device at each phase end, so a phase's time
+includes the device work it enqueued; an optional ``torch.profiler`` trace
+context for per-kernel analysis; and a count of the rays that survive a
+trace (the reference's NaN-culled rays, counted instead of printf'd).
 """
 from __future__ import annotations
 
@@ -16,6 +18,23 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the work inside it as the span
+    ``name`` (dotted by layer: ``invert.backward``, ``render.chunk``).
+
+    With a ``torch.profiler`` session active it is a
+    ``torch.profiler.record_function`` range, on the same clock as the
+    session's kernels and copies, nested in the ranges that enclose it.
+    Without one it is a shared no-op context: one boolean test, no range,
+    no device synchronisation, nothing allocated."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @dataclass
@@ -23,7 +42,9 @@ class PhaseTimer:
     """Accumulating phase timer with optional ray throughput.
 
     ``device``: when it is a CUDA device, ``torch.cuda.synchronize`` runs
-    before a phase's clock is read.
+    before a phase's clock is read.  A phase is also the span
+    ``pipeline.<name>``, its ``:suffix`` dropped (``render:frame_0001`` is
+    ``pipeline.render``).
     """
 
     device: Optional[torch.device] = None
@@ -39,9 +60,12 @@ class PhaseTimer:
         self._sync()
         t0 = time.perf_counter()
         try:
-            yield
+            with span("pipeline." + name.partition(":")[0]):
+                try:
+                    yield
+                finally:
+                    self._sync()
         finally:
-            self._sync()
             dt = time.perf_counter() - t0
             self.phases[name] = self.phases.get(name, 0.0) + dt
             if num_rays:
@@ -63,7 +87,9 @@ def device_trace(log_dir: str):
     CUDA device is present, its kernels and copies; on exit the trace is
     written into ``log_dir`` as ``<worker>.<time>.pt.trace.json`` (view it
     with Perfetto, chrome://tracing or TensorBoard's profiler plugin).
-    Yields the profiler (``key_averages()`` for sums by kernel)."""
+    The program's spans (:func:`span`) show in it beside the kernels they
+    launched.  Yields the profiler (``key_averages()`` for sums by
+    kernel)."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 

@@ -25,6 +25,7 @@ import torch
 
 from photon_tpu_torch.device import DeviceLike, as_f32, resolve_device
 from photon_tpu_torch.native import gradient_field
+from photon_tpu_torch.utils.profiling import span
 
 # the reference shifts the volume's z origin by this fixed amount so that
 # world-z (measured from the sensor) lines up with the volume
@@ -74,37 +75,46 @@ def build_density_volume(rho, spacings, space_origin,
       space_origin: (x0, y0, z0) in microns; z0 gets the reference's fixed
         -750e3 shift (ref: loadNRRD:1704).
       device: None = the CUDA device (raises without one); "cpu" for tests.
+
+    Spans: ``volume.build``, enclosing ``volume.gradient`` (the stencil)
+    and ``volume.data_min`` (the minimum read back to the host).
     """
-    dev = resolve_device(device)
-    spacings = np.asarray(spacings, dtype=np.float64).ravel()
-    origin = np.asarray(space_origin, dtype=np.float64).ravel().copy()
-    origin[2] -= z_origin_shift
+    with span("volume.build"):
+        dev = resolve_device(device)
+        spacings = np.asarray(spacings, dtype=np.float64).ravel()
+        origin = np.asarray(space_origin, dtype=np.float64).ravel().copy()
+        origin[2] -= z_origin_shift
 
-    if isinstance(rho, torch.Tensor):
-        if rho.dtype != torch.float32:
-            raise TypeError(f"rho: a tensor must be float32, got {rho.dtype}")
-        n_minus_1 = gladstone_dale * rho.detach().to(dev)
-        field = gradient_field(n_minus_1.contiguous(), spacings)
-        data_min = float(n_minus_1.min())
-    else:
-        nm1 = (gladstone_dale * np.asarray(rho)).astype(np.float64)
-        n_minus_1 = as_f32(nm1, dev)
-        field = gradient_field(n_minus_1, spacings)
-        data_min = float(nm1.min())
+        if isinstance(rho, torch.Tensor):
+            if rho.dtype != torch.float32:
+                raise TypeError(f"rho: a tensor must be float32, got "
+                                f"{rho.dtype}")
+            n_minus_1 = gladstone_dale * rho.detach().to(dev)
+            with span("volume.gradient"):
+                field = gradient_field(n_minus_1.contiguous(), spacings)
+            with span("volume.data_min"):
+                data_min = float(n_minus_1.min())
+        else:
+            nm1 = (gladstone_dale * np.asarray(rho)).astype(np.float64)
+            n_minus_1 = as_f32(nm1, dev)
+            with span("volume.gradient"):
+                field = gradient_field(n_minus_1, spacings)
+            with span("volume.data_min"):
+                data_min = float(nm1.min())
 
-    sizes = np.array(n_minus_1.shape, dtype=np.float64)     # (W, H, D)
-    min_bound = origin
-    max_bound = origin + (sizes - 1.0) * spacings
+        sizes = np.array(n_minus_1.shape, dtype=np.float64)     # (W, H, D)
+        min_bound = origin
+        max_bound = origin + (sizes - 1.0) * spacings
 
-    return DensityVolume(
-        field=field,
-        min_bound=min_bound.astype(np.float32),
-        max_bound=max_bound.astype(np.float32),
-        grid_spacing=spacings.astype(np.float32),
-        data_min=data_min,
-        step_size=float(spacings.min()),
-        max_step_size=float(spacings.max()),
-    )
+        return DensityVolume(
+            field=field,
+            min_bound=min_bound.astype(np.float32),
+            max_bound=max_bound.astype(np.float32),
+            grid_spacing=spacings.astype(np.float32),
+            data_min=data_min,
+            step_size=float(spacings.min()),
+            max_step_size=float(spacings.max()),
+        )
 
 
 def load_density_volume(path: str, gladstone_dale: float = 0.225e-3,
