@@ -117,7 +117,12 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
    kernel that longer lines take (timed in turns with the tiles; each
    axis's tiles and the bytes it moves printed); times, bounds, peak
    memory, torch.gradient's time beside K10, the plain prefilter's as it
-   stood before K11 beside K11's; under
+   stood before K11 beside K11's; K13 (K10's transpose, the backward of
+   inverse.volume_from_rho on the card) at 512^3 x 4 bit for bit against
+   its plain version on the card, timed beside its bytes bound and the
+   float32 autograd chain it replaces (stencil_autograd), and
+   volume_from_rho's forward and backward through K10 and K13 in turns
+   with that chain; under
    ``--native-only`` then the tricubic pair through the command line and
    one step of a tricubic render's gradient, with the launches of all three
    (the full run reads them on items 3, 5 and 6);
@@ -811,6 +816,23 @@ def prefilter_stacked(field):
             res[i] = z * (res[i + 1] - causal[i])
         out = torch.stack(res).movedim(0, axis)
     return out.contiguous()
+
+
+def stencil_autograd(rho, spacing, gladstone_dale):
+    """inverse.volume_from_rho's field on the card as it stood before K13:
+    native.grad_axis in float32 under autograd, stacked and permuted (its
+    backward is autograd's chain of strided adds, cat and copies).  Phase
+    14 times it, forward and backward, beside K10 and K13.  Not used by
+    the port."""
+    import torch
+
+    from photon_tpu_torch.native import grad_axis
+
+    n_minus_1 = gladstone_dale * rho
+    sp = [float(s) for s in spacing]
+    packed = torch.stack([grad_axis(n_minus_1, a, sp[a]) for a in range(3)]
+                         + [n_minus_1], dim=-1)
+    return packed.permute(2, 1, 0, 3).contiguous()
 
 
 def nrrd_288(setup):
@@ -1752,11 +1774,11 @@ def main(argv=None) -> int:
                       "per rank and the kernels line is empty")
     only.add_argument("--native-only", action="store_true",
                       help="after the build, run phase 14 alone (the volume's "
-                      "preparation: K10, K11 and K12 against their plain "
+                      "preparation: K10-K13 against their plain "
                       "versions and K11 against a float64 prefilter, then "
                       "the tricubic pair and a tricubic gradient step through "
                       "the entry points); the kernels line then lists "
-                      "K10-K12")
+                      "K10-K13")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2214,6 +2236,7 @@ def main(argv=None) -> int:
             fan_stats_bwd=fan_stats_backward, splat=splat_particles,
             splat_bwd=splat_backward,
             gradient_field=native.launch_gradient_field,
+            gradient_field_transpose=native.launch_gradient_field_transpose,
             prefilter=native.launch_prefilter,
             prefilter_bwd=native.launch_prefilter_bwd)
         tiered = ("march", "march_bwd_stage", "march_bwd_remarch",
@@ -3235,8 +3258,8 @@ def main(argv=None) -> int:
         expect_counts("invert_bos at 512^3", counts_i, dict(
             march=2, march_bwd_stage=2, march_bwd_remarch=0, fan_stats=2,
             fan_stats_bwd=2, splat=2, splat_bwd=2, slab_sample=0,
-            slab_sample_bwd=0, gradient_field=1, prefilter=0,
-            prefilter_bwd=0))
+            slab_sample_bwd=0, gradient_field=3, gradient_field_transpose=2,
+            prefilter=0, prefilter_bwd=0))
         expect_counts("invert_bos at 512^3 (large tier)", large_i,
                       dict(march=2, march_bwd_stage=2))
         rows[1]["launches_inversion"] = large_i["march_bwd_stage"]
@@ -4424,6 +4447,8 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         gd = cfg.density_gradients.gladstone_dale
         launchers = dict(gradient_field=native.launch_gradient_field,
+                         gradient_field_transpose=(
+                             native.launch_gradient_field_transpose),
                          prefilter=native.launch_prefilter,
                          prefilter_bwd=native.launch_prefilter_bwd)
 
@@ -4595,6 +4620,97 @@ def main(argv=None) -> int:
         print(f"    build_density_volume from a {n5}^3 float32 rho on the "
               f"card: {build5_s:.4f} s (one K10 launch)  [{card}]")
         del vol5b, field5, nm1_5, rho5
+
+        # (a') K13, K10's transpose, at 512^3 against its plain version on
+        # the card (its float64 operations round as on the CPU, where the
+        # tests hold it to the stencil's transpose), beside its bytes bound
+        # and the float32 autograd chain of volume_from_rho it replaces,
+        # and volume_from_rho's forward and backward through K10 and K13 in
+        # turns with that chain
+        sp5 = vol5.grid_spacing
+        rho5t = 1.225 + amp5 * gx5[:, None, None] * gx5[None, :, None] \
+            * gz5[None, None, :]
+        gen13t = torch.Generator(device=dev)
+        gen13t.manual_seed(13)
+        ct5 = torch.randn(tuple(vol5.field.shape), generator=gen13t,
+                          device=dev)
+
+        def k13_run():
+            return native.launch_gradient_field_transpose(ct5, sp5, gd)
+
+        d_rho13, gb13 = with_peak_above(k13_run, dev)
+        same13 = torch.equal(d_rho13, k13_run())
+        plain13 = native.gradient_field_transpose_plain(ct5, sp5, gd)
+        differ13 = int((d_rho13 != plain13).sum())
+        del plain13
+        leaf = rho5t.detach().clone().requires_grad_(True)
+        chain_field = stencil_autograd(leaf, sp5, gd)
+        (g_chain,) = torch.autograd.grad(chain_field, leaf, ct5,
+                                         retain_graph=True)
+        err13 = nerr(d_rho13, g_chain)
+        del g_chain, d_rho13
+        ms13 = time_ms(k13_run)
+        ms13_p = time_ms(lambda: native.gradient_field_transpose_plain(
+            ct5, sp5, gd), reps=3, warm=1)
+        ms_chain_bwd = time_ms(lambda: torch.autograd.grad(
+            chain_field, leaf, ct5, retain_graph=True), reps=3, warm=1)
+        del chain_field, leaf
+        dev13 = traced_ms(k13_run, "gradient_transpose_kernel", 1)
+        bnd13, by13 = bound_ms(20 * rho5t.numel(), 0)
+
+        def step_of(fn):
+            """One forward and backward of volume_from_rho's field through
+            fn (rho, spacing) with the cotangent ct5."""
+            def run():
+                r_ = rho5t.detach().clone().requires_grad_(True)
+                torch.autograd.grad(fn(r_, sp5), r_, ct5)
+            return run
+
+        ported = step_of(lambda r_, sp_: volume_from_rho(r_, vol5, gd).field)
+        chain = step_of(lambda r_, sp_: stencil_autograd(r_, sp_, gd))
+        zero()
+        ported()
+        sync()
+        step13_counts = counts_now()
+        expect_counts("volume_from_rho forward and backward at 512^3",
+                      step13_counts, dict(gradient_field=1,
+                                          gradient_field_transpose=1,
+                                          prefilter=0, prefilter_bwd=0))
+        turns13 = {"K10 + K13": [], "autograd chain": []}
+        for which in ("K10 + K13", "autograd chain", "autograd chain",
+                      "K10 + K13"):
+            turns13[which].append(time_ms(
+                ported if which == "K10 + K13" else chain, reps=3, warm=1))
+        _, gb_step13 = with_peak_above(ported, dev)
+        _, gb_chain = with_peak_above(chain, dev)
+        del ct5, rho5t
+        hold(f"K13 {n5}^3: values that differ from its plain version on "
+             f"the card", float(differ13), 0.0)
+        hold(f"K13 {n5}^3 against the float32 autograd chain of "
+             f"volume_from_rho (of its maximum)", err13, 1e-6)
+        hold(f"K13 {n5}^3: two runs differ", float(not same13), 0.0)
+        share13 = (f"{100.0 * bnd13 / dev13:.1f}%" if dev13 != NOT_MEASURED
+                   else NOT_MEASURED)
+        print(f"    K13 {n5}^3 x 4 cotangent: time {ms13:.4f} ms (device "
+              f"{ms_or_not(dev13, 4)}), bound {bnd13:.4f} ms ({by13}), "
+              f"{share13} of the bound; plain version on the card "
+              f"{ms13_p:.2f} ms; the float32 autograd chain's backward "
+              f"{ms_chain_bwd:.2f} ms; {err13:.3e} of the maximum from it; "
+              f"peak above the cotangent {gb13:.3f} GB  [{card}]")
+        print(f"    volume_from_rho at {n5}^3, forward and backward "
+              f"(launches {step13_counts}), in turns: K10 + K13 "
+              + ", ".join(f"{t:.3f}" for t in turns13["K10 + K13"])
+              + " ms, the float32 autograd chain "
+              + ", ".join(f"{t:.3f}" for t in turns13["autograd chain"])
+              + f" ms; peak {gb_step13:.2f} GB against {gb_chain:.2f} GB  "
+              f"[{card}]")
+        k13 = dict(ms=ms13, device_ms=dev13, plain_ms=ms13_p,
+                   bound_ms=bnd13, bound_by=by13, err=err13,
+                   chain_bwd_ms=ms_chain_bwd, peak_gb=gb13,
+                   step_ms=statistics.median(turns13["K10 + K13"]),
+                   chain_step_ms=statistics.median(
+                       turns13["autograd chain"]),
+                   step_peak_gb=gb_step13, chain_peak_gb=gb_chain)
 
         # (b)-(d) K11 and K12 against the plain versions, at 64^3 and 512^3;
         # K11 also against an independent float64 prefilter on the host
@@ -4834,8 +4950,8 @@ def main(argv=None) -> int:
                   f"tricubic interpolation w.r.t. rho: launches "
                   f"{step_counts}")
             expect_counts("a tricubic gradient step", step_counts,
-                          dict(gradient_field=0, prefilter=1,
-                               prefilter_bwd=1))
+                          dict(gradient_field=1, gradient_field_transpose=1,
+                               prefilter=1, prefilter_bwd=1))
             require(bool(torch.isfinite(g_rho).all())
                     and float(g_rho.abs().max()) > 0,
                     "the tricubic step's d_rho is zero or not finite")
@@ -4847,7 +4963,10 @@ def main(argv=None) -> int:
                            "tricubic BOS pair (im2's march)"),
                 prefilter_bwd=(step_counts["prefilter_bwd"],
                                "one forward and backward of a tricubic "
-                               "render's loss"))
+                               "render's loss"),
+                gradient_field_transpose=(
+                    step_counts["gradient_field_transpose"], "one forward "
+                    "and backward of a tricubic render's loss w.r.t. rho"))
 
         if on is None:
             on = native_entry_points()
@@ -4870,6 +4989,26 @@ def main(argv=None) -> int:
             bound_by=k64["bound_by"], library_ms=k64["library_ms"],
             library_is="torch.gradient(edge_order=2), stacked and permuted",
             other_shapes={k: v for k, v in k10.items() if k != "64^3"})]
+        rows.append(dict(
+            name="gradient_field_transpose", route="cuda", source=src,
+            replaces=None,
+            replaces_is="no TPU kernel: the transpose that XLA's autodiff "
+            "takes through photon_tpu/inverse.py volume_from_rho",
+            shape=f"{n5}^3 x 4 cotangent of the packed field",
+            launches=on["gradient_field_transpose"][0],
+            launches_on=on["gradient_field_transpose"][1],
+            max_abs_err=0.0, tolerance=0.0, ms=k13["ms"],
+            device_ms=k13["device_ms"], plain_ms=k13["plain_ms"],
+            plain_ms_is="the plain float64 version on the card (held bit "
+            "for bit)", bound_ms=k13["bound_ms"], bound_by=k13["bound_by"],
+            library_ms=None, chain_backward_ms=k13["chain_bwd_ms"],
+            chain_is="autograd's backward through volume_from_rho's float32 "
+            "grad_axis chain, which K13 replaces",
+            err_against_chain=k13["err"],
+            volume_from_rho_step_ms=k13["step_ms"],
+            chain_step_ms=k13["chain_step_ms"],
+            step_peak_gb=k13["step_peak_gb"],
+            chain_peak_gb=k13["chain_peak_gb"]))
         for name, kk, line, (launches, where) in (
                 ("bspline_prefilter", "11",
                  "photon_tpu/native/photon_native.cpp:165", on["prefilter"]),
@@ -6336,7 +6475,9 @@ def main(argv=None) -> int:
         march_bwd_stage=march_backward_stage,
         march_bwd_remarch=march_backward_remarch,
         fan_stats=fan_stats, fan_stats_bwd=fan_stats_backward,
-        splat=splat_particles, splat_bwd=splat_backward)
+        splat=splat_particles, splat_bwd=splat_backward,
+        gradient_field=native.launch_gradient_field,
+        gradient_field_transpose=native.launch_gradient_field_transpose)
 
     def counted(fn):
         for w in inv_wrappers.values():
@@ -6362,10 +6503,13 @@ def main(argv=None) -> int:
             "the recovered rho or its volume is malformed")
     # per step: one march with the residual and one stage backward; the fan
     # and the splat forward and backward once a chunk (one chunk: nothing on
-    # this path holds a (P, R) array)
+    # this path holds a (P, R) array); volume_from_rho's K10 and K13 (and
+    # K10 once more for the result volume)
     expect_inv = dict(march_dense_residual=n_steps, march_bwd_stage=n_steps,
                       march_bwd_remarch=0, fan_stats=n_steps,
-                      fan_stats_bwd=n_steps, splat=n_steps, splat_bwd=n_steps)
+                      fan_stats_bwd=n_steps, splat=n_steps, splat_bwd=n_steps,
+                      gradient_field=n_steps + 1,
+                      gradient_field_transpose=n_steps)
     if counts_inv != expect_inv:
         raise SystemExit(f"chip_smoke: launch counts {counts_inv}, expected "
                          f"{expect_inv}")
@@ -6804,9 +6948,11 @@ def main(argv=None) -> int:
         prefilter=(menu_counts[3]["prefilter"], "cli.main, the tricubic "
                    "pair with algorithm 3 (choose_substeps' two probe "
                    "marches and im2's march)"),
-        prefilter_bwd=(counts_c["prefilter_bwd"], cubic_step)))
+        prefilter_bwd=(counts_c["prefilter_bwd"], cubic_step),
+        gradient_field_transpose=(counts_inv["gradient_field_transpose"],
+                                  five)))
     earlier = dict(
-        gradient_field={},
+        gradient_field={}, gradient_field_transpose={},
         bspline_prefilter=dict(launches_tricubic_step=counts_c["prefilter"]),
         bspline_prefilter_bwd=dict(
             launches_tricubic_remarch_step=counts_c5["prefilter_bwd"]))

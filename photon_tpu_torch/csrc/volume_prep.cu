@@ -1,8 +1,8 @@
 // Volume preparation on the card: the gradient precompute of a density
-// volume (K10) and the cubic B-spline prefilter (K11) with its transpose
-// (K12).
+// volume (K10) with its transpose (K13) and the cubic B-spline prefilter
+// (K11) with its transpose (K12).
 //
-// None of the three replaces a TPU kernel (pl.pallas_call).  They are the
+// None of the four replaces a TPU kernel (pl.pallas_call).  They are the
 // port's counterparts of the JAX package's host C++ module
 // photon_tpu/native/photon_native.cpp (gradient_field, :89;
 // bspline_prefilter_3d, :165), which that package runs on the host before it
@@ -53,6 +53,45 @@
 // reciprocal seeds, 4 conversions) issue in 0.46 ms at 512^3, under the
 // bytes bound, and the kernel takes 1.07-1.08 ms there (chip_smoke.py phase
 // 14).
+
+// K13, photon_gradient_field_transpose.  K10's transpose, the backward of
+// photon_tpu_torch/inverse.py::volume_from_rho on the card: the (D, H, W, 4)
+// float32 cotangent of the packed field -> the (W, H, D) float32 cotangent
+// of rho, gd (S_x^T c0 + S_y^T c1 + S_z^T c2 + c3) with gd the
+// Gladstone-Dale constant (n - 1 = gd rho), S an axis's stencil and c the
+// field's four channels.  It replaces no TPU kernel: the JAX package's
+// volume_from_rho (photon_tpu/inverse.py) leaves this transpose to XLA's
+// autodiff, and the port ran it as PyTorch's autograd through the float32
+// stencil (strided adds, cat and permute copies, some 68 ms a step at
+// 512^3 on an H100).  In gather form sample j of an axis of n takes
+// (c[j-1] - c[j+1]) / 2h, each term where its row is central, and the
+// one-sided rows' weights (-1.5, 2, -0.5) / h on c[0] for j <= 2 and
+// (0.5, -2, 1.5) / h on c[n-1] for j >= n - 3; a voxel sums
+// ((x + z) + c3) + y in double, each 1 / 2h and 1 / h a reciprocal formed
+// once, and rounds once (the plain version's order,
+// native.py::gradient_field_transpose_plain, bit for bit).  Bound: bytes,
+// 16 B in and 4 B out a voxel, as K10 (2.7 GB at 512^3, 0.80 ms).  The
+// layouts are K10's swapped, so the design is K10's mirror on its grid
+// (gradient_plan): a block of 256 threads owns an x-z tile of 32 x 32
+// voxels and walks a run of y planes.  Each plane, with the tile's x and z
+// halo (treach_lo .. treach_hi: j - 1 .. j + 1 and the faces' samples, up
+// to 35 a side), enters a staging buffer as rows of float4 along x with
+// cp.async (16 bytes a copy where d_field is 16-byte aligned), two planes
+// in flight ahead of the one in hand.  A warp takes four x rows of the
+// tile, lane = z, and a thread the same voxels in every plane: it reads the
+// staging buffer down its columns (an odd pitch of 35 float4 keeps eight
+// lanes' 16-byte reads in distinct banks), takes channel 0 at x - 1 and
+// x + 1 from the row before and after (each widened to double once),
+// channel 2 at z - 1 and z + 1 from the neighbouring lanes, and keeps in
+// double, in shared memory slots that only it reads, channel 1 of the last
+// two planes and the in-plane sum (x + z) + c3 of the last; as plane y + 1
+// enters it finishes output plane y, written in rows of 32 floats along z,
+// so the tile's transpose happens in the reads of the staging buffer and
+// no barrier guards the slots.  The y faces' samples (planes 0 and H - 1,
+// six output planes of H) are read from device memory.  The first design
+// divided by 2h and h (IEEE double divisions, as K10) and made a second
+// pass over the tile for the y part, a float ring of three planes read
+// twice: 1.476 ms at 512^3 on an H100, 54% of the bound.
 
 // K11, photon_bspline_prefilter.  Cubic B-spline coefficients of a
 // (D, H, W, C) float32 field along axes 0, 1 and 2 in turn, the plain
@@ -767,6 +806,206 @@ __global__ void __launch_bounds__(kGradThreads, kGradBlocks)
 }
 
 // ---------------------------------------------------------------------------
+// K13: K10's transpose, an x-z tile a block walking along y
+// ---------------------------------------------------------------------------
+
+// the first and the last sample that the transposed stencils of indices
+// a .. b - 1 along an axis of n >= 3 read (native.gradient_transpose_reach):
+// j - 1 and j + 1, and the faces' samples 0 (j <= 2) and n - 1 (j >= n - 3)
+__device__ __forceinline__ int treach_lo(int a) { return a <= 2 ? 0 : a - 1; }
+
+__device__ __forceinline__ int treach_hi(int b, int n) {
+  return b >= n - 2 ? n - 1 : b;
+}
+
+// the one-sided rows' weights on sample j of 0, 1, 2 (first row) and on
+// sample n - 3 + k, k = j - (n - 3), of n - 3 .. n - 1 (last row)
+__device__ __forceinline__ double face_lo(int j) {
+  return j == 0 ? -1.5 : j == 1 ? 2.0 : -0.5;
+}
+
+__device__ __forceinline__ double face_hi(int k) {
+  return k == 0 ? 0.5 : k == 1 ? -2.0 : 1.5;
+}
+
+// S^T g at sample j of n along one axis, in the plain version's order
+// (native.py, grad_axis_transpose): the central rows j - 1 and j + 1 (gm,
+// gp: their samples where the row is central, else 0) times 1 / 2h, then
+// the first row where j <= 2 and the last where j >= n - 3, whose samples
+// g[0] and g[n - 1] `first()` and `last()` read, times 1 / h; inv2h and
+// invh are those reciprocals, each formed once in double
+template <class First, class Last>
+__device__ __forceinline__ double transpose_at(double gm, double gp, int j,
+                                               int n, double inv2h,
+                                               double invh, First first,
+                                               Last last) {
+  double t = (gm - gp) * inv2h;
+  if (j <= 2) t = t + (face_lo(j) * first()) * invh;
+  if (j >= n - 3) t = t + (face_hi(j - (n - 3)) * last()) * invh;
+  return t;
+}
+
+// kTrSpan is native.py's GRADIENT_TRANSPOSE_SPAN
+constexpr int kTrSpan = kGradTile + 3;          // x or z a tile reads
+constexpr int kTrPitch = kTrSpan;               // float4 a staging row: odd
+constexpr int kTrThreads = kGradThreads;
+constexpr int kTrRows = kGradTile / kGradWarps; // x rows a warp
+constexpr int kTrBlocks = 3;                    // blocks an SM (<= 85 regs)
+constexpr int kTrStage = kTrSpan * kTrPitch;    // float4 a staging plane
+constexpr int kTrTile = kGradTile * kGradTile;  // voxels a tile
+// two staging planes, and two planes each (double) of channel 1 and of the
+// in-plane sums: 71,968 bytes, three blocks in an SM's 228 KB
+constexpr int kTrSmemBytes = 2 * kTrStage * 16 + 4 * kTrTile * 8;
+
+// the grid of K13 (K10's, native.gradient_plan) and what a voxel needs
+struct TransposeGeom {
+  int W, H, D;            // rho's (W, H, D), each at most 2^30
+  int tiles_x, tiles_z;   // kGradTile-voxel tiles along x and z
+  int y_run;              // output planes a block computes
+  int vec;                // 16-byte copies: d_field 16-byte aligned
+  double dx, dy, dz, gd;
+};
+
+// Block b: z tile b % tiles_z, x tile (b / tiles_z) % tiles_x, y run
+// b / (tiles_z tiles_x), as K10.  Planes treach_lo(y0) .. treach_hi(y1)
+// of d_field enter in order, plane p through staging buffer (p - plo) % 2:
+// the tile's x-z window of float4 with its halo (treach_lo .. treach_hi
+// of each axis).  A thread owns the voxels (x, z) of its warp's kTrRows x
+// rows and its lane's z in every plane, and keeps, in shared memory slots
+// that no other thread reads, channel 1 of the last two planes (c1, slot
+// p % 2) and the in-plane sum (x + z) + c3 of the last output plane (part,
+// slot p % 2), in double.  As plane p enters, the thread forms plane p's
+// in-plane sum and finishes output plane p - 1, whose central y rows
+// p - 2 and p are c1's and the plane in hand's (and p itself where p + 1
+// is no central row); its z rows are written along z, so the tile's
+// transpose happens in the reads of the staging buffer.  The one-sided
+// rows' samples along y (planes 0 and H - 1) are read from device memory
+// where y <= 2 or y >= H - 3.
+__global__ void __launch_bounds__(kTrThreads, kTrBlocks)
+    gradient_transpose_kernel(const float* __restrict__ dfield,
+                              float* __restrict__ drho, TransposeGeom g) {
+  extern __shared__ float4 tr_sm[];
+  float4* stage = tr_sm;
+  double* c1 = reinterpret_cast<double*>(tr_sm + 2 * kTrStage);
+  double* part = c1 + 2 * kTrTile;
+  const int tz = (int)(blockIdx.x % (unsigned)g.tiles_z);
+  const int rest = (int)(blockIdx.x / (unsigned)g.tiles_z);
+  const int tx = rest % g.tiles_x, ty = rest / g.tiles_x;
+  const int x0 = tx * kGradTile, x1 = min(g.W, x0 + kGradTile);
+  const int z0 = tz * kGradTile, z1 = min(g.D, z0 + kGradTile);
+  const int y0 = ty * g.y_run, y1 = min(g.H, y0 + g.y_run);
+  const int xlo = treach_lo(x0), nx = treach_hi(x1, g.W) - xlo + 1;
+  const int zlo = treach_lo(z0), nz = treach_hi(z1, g.D) - zlo + 1;
+  const int plo = treach_lo(y0), phi = treach_hi(y1, g.H);
+  const long long zstep = 4LL * g.H * g.W;     // floats from z to z + 1
+  const float* src0 = dfield + (long long)zlo * zstep + 4LL * xlo;
+  const int per_row = g.vec ? nx : 4 * nx;      // copies a staging row
+  const double inv2x = 1.0 / (2.0 * g.dx), invx = 1.0 / g.dx;
+  const double inv2y = 1.0 / (2.0 * g.dy), invy = 1.0 / g.dy;
+  const double inv2z = 1.0 / (2.0 * g.dz), invz = 1.0 / g.dz;
+
+  // plane p of the tile's window into the staging buffer st, as one group
+  // of copies
+  auto issue = [&](int p, float4* st) {
+    const float* src = src0 + 4LL * p * g.W;
+    float* dst = reinterpret_cast<float*>(st);
+    const int w = g.vec ? 4 : 1;
+    grid_walk(nz, per_row, [&](int r, int c) {
+      copy_async(dst + 4 * r * kTrPitch + c * w, src + r * zstep + c * w,
+                 g.vec);
+    });
+    copy_commit();
+  };
+
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int z = z0 + lane, zr = z - zlo;
+  const bool zin = z < z1;
+  const int xa = x0 + warp * kTrRows;
+  const int nrows = max(0, min(kTrRows, x1 - xa));
+  // channel 1 of (z, x) in plane q, read from device memory
+  auto face = [&](int x, int q) {
+    return (double)__ldg(dfield + (long long)z * zstep +
+                         4LL * ((long long)q * g.W + x) + 1);
+  };
+  issue(plo, stage);
+  issue(plo + 1, stage + kTrStage);   // phi >= plo + 1
+  for (int p = plo; p <= phi; ++p) {
+    float4* st = stage + ((p - plo) & 1) * kTrStage;
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();             // plane p is in st
+    const bool out_p = p >= y0 && p < y1;
+    // output plane p - 1 is finished now where p is its central row y + 1;
+    // output plane p too where p + 1 is no central row (p >= H - 2)
+    const bool fin_prev = p - 1 >= y0 && p - 1 < y1 && p <= g.H - 2;
+    const bool fin_p = out_p && p >= g.H - 2;
+    if (nrows > 0) {
+      // this lane's z row of the window, walked along x: g0m holds
+      // channel 0 at x - 1, cur the voxel x, nxt the voxel x + 1
+      const float4* row = st + zr * kTrPitch;
+      int xw = xa - xlo;
+      double g0m = xa - 1 >= xlo ? (double)row[xw - 1].x : 0.0;
+      float4 cur = row[xw];
+      double g0c = (double)cur.x;
+#pragma unroll 1
+      for (int k = 0; k < nrows; ++k, ++xw) {
+        const int x = xa + k, i = (x - x0) * kGradTile + lane;
+        const float4 nxt = row[xw + 1];
+        const double g0p = (double)nxt.x;
+        const double g1 = (double)cur.y;
+        double s = 0.0;
+        if (out_p) {
+          const double tx_ = transpose_at(
+              x >= 2 ? g0m : 0.0, x <= g.W - 3 ? g0p : 0.0, x, g.W, inv2x,
+              invx, [&] { return (double)row[-xlo].x; },
+              [&] { return (double)row[g.W - 1 - xlo].x; });
+          // channel 2 at z - 1 and z + 1 from the neighbouring lanes, the
+          // tile's first and last lanes from the window's halo rows
+          float g2m = __shfl_up_sync(full, cur.z, 1);
+          float g2p = __shfl_down_sync(full, cur.z, 1);
+          if (lane == 0 && z >= 2) g2m = st[(zr - 1) * kTrPitch + xw].z;
+          if (lane == 31 && z <= g.D - 3)
+            g2p = st[(zr + 1) * kTrPitch + xw].z;
+          const double tz_ = transpose_at(
+              z >= 2 ? (double)g2m : 0.0, z <= g.D - 3 ? (double)g2p : 0.0,
+              z, g.D, inv2z, invz,
+              [&] { return (double)st[(0 - zlo) * kTrPitch + xw].z; },
+              [&] { return (double)st[(g.D - 1 - zlo) * kTrPitch + xw].z; });
+          s = (tx_ + tz_) + (double)cur.w;
+        }
+        if (zin && fin_prev) {
+          const int y = p - 1;
+          const double ty_ = transpose_at(
+              y >= 2 ? c1[(p & 1) * kTrTile + i] : 0.0, g1, y, g.H, inv2y,
+              invy, [&] { return face(x, 0); },
+              [&] { return face(x, g.H - 1); });
+          __stcs(drho + ((long long)x * g.H + y) * g.D + z,
+                 (float)(g.gd * (part[((p - 1) & 1) * kTrTile + i] + ty_)));
+        }
+        if (zin && fin_p) {
+          const double ty_ = transpose_at(
+              p >= 2 ? c1[((p - 1) & 1) * kTrTile + i] : 0.0, 0.0, p, g.H,
+              inv2y, invy, [&] { return face(x, 0); },
+              [&] { return face(x, g.H - 1); });
+          __stcs(drho + ((long long)x * g.H + p) * g.D + z,
+                 (float)(g.gd * (s + ty_)));
+        }
+        c1[(p & 1) * kTrTile + i] = g1;
+        part[(p & 1) * kTrTile + i] = s;
+        g0m = g0c;
+        g0c = g0p;
+        cur = nxt;
+      }
+    }
+    __syncthreads();             // st is free
+    if (p + 2 <= phi)
+      issue(p + 2, st);
+    else
+      copy_commit();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -913,6 +1152,42 @@ extern "C" int photon_gradient_field(const float* n_minus_1, float* out,
   gradient_tile_kernel<<<(unsigned)blocks, kGradThreads, 0,
                          (cudaStream_t)stream>>>(
       n_minus_1, reinterpret_cast<float4*>(out), g);
+  return (int)cudaGetLastError();
+}
+
+// d_field: (D, H, W, 4) float32; d_rho: (W, H, D) float32, distinct
+// arrays; gd: the Gladstone-Dale constant; y_run: the output planes a block
+// computes (native.py, gradient_plan).  Returns cudaGetLastError() after
+// the launch (0 = launched).
+extern "C" int photon_gradient_field_transpose(
+    const float* d_field, float* d_rho, long long W, long long H, long long D,
+    double dx, double dy, double dz, double gd, long long y_run,
+    void* stream) {
+  const long long most = 1LL << 30;
+  if (W < 3 || H < 3 || D < 3 || W > most || H > most || D > most ||
+      y_run < 1 || y_run > H)
+    return (int)cudaErrorInvalidValue;
+  TransposeGeom g;
+  g.W = (int)W;
+  g.H = (int)H;
+  g.D = (int)D;
+  g.tiles_x = (int)((W + kGradTile - 1) / kGradTile);
+  g.tiles_z = (int)((D + kGradTile - 1) / kGradTile);
+  g.y_run = (int)y_run;
+  g.vec = aligned16(d_field);
+  g.dx = dx;
+  g.dy = dy;
+  g.dz = dz;
+  g.gd = gd;
+  const long long blocks =
+      (long long)g.tiles_x * g.tiles_z * ((H + y_run - 1) / y_run);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      (const void*)gradient_transpose_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTrSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  gradient_transpose_kernel<<<(unsigned)blocks, kTrThreads, kTrSmemBytes,
+                              (cudaStream_t)stream>>>(d_field, d_rho, g);
   return (int)cudaGetLastError();
 }
 

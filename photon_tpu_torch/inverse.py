@@ -25,24 +25,51 @@ from photon_tpu_torch.device import DeviceLike, as_f32, resolve_device
 from photon_tpu_torch.models.optics import CameraSetup
 from photon_tpu_torch.models.render_fast import render_image_fast
 from photon_tpu_torch.models.scenes import LightfieldSource
-from photon_tpu_torch.native import grad_axis
+from photon_tpu_torch.native import (grad_axis, gradient_field_transpose,
+                                     launch_gradient_field)
 from photon_tpu_torch.utils.profiling import span
 from photon_tpu_torch.volume import (Z_ORIGIN_SHIFT, DensityVolume,
                                      build_density_volume)
 
 
+class _StencilOnCard(torch.autograd.Function):
+    """rho -> the packed field on the card: K10 on n-1 = gladstone_dale
+    rho forward, K13 (``native.gradient_field_transpose``) backward.  The
+    map is linear, so nothing is saved but its constants."""
+
+    @staticmethod
+    def forward(ctx, rho, spacing, gladstone_dale):
+        ctx.spacing, ctx.gladstone_dale = spacing, gladstone_dale
+        return launch_gradient_field((gladstone_dale * rho).contiguous(),
+                                     spacing)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_field):
+        return gradient_field_transpose(d_field, ctx.spacing,
+                                        ctx.gladstone_dale), None, None
+
+
 def volume_from_rho(rho: torch.Tensor, template: DensityVolume,
                     gladstone_dale: float = 0.225e-3) -> DensityVolume:
-    """Rebuild the packed (grad n, n-1) field from a rho grid, in PyTorch.
+    """Rebuild the packed (grad n, n-1) field from a rho grid,
+    differentiably.
 
     Differentiable twin of :func:`volume.build_density_volume`'s
-    precompute, in float32 through the same stencil (``native.grad_axis``).
-    ``rho`` is a (W, H, D) float32 tensor indexed [x, y, z] like the NRRD
-    layout.  Only ``field`` is replaced: the template's
-    geometry and ``data_min`` stay (``n0 = 1 + data_min`` enters the march).
+    precompute.  ``rho`` is a (W, H, D) float32 tensor indexed [x, y, z]
+    like the NRRD layout.  On a CUDA device the field is K10's (the
+    float64 stencil of ``gladstone_dale * rho``, rounded once: what
+    ``native.gradient_field`` gives) and its backward K13, one launch each
+    (:class:`_StencilOnCard`).  On the CPU it is ``native.grad_axis`` in
+    float32 under autograd, the JAX package's ``volume_from_rho``.  Only
+    ``field`` is replaced: the template's geometry and ``data_min`` stay
+    (``n0 = 1 + data_min`` enters the march).
     """
-    n_minus_1 = gladstone_dale * rho
     sp = [float(s) for s in template.grid_spacing]
+    if rho.device.type != "cpu":
+        return template._replace(
+            field=_StencilOnCard.apply(rho, sp, gladstone_dale))
+    n_minus_1 = gladstone_dale * rho
     packed = torch.stack([grad_axis(n_minus_1, 0, sp[0]),
                           grad_axis(n_minus_1, 1, sp[1]),
                           grad_axis(n_minus_1, 2, sp[2]),

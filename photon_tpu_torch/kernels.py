@@ -87,6 +87,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "volume_prep": {
         "photon_gradient_field": [_vp, _vp, _ll, _ll, _ll, _d, _d, _d, _ll,
                                   _vp],
+        "photon_gradient_field_transpose": [_vp, _vp, _ll, _ll, _ll, _d, _d,
+                                            _d, _d, _ll, _vp],
         "photon_bspline_prefilter": [_vp, _vp] + [_ll] * 4 + [_vp] * 3,
         "photon_bspline_prefilter_bwd": [_vp, _vp] + [_ll] * 4 + [_vp] * 3,
     },

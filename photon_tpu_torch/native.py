@@ -16,6 +16,13 @@ them from here.
   on the grid of :func:`gradient_plan`.  Plain version:
   :func:`gradient_field_plain` (torch float64 over :func:`grad_axis`),
   bit-equal on the CPU.
+* K13 ``photon_gradient_field_transpose``: K10's transpose, the
+  backward of ``inverse.volume_from_rho`` on the card: the (D, H, W, 4)
+  cotangent of the packed field -> the (W, H, D) cotangent of rho, times
+  the Gladstone-Dale constant, in double, rounded once, on K10's grid.
+  Plain version: :func:`gradient_field_transpose_plain` (torch float64 over
+  :func:`grad_axis_transpose`).  No counterpart in the JAX package, whose
+  ``volume_from_rho`` leaves the transpose to XLA's autodiff.
 * K11 ``photon_bspline_prefilter`` (native ``bspline_prefilter_3d``; what
   the JAX fast path runs is ``ops/march_dense.py::bspline_prefilter_jax``):
   cubic B-spline coefficients of a (D, H, W, C) float32 field.  Plain
@@ -26,10 +33,12 @@ them from here.
   :class:`_BSplinePrefilter`.  Plain version: ``torch.autograd`` through
   the plain prefilter.
 
-:func:`gradient_field` and :func:`bspline_prefilter` send a tensor on the
-CPU to the plain version and a tensor on a CUDA device to the kernel; the
-launchers refuse what the kernels do not take before any build, and raise
-if a launch fails.  ``launch_gradient_field.launches``,
+:func:`gradient_field`, :func:`gradient_field_transpose` and
+:func:`bspline_prefilter` send a tensor on the CPU to the plain version and
+a tensor on a CUDA device to the kernel; the launchers refuse what the
+kernels do not take before any build, and raise if a launch fails.
+``launch_gradient_field.launches``,
+``launch_gradient_field_transpose.launches``,
 ``launch_prefilter.launches`` and ``launch_prefilter_bwd.launches`` count
 the launcher calls (a prefilter call launches its kernel three times, one
 an axis).
@@ -202,6 +211,117 @@ def gradient_field(n_minus_1: torch.Tensor, spacing) -> torch.Tensor:
     if n_minus_1.device.type == "cpu":
         return gradient_field_plain(n_minus_1, spacing)
     return launch_gradient_field(n_minus_1.contiguous(), spacing)
+
+
+# ---------------------------------------------------------------------------
+# K13: the gradient precompute's transpose
+# ---------------------------------------------------------------------------
+
+# K13 (csrc/volume_prep.cu, gradient_transpose_kernel) runs on K10's grid
+# (gradient_plan); its tiles read a wider halo than K10's, whose size
+# along x or z (kTrSpan) this is
+GRADIENT_TRANSPOSE_SPAN = GRADIENT_TILE + 3
+
+
+def gradient_transpose_reach(a: int, b: int, n: int) -> tuple:
+    """The first and the last sample that K13's transposed stencils of
+    indices a .. b - 1 along an axis of n >= 3 read (the kernel's
+    treach_lo(a) and treach_hi(b, n)): j - 1 and j + 1 of each, and the
+    faces' samples 0 (j <= 2) and n - 1 (j >= n - 3)."""
+    return (0 if a <= 2 else a - 1), (n - 1 if b >= n - 2 else b)
+
+
+# the one-sided stencils' weights on the samples 0, 1, 2 (the first row)
+# and n - 3, n - 2, n - 1 (the last row), before the division by h
+_FACE_LO = (-1.5, 2.0, -0.5)
+_FACE_HI = (0.5, -2.0, 1.5)
+
+
+def grad_axis_transpose(g: torch.Tensor, axis: int, h: float):
+    """The transpose of :func:`grad_axis` along one axis, in ``g``'s dtype,
+    in K13's order of terms: sample j of n takes (g[j-1] - g[j+1]) times
+    1 / 2h, each term only where its row is central (1 <= j -+ 1 <= n - 2,
+    else 0), then (w_j g[0]) times 1 / h for j <= 2 and (w'_j g[n-1])
+    times 1 / h for j >= n - 3, with the one-sided rows' weights w and w'
+    and the two reciprocals each formed once in Python's double."""
+    n = g.shape[axis]
+    inner = g.narrow(axis, 1, n - 2)
+    pad = torch.zeros_like(g.narrow(axis, 0, 2))
+    t = (torch.cat([pad, inner], dim=axis)
+         - torch.cat([inner, pad], dim=axis)) * (1.0 / (2.0 * h))
+    shape = [1] * g.dim()
+    shape[axis] = 3
+    for first, end, weights in ((0, 0, _FACE_LO), (n - 3, n - 1, _FACE_HI)):
+        w = torch.tensor(weights, dtype=g.dtype, device=g.device).view(shape)
+        t.narrow(axis, first, 3).add_(w * g.narrow(axis, end, 1)
+                                      * (1.0 / h))
+    return t
+
+
+def _transpose_f64(d_field, spacing) -> torch.Tensor:
+    """S^T d_field in float64, (W, H, D): the transpose of the packed map
+    n-1 -> (S_x, S_y, S_z, 1) n-1, summed as K13 sums a voxel:
+    ((x + z) + the value's cotangent) + y."""
+    g = torch.as_tensor(d_field)
+    if g.dim() != 4 or g.shape[3] != 4 or min(g.shape[:3]) < 3:
+        raise ValueError(f"d_field: expected (D, H, W, 4) with D, H, W >= 3, "
+                         f"got {tuple(g.shape)}")
+    g = g.to(torch.float64).permute(2, 1, 0, 3)
+    dx, dy, dz = (float(s) for s in np.asarray(spacing).ravel())
+    return ((grad_axis_transpose(g[..., 0], 0, dx)
+             + grad_axis_transpose(g[..., 2], 2, dz) + g[..., 3])
+            + grad_axis_transpose(g[..., 1], 1, dy))
+
+
+def gradient_field_transpose_plain(d_field, spacing,
+                                   gladstone_dale: float) -> torch.Tensor:
+    """The plain version of K13: (D, H, W, 4) cotangent of the packed field
+    -> (W, H, D) float32 cotangent of rho, ``gladstone_dale`` S^T d_field
+    (:func:`_transpose_f64`) formed in float64 and rounded once; on the
+    device of ``d_field``."""
+    return (gladstone_dale * _transpose_f64(d_field, spacing)).to(
+        torch.float32).contiguous()
+
+
+def launch_gradient_field_transpose(d_field: torch.Tensor, spacing,
+                                    gladstone_dale: float) -> torch.Tensor:
+    """Launch K13: the (D, H, W, 4) float32 cotangent of the packed field on
+    a CUDA device -> the (W, H, D) float32 cotangent of rho, on K10's grid
+    (:func:`gradient_plan`)."""
+    kernels.check_kernel_input("d_field", d_field, None, torch.float32)
+    if d_field.dim() != 4 or d_field.shape[3] != 4 or \
+            min(d_field.shape[:3]) < 3:
+        raise ValueError(f"d_field: expected (D, H, W, 4) with D, H, W >= 3, "
+                         f"got {tuple(d_field.shape)}")
+    dx, dy, dz = (float(s) for s in np.asarray(spacing).ravel())
+    d, h, w = (int(n) for n in d_field.shape[:3])
+    out = torch.empty((w, h, d), dtype=torch.float32, device=d_field.device)
+    plan = gradient_plan(w, h, d)
+    lib = kernels.load("volume_prep")
+    with torch.cuda.device(d_field.device):
+        code = lib.photon_gradient_field_transpose(
+            d_field.data_ptr(), out.data_ptr(), w, h, d, dx, dy, dz,
+            float(gladstone_dale), plan.y_run,
+            kernels.current_stream(d_field.device))
+    kernels.check_launch(code, "photon_gradient_field_transpose")
+    launch_gradient_field_transpose.launches += 1
+    return out
+
+
+launch_gradient_field_transpose.launches = 0
+
+
+def gradient_field_transpose(d_field: torch.Tensor, spacing,
+                             gladstone_dale: float) -> torch.Tensor:
+    """``gladstone_dale`` times the transpose of :func:`gradient_field` on
+    a (D, H, W, 4) float32 cotangent -> (W, H, D) float32, on the same
+    device: :func:`gradient_field_transpose_plain` on the CPU, K13 on a
+    CUDA device."""
+    if d_field.device.type == "cpu":
+        return gradient_field_transpose_plain(d_field, spacing,
+                                              gladstone_dale)
+    return launch_gradient_field_transpose(d_field.contiguous(), spacing,
+                                           gladstone_dale)
 
 
 # ---------------------------------------------------------------------------

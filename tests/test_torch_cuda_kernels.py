@@ -18,7 +18,9 @@ a K = 40 patch on a small frame; the gradient precompute (K10) against
 the plain stencil bit for bit, the prefilter (K11) against the plain
 prefilter and its transpose (K12) against autograd through it, bit for bit,
 on both of their routes (tiles, and one thread a line) and on ragged and
-misaligned fields; the exact path's cubic weights and its RK4 march under
+misaligned fields; K10's transpose (K13) against its plain version bit for
+bit, and volume_from_rho and invert_bos on the card through K10 and K13;
+the exact path's cubic weights and its RK4 march under
 both schemes against the CPU, bit for bit.
 
 Each test skips without a CUDA device.  This file imports no jax, so it runs
@@ -31,6 +33,8 @@ import pytest
 import torch
 
 from photon_tpu_torch import native
+from photon_tpu_torch.inverse import invert_bos, volume_from_rho
+from photon_tpu_torch.models.render_fast import render_image_fast
 from photon_tpu_torch.ops import interp
 from photon_tpu_torch.ops import march as exact_march
 from photon_tpu_torch.ops.fan import fan_stats, fan_stats_plain
@@ -47,7 +51,7 @@ from photon_tpu_torch.ops.march_dense_sampler import (slab_sample_backward,
 from photon_tpu_torch.ops.splat import (splat_backward, splat_particles,
                                         splat_particles_plain)
 from photon_tpu_torch.volume import build_density_volume
-from torch_port_helpers import fan_inputs
+from torch_port_helpers import fan_inputs, small_bos_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -456,6 +460,116 @@ def test_gradient_field_kernel_takes_an_input_off_16_bytes():
     torch.cuda.synchronize(dev)
     assert torch.equal(got.cpu(), native.gradient_field_plain(
         nm1, (100.0, 110.0, 120.0)))
+
+
+SPACING = (100.0, 110.0, 120.0)
+GD = 0.225e-3
+
+
+def _transpose_input(rng, shape):
+    """A float32 (D, H, W, 4) cotangent of the packed field of a (W, H, D)
+    grid."""
+    w, h, d = shape
+    return torch.from_numpy(rng.normal(size=(d, h, w, 4)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", native.GRADIENT_EDGE_SHAPES)
+def test_gradient_transpose_kernel_is_the_plain_version_bit_for_bit(shape):
+    """K13 against its plain float64 version on the CPU: every value equal
+    (both widen float32 to double, sum a voxel's terms in one order and
+    round once; the library is built without contraction), on the shapes
+    that reach every edge of the tiles and y runs it shares with K10."""
+    dev = _card()
+    ct = _transpose_input(np.random.default_rng(sum(shape)), shape)
+    got = native.gradient_field_transpose(ct.to(dev), SPACING, GD)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got.cpu(), native.gradient_field_transpose_plain(
+        ct, SPACING, GD))
+
+
+def test_gradient_transpose_kernel_takes_an_input_off_16_bytes():
+    """A cotangent whose first sample lies 4 bytes past a 16-byte boundary:
+    K13 copies it a float at a time, bit for bit."""
+    dev = _card()
+    shape = (33, 6, 68)
+    ct = _transpose_input(np.random.default_rng(8), shape)
+    flat = torch.zeros(1 + ct.numel(), device=dev)
+    flat[1:] = ct.reshape(-1).to(dev)
+    shifted = flat[1:].view(ct.shape)
+    assert shifted.data_ptr() % 16 == 4
+    got = native.launch_gradient_field_transpose(shifted, SPACING, GD)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got.cpu(), native.gradient_field_transpose_plain(
+        ct, SPACING, GD))
+
+
+_BAD_TRANSPOSE = {
+    "float64": lambda ct: ct.double(),
+    "strided": lambda ct: ct.transpose(0, 2),
+    "three axes": lambda ct: ct[..., 0],
+    "three channels": lambda ct: ct[..., :3].contiguous(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_TRANSPOSE))
+def test_gradient_transpose_launcher_refuses_what_the_kernel_does_not_take(
+        case):
+    """A wrong dtype, layout or rank on the card raises before a launch."""
+    dev = _card()
+    bad = _BAD_TRANSPOSE[case](torch.zeros(6, 5, 4, 4, device=dev))
+    before = native.launch_gradient_field_transpose.launches
+    with pytest.raises((TypeError, ValueError)):
+        native.launch_gradient_field_transpose(bad, SPACING, GD)
+    assert native.launch_gradient_field_transpose.launches == before
+
+
+def test_volume_from_rho_on_the_card_is_k10_forward_and_k13_backward():
+    """On the card volume_from_rho's field is native.gradient_field of
+    gladstone_dale * rho bit for bit (K10, one launch), and its rho
+    gradient (K13, one launch) matches autograd through the float32
+    grad_axis on the CPU within 1e-6 of the largest component (the bound
+    of tests/test_torch_inverse.py::test_volume_from_rho_gradient_matches_jax)."""
+    dev = _card()
+    shape = (33, 6, 68)
+    rng = np.random.default_rng(12)
+    rho = torch.from_numpy((1.2 + 0.8 * rng.random(shape)).astype(np.float32))
+    template = build_density_volume(rho.numpy(), SPACING, (0, 0, 0),
+                                    device=dev)
+    k10, k13 = (native.launch_gradient_field.launches,
+                native.launch_gradient_field_transpose.launches)
+    r = rho.to(dev).requires_grad_(True)
+    field = volume_from_rho(r, template, GD).field
+    w = torch.from_numpy(rng.normal(size=field.shape).astype(np.float32))
+    (g,) = torch.autograd.grad(field, r, w.to(dev))
+    torch.cuda.synchronize(dev)
+    assert native.launch_gradient_field.launches == k10 + 1
+    assert native.launch_gradient_field_transpose.launches == k13 + 1
+    assert torch.equal(field, native.gradient_field(
+        GD * rho.to(dev), template.grid_spacing))
+    rc = rho.clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad(
+        volume_from_rho(rc, template._replace(field=template.field.cpu()),
+                        GD).field, rc, w)
+    assert float((g.cpu() - ref).abs().max()) <= 1e-6 * float(
+        ref.abs().max())
+
+
+def test_invert_bos_launches_k10_and_k13_once_a_step():
+    """invert_bos on a small grid on the card: K10 once a step (and once
+    for the result volume), K13 once a step, by their counters."""
+    dev = _card()
+    cfg, setup, source, r1, r2, rho, vol = small_bos_scene(device=dev)
+    r1, r2 = r1.numpy(), r2.numpy()
+    target = render_image_fast(cfg, setup, source, r1, r2, vol=vol,
+                               device=dev)
+    k10, k13 = (native.launch_gradient_field.launches,
+                native.launch_gradient_field_transpose.launches)
+    res = invert_bos(cfg, setup, source, r1, r2, target, vol,
+                     rho0=0.9 * rho, steps=3, learning_rate=1e-3, device=dev)
+    torch.cuda.synchronize(dev)
+    assert native.launch_gradient_field.launches == k10 + 3 + 1
+    assert native.launch_gradient_field_transpose.launches == k13 + 3
+    assert len(res.losses) == 3 and np.isfinite(res.losses).all()
 
 
 # (D, H, W, C): the bench's channels; ragged tiles (no axis a multiple of a

@@ -581,6 +581,14 @@ def _bad_calls():
         f, SPACINGS)
     out["K10: strided"] = lambda: native.launch_gradient_field(
         g.transpose(0, 2), SPACINGS)
+    ct = torch.zeros(4, 5, 6, 4)
+    for name, bad in (("float64", ct.double()), ("three axes", ct[..., 0]),
+                      ("three channels", ct[..., :3].contiguous()),
+                      ("an axis of 2", ct[:2].contiguous()),
+                      ("strided", ct.transpose(0, 2))):
+        out[f"K13: {name}"] = (
+            lambda b=bad: native.launch_gradient_field_transpose(
+                b, SPACINGS, 0.225e-3))
     return out
 
 

@@ -11,12 +11,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from photon_tpu_torch.config import default_config
 from photon_tpu_torch.inverse import invert_bos
-from photon_tpu_torch.models.optics import camera_setup
 from photon_tpu_torch.models.render_fast import render_image_fast
-from photon_tpu_torch.models.scenes import bos_source
 from photon_tpu_torch.pipeline import run_piv
 from photon_tpu_torch.utils.profiling import PhaseTimer, span
-from photon_tpu_torch.volume import build_density_volume
+from tests.torch_port_helpers import small_bos_scene
 
 PREFIXES = ("pipeline.", "invert.", "volume.", "render.")
 
@@ -94,36 +92,9 @@ def test_span_under_a_profiler_is_a_range_nested_where_it_opens():
     assert len(_inside(spans, spans[0], "render.chunk")) == 2
 
 
-def _bos_scene(n_dots=4, rays=8, sensor=64, n=8):
-    cfg = default_config("bos")
-    cfg.camera_design.x_pixel_number = sensor
-    cfg.camera_design.y_pixel_number = sensor
-    bp = cfg.bos_pattern
-    bp.grid_point_number = n_dots
-    bp.particle_number_per_grid_point = 6
-    bp.lightray_number_per_particle = rays
-    m = cfg.lens_design.focal_length / (cfg.lens_design.object_distance
-                                        - cfg.lens_design.focal_length)
-    half = 0.7 * sensor * cfg.camera_design.pixel_pitch / 2.0 / m
-    bp.X_Min, bp.X_Max, bp.Y_Min, bp.Y_Max = -half, half, -half, half
-    setup = camera_setup(cfg)
-    source, _, _ = bos_source(cfg, setup, np.random.default_rng(4))
-    gen = torch.Generator().manual_seed(9)
-    r1 = torch.rand(rays, generator=gen)
-    r2 = torch.rand(rays, generator=gen)
-    x = np.linspace(-2e5, 2e5, n)
-    z = np.linspace(setup.object_distance * 0.4,
-                    setup.object_distance * 0.9, n)
-    rho = (1.225 + 4.0 * (x[:, None, None] - x.min()) / np.ptp(x)
-           * np.ones((1, n, n))).astype(np.float32)
-    geometry = ([x[1] - x[0], x[1] - x[0], z[1] - z[0]], [x[0], x[0], z[0]])
-    vol = build_density_volume(rho, *geometry, device="cpu")
-    return cfg, setup, source, r1, r2, rho, vol
-
-
 @pytest.fixture(scope="module")
 def scene():
-    return _bos_scene()
+    return small_bos_scene()
 
 
 def test_invert_bos_spans_one_step_a_step(scene):
