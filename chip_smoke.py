@@ -2943,7 +2943,8 @@ def main(argv=None) -> int:
             expect_counts(label, counts5, dict(
                 fan_stats=1, splat=1, march_bwd_stage=0, march_bwd_remarch=0,
                 march_stagewise_bwd=0, slab_sample_bwd=0, prefilter_bwd=0,
-                prefilter=int(kw.get("interpolation_scheme", 1) == 2),
+                prefilter=native.PREFILTER_AXES * int(
+                    kw.get("interpolation_scheme", 1) == 2),
                 **want))
             expect_counts(label + " (large tier)", large5, want)
             require(bool(torch.isfinite(img5).all()) and l1_5 < 1e-3,
@@ -3204,8 +3205,9 @@ def main(argv=None) -> int:
               f"stage against re-march backward cosine {cos_c:.7f}  [{card}]")
         expect_counts("tricubic step", large_c, dict(
             march=1, march_bwd_stage=1, march_bwd_remarch=0))
-        expect_counts("tricubic step", counts_c, dict(prefilter=1,
-                                                      prefilter_bwd=1))
+        expect_counts("tricubic step", counts_c,
+                      dict(prefilter=native.PREFILTER_AXES,
+                           prefilter_bwd=native.PREFILTER_AXES))
         require(cos_c >= 0.9999 and bool(torch.isfinite(res_c[1]).all()),
                 f"tricubic d_field: cosine {cos_c} between the two backwards")
         del res_c, g_c5
@@ -4275,10 +4277,11 @@ def main(argv=None) -> int:
                                     particles_per_chunk=chunk, device=dev)
         print(f"    (b) exact tricubic RK4 im2 of every tenth particle "
               f"({sub_b.num_particles}): launches {counts_b}")
-        require(counts_b == {k: int(k == "prefilter") for k in counts_b}
+        require(counts_b == {k: native.PREFILTER_AXES * int(k == "prefilter")
+                             for k in counts_b}
                 and len(counts_b) > 1,
                 f"(b) the exact tricubic render launched {counts_b}, not "
-                f"K11 once")
+                f"K11 once (a launch an axis)")
         d = rel_l1(f2c.cpu().numpy(), e2c.cpu().numpy())
         rays_b = sub_b.num_particles * R
         print(f"    (b) exact tricubic im2: {s_e2c:.3f} s, "
@@ -4924,7 +4927,8 @@ def main(argv=None) -> int:
             print(f"    the tricubic RK4 pair through cli.main: launches "
                   f"{pair_counts}")
             expect_counts("the tricubic pair", pair_counts,
-                          dict(gradient_field=1, prefilter=1,
+                          dict(gradient_field=1,
+                               prefilter=native.PREFILTER_AXES,
                                prefilter_bwd=0))
             with torch.no_grad():
                 plain_c = plain_render(vol_c, slice(0, P), 2,
@@ -4951,7 +4955,8 @@ def main(argv=None) -> int:
                   f"{step_counts}")
             expect_counts("a tricubic gradient step", step_counts,
                           dict(gradient_field=1, gradient_field_transpose=1,
-                               prefilter=1, prefilter_bwd=1))
+                               prefilter=native.PREFILTER_AXES,
+                               prefilter_bwd=native.PREFILTER_AXES))
             require(bool(torch.isfinite(g_rho).all())
                     and float(g_rho.abs().max()) > 0,
                     "the tricubic step's d_rho is zero or not finite")
@@ -6693,7 +6698,7 @@ def main(argv=None) -> int:
             # through the cubic march kernel, each after its prefilter (K11);
             # no per-stage sampling
             expect_m = dict(march_dense=3, march_stagewise=0, slab_sample=0,
-                            prefilter=3, **pair_rest)
+                            prefilter=3 * native.PREFILTER_AXES, **pair_rest)
             substeps_m = chosen[0]
         else:
             # the whole march in one launch of the stagewise kernel
@@ -6867,14 +6872,16 @@ def main(argv=None) -> int:
     counts_c, held_c = grad_route(
         "tricubic RK4, stage residual",
         dict(march_dense=1, march_bwd_stage=1, march_bwd_remarch=0,
-             slab_sample=0, slab_sample_bwd=0, prefilter=1, prefilter_bwd=1),
+             slab_sample=0, slab_sample_bwd=0, prefilter=native.PREFILTER_AXES,
+             prefilter_bwd=native.PREFILTER_AXES),
         dict(algorithm=2, scheme=2),
         step_fn=one_render_step(interpolation_scheme=2),
         interpolation_scheme=2)
     counts_c5, _ = with_budget(0, lambda: grad_route(
         "tricubic RK4, re-march backward",
         dict(march_dense=1, march_bwd_stage=0, march_bwd_remarch=1,
-             slab_sample=0, slab_sample_bwd=0, prefilter=1, prefilter_bwd=1),
+             slab_sample=0, slab_sample_bwd=0, prefilter=native.PREFILTER_AXES,
+             prefilter_bwd=native.PREFILTER_AXES),
         dict(algorithm=2, scheme=2),
         step_fn=one_render_step(interpolation_scheme=2),
         interpolation_scheme=2))

@@ -29,7 +29,9 @@
 // TPU kernel sums a slab pair's cotangent in fast memory, the lanes of a warp
 // that sample the same voxels sum theirs in registers first and issue one
 // atomic a voxel (march_common.cuh, scatter8): the rays of a warp are
-// neighbours of one dot in the caller's order and mostly share their lower
+// neighbours of one dot in the caller's order (under scheme 2 the caller
+// sorts each block's rays by where they cross the volume,
+// march_dense_fused.block_ray_order) and mostly share their lower
 // corner.  So the slab loop is uniform across a warp, and no lane leaves
 // before the last slab.  No ray blocks, no chunking of the rays, no
 // re-blocking, no packed slab pairs.

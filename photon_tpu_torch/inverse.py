@@ -101,8 +101,14 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
       template: DensityVolume carrying the grid geometry; its field is
         ignored, ``rho0`` (default: uniform rho_0) seeds the solve.
       smoothness: Tikhonov weight on the 3-D Laplacian of rho.
+      algorithm: the march's integrator (``ray_tracing_algorithm``).
       callback: called as ``callback(step, loss, rho)`` with rho a tensor.
       device: None is the CUDA device (raises without one).
+
+    The march samples under ``cfg.density_gradients.interpolation_scheme``,
+    as ``run_bos`` renders the images the solve inverts: 1 trilinear, 2 the
+    cubic B-spline (the field prefiltered into coefficients inside the
+    march, K11 forward and K12 backward on the card).
 
     Returns rho on the template grid plus the loss history.
 
@@ -110,7 +116,10 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
     ``invert.volume_from_rho``, ``invert.render`` (the render and the
     loss), ``invert.backward``, ``invert.adam``, ``invert.loss_read`` (the
     loss's wait on the device) and ``invert.callback``; after the steps
-    ``invert.result_volume`` and ``invert.rho_to_host``.
+    ``invert.result_volume`` and ``invert.rho_to_host``.  Under the cubic
+    scheme on the card the render holds ``native``'s
+    ``prefilter.coefficients`` (K11) and the backward its
+    ``prefilter.transpose`` (K12).
     """
     dev = resolve_device(device)
     w, h, d = template.sizes
@@ -119,13 +128,16 @@ def invert_bos(cfg: SimulationConfig, setup: CameraSetup,
                        dtype=np.float32)
     target = as_f32(observed_image, dev)
     gd = cfg.density_gradients.gladstone_dale
+    scheme = int(cfg.density_gradients.interpolation_scheme)
 
     def loss_fn(rho):
         with span("invert.volume_from_rho"):
             vol = volume_from_rho(rho, template, gd)
         with span("invert.render"):
             img = render_image_fast(cfg, setup, source, r1, r2, vol=vol,
-                                    algorithm=algorithm, device=dev)
+                                    algorithm=algorithm,
+                                    interpolation_scheme=scheme,
+                                    device=dev)
             data = torch.mean((img - target) ** 2)
             if smoothness > 0.0:
                 lap = (torch.diff(rho, 2, dim=0)[:, 1:-1, 1:-1] ** 2

@@ -7,8 +7,8 @@ before the arrays go to the TPU; here each numerical one is a plain PyTorch
 version, which a tensor on the CPU gets, and a CUDA kernel of
 ``csrc/volume_prep.cu``, which a tensor on a CUDA device gets (no TPU
 kernel stands behind them).  Both live in this module, which imports no
-other of the port but ``kernels``; ``volume`` and ``ops/march_dense`` take
-them from here.
+other of the port but ``kernels`` and ``utils.profiling``; ``volume`` and
+``ops/march_dense`` take them from here.
 
 * K10 ``photon_gradient_field`` (native ``gradient_field``): the packed
   (dn/dx, dn/dy, dn/dz, n-1) field, (D, H, W, 4), from float32 n-1 in the
@@ -37,11 +37,15 @@ them from here.
 :func:`bspline_prefilter` send a tensor on the CPU to the plain version and
 a tensor on a CUDA device to the kernel; the launchers refuse what the
 kernels do not take before any build, and raise if a launch fails.
-``launch_gradient_field.launches``,
-``launch_gradient_field_transpose.launches``,
-``launch_prefilter.launches`` and ``launch_prefilter_bwd.launches`` count
-the launcher calls (a prefilter call launches its kernel three times, one
-an axis).
+``launch_gradient_field.launches`` and
+``launch_gradient_field_transpose.launches`` count the launcher calls, one
+kernel launch each; ``launch_prefilter.launches`` and
+``launch_prefilter_bwd.launches`` count kernel launches, three a call (one
+an axis), so that a trace's launches of K11 and K12 can be held to them.
+On the card K11 runs inside the span ``prefilter.coefficients`` and K12
+inside ``prefilter.transpose`` (``utils.profiling.span``: a
+``torch.profiler`` range while a profiler runs, one boolean test
+otherwise).
 
 Not carried over from the JAX package: ``available()``, ``build()`` and
 their contract that a missing library returns None so that the caller falls
@@ -61,6 +65,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import kernels
+from photon_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # K10: the gradient precompute
@@ -505,6 +510,11 @@ def _check_field(name: str, t) -> None:
                          f"got {tuple(t.shape)}")
 
 
+# kernel launches a prefilter call makes: one an axis (none where the field
+# has no channels)
+PREFILTER_AXES = 3
+
+
 def _launch_prefilter(fn: str, t: torch.Tensor, plans=None) -> torch.Tensor:
     """Run ``fn`` (``photon_bspline_prefilter`` or ``_bwd``) on ``t`` along
     the shape's :func:`prefilter_plan`, or along ``plans`` (three
@@ -530,7 +540,7 @@ def launch_prefilter(field: torch.Tensor) -> torch.Tensor:
     (D, H, W, C) float32 field on a CUDA device."""
     _check_field("field", field)
     out = _launch_prefilter("photon_bspline_prefilter", field)
-    launch_prefilter.launches += 1
+    launch_prefilter.launches += PREFILTER_AXES if field.shape[3] else 0
     return out
 
 
@@ -539,7 +549,7 @@ def launch_prefilter_bwd(ct: torch.Tensor) -> torch.Tensor:
     the coefficients' cotangent ``ct``."""
     _check_field("ct", ct)
     out = _launch_prefilter("photon_bspline_prefilter_bwd", ct)
-    launch_prefilter_bwd.launches += 1
+    launch_prefilter_bwd.launches += PREFILTER_AXES if ct.shape[3] else 0
     return out
 
 
@@ -557,7 +567,8 @@ class _BSplinePrefilter(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct):
-        return launch_prefilter_bwd(ct.contiguous())
+        with span("prefilter.transpose"):
+            return launch_prefilter_bwd(ct.contiguous())
 
 
 def bspline_prefilter(field: torch.Tensor) -> torch.Tensor:
@@ -566,7 +577,8 @@ def bspline_prefilter(field: torch.Tensor) -> torch.Tensor:
     CPU, K11 (backward K12) on a CUDA device."""
     if field.device.type == "cpu":
         return bspline_prefilter_plain(field)
-    return _BSplinePrefilter.apply(field.contiguous())
+    with span("prefilter.coefficients"):
+        return _BSplinePrefilter.apply(field.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -64,6 +64,17 @@ stagewise backward while the residual fits :func:`traj_max_bytes`, and past
 it ``march_dense.march_chief_per_stage``: the plain march's loop in PyTorch
 with every integrator stage sampled by the sampler kernels.
 
+Ray order under the cubic scheme: Euler and RK4 under autograd march the rays
+in :func:`block_ray_order`, each run of ``ORDER_BLOCK`` rays of the caller's
+order sorted by where it crosses the volume's middle plane, and hand the
+outputs and the rays' cotangents back in the caller's order.  The stage
+backward merges each stage's 32 taps across a warp as they come, so its time
+follows how many footprints a warp's rays span: in a BOS dot's sunflower
+order a warp takes whole rings of the dot, and how far those spread over the
+voxel faces varies with the pattern.  Every ray's arithmetic is its own, so
+the outputs and the rays' cotangents are the same bits in either order; only
+the field's cotangent adds its float atomics in another order.
+
 Plain version: ``march_dense.march_chief_dense`` (re-exported here as
 ``march_chief_plain``) and ``torch.autograd`` through it.
 ``march_chief_fused.launches``, ``march_backward_stage.launches``,
@@ -376,27 +387,67 @@ march_backward_stagewise.launches = 0
 march_backward_stagewise.launches_large = 0
 
 
+# rays a block of the march kernels (csrc/march_bwd.cu, kThreads)
+ORDER_BLOCK = 128
+
+
+def _morton16(v):
+    """The low 16 bits of each int64 of ``v`` spread to the even bits."""
+    v = v & 0xFFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def block_ray_order(rays, g):
+    """A permutation of the (6, P) chief rays: each run of ``ORDER_BLOCK``
+    rays of the caller's order sorted by the Morton code of the 1/8-voxel
+    cell where the ray's straight line crosses the volume's middle plane,
+    the runs kept in the caller's order.  A warp then holds neighbouring rays, while the
+    blocks that run at one time stay as spread over the field as the
+    caller's order left them (sorting all rays at once puts neighbouring
+    warps on one footprint, and their atomics meet)."""
+    x0, y0, z0, cx, cy, cz = rays.unbind(0)
+    t = (0.5 * (float(g.z_min) + float(g.z_max)) - z0) / cz
+    code = torch.zeros_like(x0, dtype=torch.int64)
+    for bit, (p0, c, lo, step) in enumerate(((x0, cx, g.min_x, g.sx),
+                                             (y0, cy, g.min_y, g.sy))):
+        u = torch.nan_to_num((p0 + c * t - float(lo)) / float(step),
+                             nan=0.0, posinf=0.0, neginf=0.0)
+        cell = ((u + 4.0) * 8.0).clamp(0.0, 65535.0).long()
+        code |= _morton16(cell) << bit
+    run = torch.arange(x0.shape[0], device=x0.device) // ORDER_BLOCK
+    return torch.argsort((run << 32) | code, stable=True)
+
+
 class _March(torch.autograd.Function):
     """The march on the card with its backward kernels: field (B-spline
-    coefficients for scheme 2) and (6, P) chief rays -> (6, P) outputs."""
+    coefficients for scheme 2) and (6, P) chief rays -> (6, P) outputs.
+    ``order`` (a permutation of the rays, or None): the kernels march the
+    rays in that order; outputs and cotangents stay in the caller's."""
 
     @staticmethod
     def forward(ctx, field, rays, geom, algorithm, scheme, save_residual,
-                defect_iters):
+                defect_iters, order):
+        if order is not None:
+            rays = rays[:, order].contiguous()
         out, texit, traj = march_forward_residual(
             field, rays, geom, algorithm, save_residual, scheme)
         ctx.geom, ctx.algorithm, ctx.scheme, ctx.defect_iters = (
             geom, algorithm, scheme, defect_iters)
         ctx.has_traj = traj is not None
+        ctx.order = order
         ctx.save_for_backward(field, rays, texit,
                               out if traj is None else traj)
-        return out
+        return out if order is None else _unorder(out, order)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct):
         field, rays, texit, res = ctx.saved_tensors
-        ct = ct.contiguous()
+        order = ctx.order
+        ct = (ct if order is None else ct[:, order]).contiguous()
         if ctx.has_traj:
             d_field, d_rays = march_backward_stage(
                 field, rays, texit, res, ct, ctx.geom, ctx.algorithm,
@@ -405,7 +456,16 @@ class _March(torch.autograd.Function):
             d_field, d_rays = march_backward_remarch(
                 field, rays, texit, res, ct, ctx.geom, ctx.algorithm,
                 ctx.defect_iters, ctx.scheme)
-        return d_field, d_rays, None, None, None, None, None
+        if order is not None:
+            d_rays = _unorder(d_rays, order)
+        return d_field, d_rays, None, None, None, None, None, None
+
+
+def _unorder(x, order):
+    """(6, P) rows in ``order`` -> the same rows in the caller's order."""
+    out = torch.empty_like(x)
+    out[:, order] = x
+    return out
 
 
 class _MarchStagewise(torch.autograd.Function):
@@ -502,8 +562,12 @@ def march_chief_fused(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     # the re-march backward is taken only after a look at its conditioning
     defect_iters = 0 if save_residual else defect_iterations(
         g, remarch_contraction(field, g))
-    out = _March.apply(field, torch.stack(rays), geom, int(algorithm),
-                       int(interpolation_scheme), save_residual, defect_iters)
+    stacked = torch.stack(rays)
+    order = (block_ray_order(stacked.detach(), g)
+             if interpolation_scheme == 2 else None)
+    out = _March.apply(field, stacked, geom, int(algorithm),
+                       int(interpolation_scheme), save_residual, defect_iters,
+                       order)
     return tuple(out.unbind(0))
 
 

@@ -7,7 +7,9 @@ against the plain march and autograd through it, both schemes, one slab over
 the fan statistics (K2) against the plain fan, three lens models; the
 march's stage and re-march backward (K4, K5) against autograd through the
 plain march, both schemes, rays in bunches that share voxels (the merged
-scatter) and scattered rays (the direct one); the fan's backward (K6)
+scatter) and scattered rays (the direct one), and the cubic gradient route
+in its block order against the same kernels in the caller's order; the
+fan's backward (K6)
 against autograd through the plain fan, three lens models; the sampler's
 backward (K9), which shares K4's scatter; the splat (K3) against the plain
 splat and its transpose (K7) against autograd through it, on spots in runs
@@ -268,6 +270,44 @@ def test_march_backward_kernels_match_autograd(algorithm, scheme,
         assert _nerr(d_f, ref_f) <= 5e-4
         assert max(_nerr(a[f], b[f]) for a, b, f in zip(d_r, ref_r, fin)
                    if bool(f.any())) <= 1e-3
+
+
+@pytest.mark.parametrize("budget", ["stage", "remarch"])
+def test_cubic_gradient_march_in_block_order_keeps_each_rays_bits(
+        budget, monkeypatch):
+    """The cubic scheme's gradient route marches the rays in
+    ``block_ray_order``: its outputs and the rays' cotangents are those of
+    the same kernels in the caller's order bit for bit, and the field's
+    cotangent differs by the order of its float atomics alone, under K4
+    and under K5 (budget 0): within 1e-5 of its maximum (K4 read 1.15e-6
+    on an H100; two runs in one order differ by ~5e-7, and a cotangent
+    taken in the wrong order moves it by its own size)."""
+    dev = _card()
+    from photon_tpu_torch.ops import march_dense_fused as mdf
+    if budget == "remarch":
+        monkeypatch.setattr(mdf, "TRAJ_MAX_BYTES", 0)
+    vol, rays, cts = _march_scene(dev)
+    g = march_geometry(vol)
+    geom = np.asarray(g, dtype=np.float32)
+    coef = bspline_prefilter(vol.field)
+    stacked = torch.stack(rays)
+    order = mdf.block_ray_order(stacked, g)
+    assert not torch.equal(order, torch.arange(order.shape[0], device=dev))
+    save = budget == "stage"
+    iters = 0 if save else mdf.defect_iterations(
+        g, mdf.remarch_contraction(coef, g))
+    got = []
+    for o in (order, None):
+        fld = coef.detach().clone().requires_grad_(True)
+        rr = stacked.detach().clone().requires_grad_(True)
+        out = mdf._March.apply(fld, rr, geom, 2, 2, save, iters, o)
+        d_f, d_r = torch.autograd.grad(out, [fld, rr],
+                                       grad_outputs=torch.stack(cts))
+        got.append((out, d_f, d_r))
+    (out_a, df_a, dr_a), (out_b, df_b, dr_b) = got
+    assert torch.equal(out_a, out_b)
+    assert torch.equal(dr_a, dr_b)
+    assert _nerr(df_a, df_b) <= 1e-5
 
 
 @pytest.mark.parametrize("lens_model", ["general", "thin-lens", "apparent"])
@@ -662,6 +702,48 @@ def test_prefilter_kernels_take_a_misaligned_field():
     buf[1:] = ct.reshape(-1)
     assert torch.equal(native.launch_prefilter_bwd(g),
                        native.launch_prefilter_bwd(ct))
+
+
+def test_prefilter_counters_count_kernel_launches():
+    """One call of K11 raises ``launch_prefilter.launches`` by three and one
+    of K12 ``launch_prefilter_bwd.launches`` by three: a launch an axis, so
+    that a trace's launches can be held to the counters."""
+    dev = _card()
+    f, ct = _prefilter_case(dev, (16, 18, 20, 4))
+    leaf = f.clone().requires_grad_(True)
+    k11, k12 = (native.launch_prefilter.launches,
+                native.launch_prefilter_bwd.launches)
+    out = bspline_prefilter(leaf)
+    assert native.launch_prefilter.launches == k11 + 3
+    assert native.launch_prefilter_bwd.launches == k12
+    torch.autograd.grad(out, leaf, ct)
+    torch.cuda.synchronize(dev)
+    assert native.launch_prefilter.launches == k11 + 3
+    assert native.launch_prefilter_bwd.launches == k12 + 3
+
+
+def test_invert_bos_takes_the_configs_cubic_scheme():
+    """invert_bos with a config that asks for the cubic scheme runs K11
+    and K12 once a step each (three launches a call), and none under the
+    trilinear one."""
+    import dataclasses
+    dev = _card()
+    cfg, setup, source, r1, r2, rho, vol = small_bos_scene(device=dev)
+    r1, r2 = r1.numpy(), r2.numpy()
+    cubic = dataclasses.replace(cfg, density_gradients=dataclasses.replace(
+        cfg.density_gradients, interpolation_scheme=2))
+    target = render_image_fast(cfg, setup, source, r1, r2, vol=vol,
+                               interpolation_scheme=2, device=dev)
+    for c, per_step in ((cubic, 3), (cfg, 0)):
+        k11, k12 = (native.launch_prefilter.launches,
+                    native.launch_prefilter_bwd.launches)
+        res = invert_bos(c, setup, source, r1, r2, target, vol,
+                         rho0=0.9 * rho, steps=2, learning_rate=1e-3,
+                         device=dev)
+        torch.cuda.synchronize(dev)
+        assert native.launch_prefilter.launches == k11 + 2 * per_step
+        assert native.launch_prefilter_bwd.launches == k12 + 2 * per_step
+        assert len(res.losses) == 2 and np.isfinite(res.losses).all()
 
 
 def test_cubic_weights_on_the_card_are_the_cpus():

@@ -484,12 +484,23 @@ def test_k10_planes_are_in_the_ring_when_a_y_plane_is_computed(shape):
 def test_one_copy_of_each_function_lives_in_native(user, name):
     """volume and ops/march_dense take the stencil and the prefilter from
     native (one object, which dispatches on the device), and native imports
-    no module of the port but kernels, so that none imports it back."""
+    no module of the port but kernels and the span of utils.profiling, which
+    import none, so that none imports it back."""
     assert getattr(user, name) is getattr(native, name)
-    with open(native.__file__) as f:
-        ported = set(re.findall(r"^\s*(?:from|import) (photon_tpu_torch\S*)",
-                                f.read(), re.M))
-    assert ported == {"photon_tpu_torch"}
+
+    def ported(module):
+        with open(module.__file__) as f:
+            return set(re.findall(
+                r"^\s*(?:from|import) (photon_tpu_torch\S*)", f.read(), re.M))
+
+    from photon_tpu_torch import utils
+    from photon_tpu_torch.utils import profiling
+    assert ported(native) == {"photon_tpu_torch",
+                              "photon_tpu_torch.utils.profiling"}
+    assert ported(kernels) == ported(profiling) == set()
+    assert ported(utils) <= {"photon_tpu_torch.utils.nrrd_io",
+                             "photon_tpu_torch.utils.tiff_io",
+                             "photon_tpu_torch.utils.rng"}
 
 
 class _Reached(Exception):
